@@ -1,24 +1,33 @@
-"""Drive the PyTorch/CUDA port's longwave generation chain on one GPU.
+"""Drive the PyTorch/CUDA port's generation chains on one GPU.
 
-Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
-with one NVIDIA Hopper card.  It needs neither jax nor h5py, and builds the
-port's CUDA kernels from ``ecckd_tpu_torch/csrc`` at first use.
+Usage: ``python3 chip_smoke.py`` from the root of a checkout,
+on a machine with one NVIDIA Hopper card.  It needs neither jax nor h5py,
+and builds the port's CUDA kernels from ``ecckd_tpu_torch/csrc`` at first
+use.
 
 Phases (every failed check raises; nothing is caught):
   1. the card's name and power limit;
   2. the kernel build;
-  3. kernels K1 (LW sweep) and K3 (fused interval sum) against their plain
-     PyTorch versions at pipeline shapes (2^20 wavenumbers, 50 layers, 64
-     intervals), float64 and float32, with CUDA-event times;
-  4. the small test rig (1024 wavenumbers, 15 layers) through the array
-     cores of reorder -> find_g_points -> create_lut on the CPU (plain
-     versions) and twice on the card (kernels): identical g-point ranks,
-     bit-identical repeats;
-  5. the main path at full size: a CKDMIP-shaped synthetic LW spectrum of
-     2^20 wavenumbers x 50 layers (5 temperature profiles) through the same
-     cores, with the checks of tests/test_find_g_points.py.
+  3. kernels K1 (LW sweep), K2 (SW sweep, with and without the reflected
+     beam) and K3 (fused interval sum) against their plain PyTorch versions
+     at pipeline shapes (2^20 wavenumbers, 50 layers, 64 intervals),
+     float64 and float32, with CUDA-event times;
+  4. the small test rigs (1024 wavenumbers, 15 layers; LW, and SW over two
+     bands) through the array cores of reorder -> find_g_points ->
+     create_lut on the CPU (plain versions) and twice on the card
+     (kernels): identical g-point ranks, bit-identical repeats;
+  5. the LW main path at full size: a CKDMIP-shaped synthetic LW spectrum
+     of 2^20 wavenumbers x 50 layers (5 temperature profiles) through the
+     same cores, with the checks of tests/test_find_g_points.py;
+  6. the SW main path at full size: a synthetic SW spectrum of 2^20
+     wavenumbers x 50 layers over 250-50000 cm-1 (5 profiles) and a solar
+     spectrum, two bands (the lower reflects the direct beam), the
+     total-transmission search and a transmission-averaged LUT;
+  7. each main path once more under ``torch.profiler``: wall and device
+     seconds, and the device time of the costliest kernels and copies.
+Launch counts are set to 0 just before each main path and read just after.
 The last line is a JSON object with "ok" and the device; the line before
-it lists each kernel with its launches on the main path, error and times.
+it lists each kernel with its launches on the main paths, error and times.
 """
 
 from __future__ import annotations
@@ -36,6 +45,10 @@ NWAV_FULL = 1 << 20
 NLAY_FULL = 50
 NCOL_FULL = 5
 HR_TOL = 0.2
+# SW heating-rate tolerance (K/day): 4-16 g-points in each band of the SW
+# main path's spectrum
+HR_TOL_SW = 0.5
+SW_BANDS = ([250.0, 10000.0], [10000.0, 50000.0])
 BARS = {torch.float64: 1e-10, torch.float32: 1e-5}
 
 
@@ -90,19 +103,23 @@ def equipartition_like_bounds(n, nreal, npad):
             np.r_[pad, i2].astype(np.int32))
 
 
-def lw_spectrum(nwav, nlay, ncol, seed, nlines, width, wav_max):
-    """Synthetic LW spectrum as tests/synth.py and bench.py write it (lines of
+def lw_spectrum(nwav, nlay, ncol, seed, nlines, width, wav_max,
+                wav_min=1.0, width_unit=None):
+    """Synthetic spectrum as tests/synth.py and bench.py write it (lines of
     varying strength on a continuum; od stored as float32 and read back
-    as float64), one profile per column with warmer columns."""
+    as float64), one profile per column with warmer columns.  Line widths
+    are drawn from ``width`` in units of ``width_unit`` cm-1 (by default
+    the span over ``wav_max``, as bench.py has it)."""
     rng = np.random.default_rng(seed)
     p_hl = np.exp(np.linspace(np.log(100.0), np.log(1.013e5), nlay + 1))
-    wav = np.linspace(1.0, wav_max, nwav)
+    wav = np.linspace(wav_min, wav_max, nwav)
     dwav = np.gradient(wav)
     k = np.full(nwav, 1e-4)
     span = wav[-1] - wav[0]
     centres = rng.uniform(wav[0], wav[-1], nlines)
     strengths = 10.0 ** rng.uniform(-1, 3.5, nlines)
-    widths = rng.uniform(*width, nlines) * (span / wav_max)
+    unit = span / wav_max if width_unit is None else width_unit
+    widths = rng.uniform(*width, nlines) * unit
     for c0, s, wd in zip(centres, strengths, widths):
         k += s / (1.0 + ((wav - c0) / wd) ** 2)
     col_mass = np.diff(p_hl) / 9.80665 / 0.02897
@@ -116,6 +133,18 @@ def lw_spectrum(nwav, nlay, ncol, seed, nlines, width, wav_max):
             d_wavenumber=dwav, optical_depth=od.astype(np.float32)
             .astype(np.float64), ncol=ncol))
     return profiles
+
+
+def sw_spectrum(nwav, nlay, ncol, seed, nlines=60):
+    """Synthetic SW spectrum as tests/synth.py writes it with is_sw (250 to
+    50000 cm-1, line widths scaled to the span) and the solar spectrum of
+    its synth_ssi_file, normalised to 1361 W m-2."""
+    profiles = lw_spectrum(nwav, nlay, ncol, seed, nlines, (2.0, 30.0),
+                           50000.0, wav_min=250.0,
+                           width_unit=(50000.0 - 250.0) / 2000.0)
+    wav = profiles[0].wavenumber
+    ssi = 20.0 * np.exp(-((wav - 20000.0) / 15000.0) ** 2) + 0.5
+    return profiles, ssi * (1361.0 / ssi.sum())
 
 
 # ---------------------------------------------------------------- phases
@@ -144,10 +173,13 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    """K1 and K3 against their plain versions at pipeline shapes."""
+    """K1, K2 (both variants) and K3 against their plain versions at
+    pipeline shapes."""
     from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                              sweep_lw_intervals,
-                                             sweep_lw_plain)
+                                             sweep_lw_plain,
+                                             sweep_sw_intervals,
+                                             sweep_sw_plain)
     from ecckd_tpu_torch.ops.segments import interval_sum_fused, part_of
 
     n, nlay = NWAV_FULL, NLAY_FULL
@@ -162,6 +194,12 @@ def phase_kernels(dev):
     emis = rng.uniform(0.9, 1.0, n)
     surfp = np.abs(rng.normal(8, 1, n))
     fd = np.abs(rng.normal(1, 0.2, n))
+    # SW: direct beam through a thinner column, so the surface fluxes that
+    # the reflected beam starts from are not all negligible
+    ssi = np.abs(rng.normal(1.0, 0.3, n))
+    sw_bg_od = rng.gamma(0.5, 0.02, (nlay, n))
+    sw_od_fit = rng.gamma(0.5, 0.02, (nlay, len(i1)))
+    albedo = np.where(np.arange(n) < n // 2, 0.15, 0.0)
     seg = np.maximum(0, np.searchsorted(i1, np.arange(n), side="right")
                      - 1).astype(np.int32)
     out = {}
@@ -170,6 +208,8 @@ def phase_kernels(dev):
         it = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
         sweep_args = (f(planck), f(bg_od), f(od_fit), it(seg), f(emis),
                       f(surfp), it(i1), it(i2))
+        sw_args = (f(ssi), f(sw_bg_od), f(sw_od_fit), it(seg), it(i1),
+                   it(i2), 0.5, f(albedo))
         w_num = sweep_args[0][1:]
         m, h, fdt = f(metric), f(hr), f(fd)
         parts = [part_of(m, w_num), part_of(w_num), part_of(h),
@@ -179,6 +219,10 @@ def phase_kernels(dev):
         for name, kern, plain in (
                 ("sweep_lw", lambda: sweep_lw_intervals(*sweep_args),
                  lambda: sweep_lw_plain(*sweep_args)),
+                ("sweep_sw_up", lambda: sweep_sw_intervals(*sw_args, True),
+                 lambda: sweep_sw_plain(*sw_args, True)),
+                ("sweep_sw_noup", lambda: sweep_sw_intervals(*sw_args, False),
+                 lambda: sweep_sw_plain(*sw_args, False)),
                 ("interval_sum",
                  lambda: (fused_interval_sum(parts, n, sweep_args[6],
                                              sweep_args[7]),),
@@ -202,106 +246,211 @@ def phase_kernels(dev):
     return out
 
 
-def run_chain(profiles, device, hr_tol, lut_profiles=None):
+def run_chain(profiles, device, hr_tol, lut_profiles=None, ssi=None,
+              bands=(None, None)):
     """reorder -> find_g_points -> create_lut through the array cores;
-    returns (order, g-points, model, seconds per stage)."""
+    returns (order, g-points, model, seconds per stage).  LW: transmission
+    search and LUT.  SW (``ssi`` given): total-transmission search with
+    the h2o scalings 0.5 and 2.5, transmission-averaged LUT."""
     from ecckd_tpu.config import Config
     from ecckd_tpu_torch.models import ConcDependence
     from ecckd_tpu_torch.tools.common import setup
-    from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_lw_core
-    from ecckd_tpu_torch.tools.find_g_points import (LwGasInput,
-                                                     find_g_points_lw_core)
+    from ecckd_tpu_torch.tools.create_lut import (LutGas, SolarSpectrum,
+                                                  create_lut_core)
+    from ecckd_tpu_torch.tools.find_g_points import (GasInput,
+                                                     find_g_points_core)
     from ecckd_tpu_torch.tools.reorder_spectrum import reorder_core
 
     dev, dtype = setup(Config({"device": device}))
+    sw = ssi is not None
     sp = profiles[0]
     secs = {}
-    t0 = time.perf_counter()
-    order = reorder_core(sp.pressure_hl, sp.wavenumber, sp.d_wavenumber,
-                         sp.optical_depth, device=dev, dtype=dtype)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    secs["reorder"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gas = LwGasInput("h2o", order["rank"], order["band_number"],
-                     order["wavenumber1_band"], order["wavenumber2_band"],
-                     order["sorting_variable"], sp.pressure_hl,
-                     sp.temperature_hl, sp.wavenumber, sp.d_wavenumber,
-                     sp.optical_depth)
-    gp = find_g_points_lw_core([gas], hr_tol, averaging_method="transmission",
-                               device=dev, dtype=dtype)
-    secs["find_g_points"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[stage] = time.perf_counter() - t0
+        return out
+
+    order = timed("reorder", lambda: reorder_core(
+        sp.pressure_hl, sp.wavenumber, sp.d_wavenumber, sp.optical_depth,
+        *bands, threshold_optical_depth=0.25 if sw else 0.5, device=dev,
+        dtype=dtype, do_sw=sw))
+    gas = GasInput("h2o", order["rank"], order["band_number"],
+                   order["wavenumber1_band"], order["wavenumber2_band"],
+                   order["sorting_variable"], sp.pressure_hl,
+                   sp.temperature_hl, sp.wavenumber, sp.d_wavenumber,
+                   sp.optical_depth, min_scaling=0.5, max_scaling=2.5)
+    gp = timed("find_g_points", lambda: find_g_points_core(
+        [gas], hr_tol,
+        averaging_method="total-transmission" if sw else "transmission",
+        device=dev, dtype=dtype, ssi=ssi))
     lut_profiles = profiles if lut_profiles is None else lut_profiles
     lut_gas = LutGas("h2o", ConcDependence.LINEAR,
                      [lambda icol: (lut_profiles[icol], 0.01)])
-    model = create_lut_lw_core(gp.g_point, gp.wavenumber1_band,
-                               gp.wavenumber2_band, gp.band_number,
-                               [lut_gas], averaging_method="transmission",
-                               device=dev, dtype=dtype)
-    secs["create_lut"] = time.perf_counter() - t0
+    solar = (SolarSpectrum(ssi, float(ssi.sum()), sp.wavenumber) if sw
+             else None)
+    model = timed("create_lut", lambda: create_lut_core(
+        gp.g_point, gp.wavenumber1_band, gp.wavenumber2_band,
+        gp.band_number, [lut_gas], averaging_method="transmission",
+        device=dev, dtype=dtype, solar=solar,
+        solar_irradiance=gp.solar_irradiance))
     return order, gp, model, secs
 
 
-def phase_small_rig():
-    """The 1024 x 15 h2o rig of tests/synth.py on the CPU and the card."""
-    profiles = lw_spectrum(1024, 15, 5, seed=3, nlines=60, width=(2, 30),
-                           wav_max=2000.0)
-    cpu, gpu, gpu2 = (run_chain(profiles, dev, 0.4)
-                      for dev in ("cpu", "cuda", "cuda"))
+def check_same_runs(cpu, gpu, gpu2, what):
+    """Identical order and g-point ranks on the CPU and the card, and
+    bit-identical card repeats."""
     check(np.array_equal(cpu[0]["rank"], gpu[0]["rank"]),
-          "identical order ranks on CPU and card")
-    for a, b, what in ((cpu, gpu, "CPU and card"), (gpu, gpu2, "repeats")):
+          f"{what}: identical order ranks on CPU and card")
+    for a, b, pair in ((cpu, gpu, "CPU and card"), (gpu, gpu2, "repeats")):
         ga, gb = a[1].gases[0], b[1].gases[0]
         check(np.array_equal(ga.rank1, gb.rank1)
               and np.array_equal(ga.rank2, gb.rank2)
               and np.array_equal(a[1].g_point, b[1].g_point),
-              f"identical g-point ranks ({what})")
+              f"{what}: identical g-point ranks ({pair})")
     ga, gb = gpu[1].gases[0], gpu2[1].gases[0]
     check(np.array_equal(ga.error, gb.error)
           and np.array_equal(gpu[2].single_gas_data[0].molar_abs,
                              gpu2[2].single_gas_data[0].molar_abs),
-          "bit-identical repeat on the card")
-    log(f"[small rig] ng {len(gpu[1].band_number)}, rank1 {ga.rank1.tolist()}"
-        f"; CPU and card ranks identical, card repeats bit-identical")
+          f"{what}: bit-identical repeat on the card")
+    log(f"[small rig] {what}: ng {len(gpu[1].band_number)}, rank1 "
+        f"{ga.rank1.tolist()}; CPU and card ranks identical, card repeats "
+        "bit-identical")
 
 
-def phase_main_path():
-    from ecckd_tpu_torch.ops.kernels import KERNELS, reset_launch_counts
+def phase_small_rig():
+    """The 1024 x 15 h2o rigs of tests/synth.py on the CPU and the card:
+    LW as tests/test_torch_pipeline.py, SW over two bands as
+    tests/test_torch_sw_pipeline.py."""
+    profiles = lw_spectrum(1024, 15, 5, seed=3, nlines=60, width=(2, 30),
+                           wav_max=2000.0)
+    check_same_runs(*(run_chain(profiles, dev, 0.4)
+                      for dev in ("cpu", "cuda", "cuda")), "LW")
+    profiles, ssi = sw_spectrum(1024, 15, 6, seed=11)
+    check_same_runs(*(run_chain(profiles, dev, 0.5, ssi=ssi,
+                                bands=SW_BANDS)
+                      for dev in ("cpu", "cuda", "cuda")), "SW two bands")
 
+
+def chain_checks(what, gp, model, nwav, ncol, nlay, hr_tol):
+    """The checks of tests/test_find_g_points.py on a main path's result,
+    band by band."""
+    g = gp.gases[0]
+    ng = len(gp.band_number)
+    check(g.rank1[0] == 0 and np.all(g.rank1[1:] == g.rank2[:-1] + 1)
+          and np.all(g.rank2 >= g.rank1), f"{what}: contiguous g-point ranks")
+    check(g.rank2[-1] == nwav - 1, f"{what}: ranks cover the spectrum")
+    check(gp.g_point.min() >= 0
+          and set(np.unique(gp.g_point)) == set(range(ng)),
+          f"{what}: every wavenumber assigned, every g-point occupied")
+    check(np.all(g.error >= 0) and g.error.max() < 2.0 * hr_tol,
+          f"{what}: errors below twice the tolerance (max "
+          f"{g.error.max():.4f})")
+    k = model.single_gas_data[0].molar_abs
+    check(k.shape == (ncol, nlay, ng), f"{what}: LUT shape {k.shape}")
+    check(np.all(np.isfinite(k)) and np.all(k > 0),
+          f"{what}: LUT finite, positive")
+    log(f"[{what}] ng {ng} (per band {np.asarray(g.n_g_points).tolist()}); "
+        f"errors {np.round(g.error, 4).tolist()}; LUT "
+        f"{k.min():.3e}..{k.max():.3e}")
+    return g
+
+
+def drive(what, profiles, hr_tol, ssi=None, bands=(None, None)):
+    """One main path with the launch counts set to 0 just before it and
+    read just after; returns (g-points, model, seconds, launches)."""
+    from ecckd_tpu_torch.ops.kernels import (KERNELS, reset_launch_counts,
+                                             sweep_sw_intervals)
+    reset_launch_counts()
+    _, gp, model, secs = run_chain(profiles, "cuda", hr_tol, ssi=ssi,
+                                   bands=bands)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    launches["sweep_sw_with_upwelling"] = \
+        sweep_sw_intervals.upwelling_launches
+    log(f"[{what}] seconds: reorder {secs['reorder']:.2f}, find_g_points "
+        f"{secs['find_g_points']:.2f}, create_lut {secs['create_lut']:.2f}, "
+        f"total {sum(secs.values()):.2f}")
+    log(f"[{what}] launches {launches}")
+    return gp, model, secs, launches
+
+
+def phase_lw_main_path():
     t0 = time.perf_counter()
     profiles = lw_spectrum(NWAV_FULL, NLAY_FULL, NCOL_FULL, seed=0,
                            nlines=120, width=(2.0, 40.0), wav_max=2500.0)
-    log(f"[main] spectrum {NWAV_FULL} x {NLAY_FULL}, {NCOL_FULL} profiles "
-        f"built on the host in {time.perf_counter() - t0:.1f} s")
-    reset_launch_counts()
-    order, gp, model, secs = run_chain(profiles, "cuda", HR_TOL)
-    launches = {k.__name__: k.launches for k in KERNELS}
-    g = gp.gases[0]
-    ng = len(gp.band_number)
-    log(f"[main] seconds: reorder {secs['reorder']:.2f}, find_g_points "
-        f"{secs['find_g_points']:.2f}, create_lut {secs['create_lut']:.2f}, "
-        f"total {sum(secs.values()):.2f}")
-    log(f"[main] ng {ng}; launches on the main path {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} launched on the main path")
-    # The checks of tests/test_find_g_points.py
-    check(g.rank1[0] == 0 and np.all(g.rank1[1:] == g.rank2[:-1] + 1)
-          and np.all(g.rank2 >= g.rank1), "contiguous g-point ranks")
-    check(g.rank2[-1] == NWAV_FULL - 1, "ranks cover the spectrum")
-    check(gp.g_point.min() >= 0
-          and set(np.unique(gp.g_point)) == set(range(ng)),
-          "every wavenumber assigned, every g-point occupied")
-    check(np.all(g.error >= 0) and g.error.max() < 2.0 * HR_TOL,
-          f"errors below twice the tolerance (max {g.error.max():.4f})")
-    k = model.single_gas_data[0].molar_abs
-    check(k.shape == (NCOL_FULL, NLAY_FULL, ng), f"LUT shape {k.shape}")
-    check(np.all(np.isfinite(k)) and np.all(k > 0), "LUT finite, positive")
+    log(f"[LW main] spectrum {NWAV_FULL} x {NLAY_FULL}, {NCOL_FULL} "
+        f"profiles built on the host in {time.perf_counter() - t0:.1f} s")
+    gp, model, secs, launches = drive("LW main", profiles, HR_TOL)
+    for name in ("sweep_lw_intervals", "fused_interval_sum"):
+        check(launches[name] > 0, f"{name} launched on the LW main path")
+    chain_checks("LW main", gp, model, NWAV_FULL, NCOL_FULL, NLAY_FULL,
+                 HR_TOL)
     check(np.all(np.isfinite(model.planck_function))
           and np.all(model.planck_function > 0), "Planck LUT positive")
-    log(f"[main] errors {np.round(g.error, 4).tolist()}; LUT "
-        f"{k.min():.3e}..{k.max():.3e}")
-    return launches, secs
+    return profiles, launches
+
+
+def phase_sw_main_path():
+    t0 = time.perf_counter()
+    profiles, ssi = sw_spectrum(NWAV_FULL, NLAY_FULL, NCOL_FULL, seed=11,
+                                nlines=120)
+    log(f"[SW main] spectrum {NWAV_FULL} x {NLAY_FULL} over 250-50000 "
+        f"cm-1, {NCOL_FULL} profiles built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gp, model, secs, launches = drive("SW main", profiles, HR_TOL_SW,
+                                      ssi=ssi, bands=SW_BANDS)
+    nup = launches["sweep_sw_with_upwelling"]
+    check(0 < nup < launches["sweep_sw_intervals"],
+          "K2 launched with and without the reflected beam on the SW main "
+          "path")
+    check(launches["fused_interval_sum"] > 0,
+          "fused_interval_sum launched on the SW main path")
+    g = chain_checks("SW main", gp, model, NWAV_FULL, NCOL_FULL, NLAY_FULL,
+                     HR_TOL_SW)
+    per_band = np.asarray(g.n_g_points)
+    check(len(per_band) == 2 and np.all((per_band >= 4) & (per_band <= 16)),
+          f"4-16 g-points in each band (got {per_band.tolist()})")
+    check(abs(gp.solar_irradiance.sum() / ssi.sum() - 1.0) < 0.02
+          and abs(model.solar_irradiance.sum() / ssi.sum() - 1.0) < 0.02,
+          "per-g solar irradiance sums to the SSI total within 2%")
+    ray = model.rayleigh_molar_scat
+    check(np.all(np.isfinite(ray)) and np.all(ray >= 0),
+          "Rayleigh coefficients finite and >= 0")
+    return profiles, ssi, launches
+
+
+def phase_profile(lw_profiles, sw_profiles, ssi):
+    """Each main path once more under torch.profiler: wall and device
+    seconds, and the device time of the costliest kernels and copies."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for what, args in (("LW", (lw_profiles, "cuda", HR_TOL)),
+                       ("SW", (sw_profiles, "cuda", HR_TOL_SW))):
+        kw = dict(ssi=ssi, bands=SW_BANDS) if what == "SW" else {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            secs = run_chain(*args, **kw)[3]
+            wall = time.perf_counter() - t0
+        rows = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: -e.self_device_time_total)
+        device_us = sum(e.self_device_time_total for e in rows)
+        log(f"[profile {what}] wall {wall:.3f} s, stages "
+            f"{ {k: round(v, 3) for k, v in secs.items()} }, device time "
+            f"{device_us / 1e6:.3f} s")
+        for e in rows[:12]:
+            log(f"[profile {what}]   {e.self_device_time_total / 1e3:9.3f} "
+                f"ms {e.count:6d} x  {e.key[:90]}")
+
+
+def kernel_entry(name, source, replaces, launches, res):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=res["max_abs_err"],
+                ms=res["ms"], plain_ms=res["plain_ms"])
 
 
 def main() -> int:
@@ -315,23 +464,23 @@ def main() -> int:
     phase_build()
     times = phase_kernels(dev)
     phase_small_rig()
-    launches, _ = phase_main_path()
+    lw_profiles, lw_launches = phase_lw_main_path()
+    sw_profiles, ssi, sw_launches = phase_sw_main_path()
+    phase_profile(lw_profiles, sw_profiles, ssi)
     check("jax" not in sys.modules, "jax never imported")
     f64 = times["f64"]
     kernels = [
-        dict(name="sweep_lw", route="cuda",
-             source="ecckd_tpu_torch/csrc/sweep_lw.cu",
-             replaces="ecckd_tpu/ops/pallas/sweep_lw.py:305",
-             launches=launches["sweep_lw_intervals"],
-             max_abs_err=f64["sweep_lw"]["max_abs_err"],
-             ms=f64["sweep_lw"]["ms"], plain_ms=f64["sweep_lw"]["plain_ms"]),
-        dict(name="interval_sum", route="cuda",
-             source="ecckd_tpu_torch/csrc/interval_sum.cu",
-             replaces="ecckd_tpu/ops/segments.py:123",
-             launches=launches["fused_interval_sum"],
-             max_abs_err=f64["interval_sum"]["max_abs_err"],
-             ms=f64["interval_sum"]["ms"],
-             plain_ms=f64["interval_sum"]["plain_ms"]),
+        kernel_entry("sweep_lw", "ecckd_tpu_torch/csrc/sweep_lw.cu",
+                     "ecckd_tpu/ops/pallas/sweep_lw.py:305",
+                     lw_launches["sweep_lw_intervals"], f64["sweep_lw"]),
+        kernel_entry("sweep_sw", "ecckd_tpu_torch/csrc/sweep_sw.cu",
+                     "ecckd_tpu/ops/pallas/sweep_sw.py:159",
+                     sw_launches["sweep_sw_intervals"], f64["sweep_sw_up"]),
+        kernel_entry("interval_sum", "ecckd_tpu_torch/csrc/interval_sum.cu",
+                     "ecckd_tpu/ops/segments.py:123",
+                     lw_launches["fused_interval_sum"]
+                     + sw_launches["fused_interval_sum"],
+                     f64["interval_sum"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,12 +2,13 @@
 
 A second package beside the JAX reference ``ecckd_tpu``, with the same
 layout (``ops``, ``partition``, ``models``, ``tools``).  Plain tensor code is
-PyTorch; the two kernels on the longwave generation path are written by hand
-for Hopper in CUDA C++ (``csrc/``) and bound with ctypes
-(``ops/kernels/``):
+PyTorch; the three kernels on the generation path are written by hand for
+Hopper in CUDA C++ (``csrc/``) and bound with ctypes (``ops/kernels/``):
 
 * K1, the LW broadband sweep with per-interval flux sums
   (replaces ``ecckd_tpu/ops/pallas/sweep_lw.py``);
+* K2, the SW broadband sweep with per-interval flux sums
+  (replaces ``ecckd_tpu/ops/pallas/sweep_sw.py``);
 * K3, the fused multi-row interval sum
   (replaces ``ecckd_tpu/ops/segments.py:_isum_pallas_kernel``).
 

@@ -1,12 +1,13 @@
-"""CkdModel (longwave): the CKD gas-optics model container and its
-ckd-definition file.
+"""CkdModel: the CKD gas-optics model container and its ckd-definition
+file.
 
 PyTorch-package counterpart of ``ecckd_tpu/models/ckd_model.py``
 (ref ckd_model.{h,cpp}).  The container holds numpy arrays; what is ported
-so far is what create_lut needs on the longwave side: :class:`GasData`,
-the LW constructor and :meth:`CkdModel.write` with the reference's exact
-ckd-definition schema (ckd_model.cpp:288-641).  Reading, optical-depth
-evaluation and the optimizer state come with optimize_lut (ROADMAP).
+so far is what create_lut needs: :class:`GasData`, the LW and SW
+constructor (SW models get their per-g-point Rayleigh coefficient) and
+:meth:`CkdModel.write` with the reference's exact ckd-definition schema
+(ckd_model.cpp:288-641).  Reading, optical-depth evaluation and the
+optimizer state come with optimize_lut (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ecckd_tpu.constants import K_NAME
+from ecckd_tpu.constants import K_NAME, MOLES_PER_PA, REFERENCE_COS_SZA
+from ..ops.rayleigh import rayleigh_molar_scattering_coeff
 from .gas_optics import ConcDependence
 
 
@@ -39,14 +41,22 @@ class GasData:
         return self.molecule.upper()
 
 
+def _optional(a):
+    return None if a is None else np.asarray(a, np.float64)
+
+
 class CkdModel:
-    """A longwave correlated k-distribution model."""
+    """A correlated k-distribution model: longwave with a Planck LUT, or
+    shortwave with ``solar_irradiance`` per g-point."""
 
     def __init__(self, single_gas_data: Sequence[GasData], pressure,
                  temperature, wavenumber1, wavenumber2, gpoint_fraction,
                  wavenumber1_band, wavenumber2_band, band_number,
-                 temperature_planck, planck_function, history: str = "",
-                 config: str = "", summary: str = "", model_id: str = ""):
+                 temperature_planck=None, planck_function=None,
+                 solar_irradiance=None, ssi=None, rayleigh_molar_scat=None,
+                 reference_total_solar_irradiance: float = -1.0,
+                 history: str = "", config: str = "", summary: str = "",
+                 model_id: str = ""):
         self.single_gas_data = list(single_gas_data)
         self.log_pressure = np.log(np.asarray(pressure, np.float64))
         self.temperature = np.asarray(temperature, np.float64)
@@ -56,8 +66,14 @@ class CkdModel:
         self.wavenumber1_band = np.asarray(wavenumber1_band, np.float64)
         self.wavenumber2_band = np.asarray(wavenumber2_band, np.float64)
         self.band_number = np.asarray(band_number, np.int32)
-        self.temperature_planck = np.asarray(temperature_planck, np.float64)
-        self.planck_function = np.asarray(planck_function, np.float64)
+        self.temperature_planck = _optional(temperature_planck)
+        self.planck_function = _optional(planck_function)
+        self.solar_irradiance = _optional(solar_irradiance)
+        # SSI per spectral interval of gpoint_fraction's grid
+        self.ssi = _optional(ssi)
+        self.rayleigh_molar_scat = _optional(rayleigh_molar_scat)
+        self.reference_total_solar_irradiance = float(
+            reference_total_solar_irradiance)
         self.history = history
         self.config = config
         self.summary = summary
@@ -67,6 +83,25 @@ class CkdModel:
         self.wavenumber_hr: Optional[np.ndarray] = None
         self.g_point: Optional[np.ndarray] = None
         self.save_min_max = True
+        if self.is_sw() and self.rayleigh_molar_scat is None:
+            self.calc_rayleigh_molar_scat()
+
+    def is_sw(self) -> bool:
+        return self.solar_irradiance is not None
+
+    def calc_rayleigh_molar_scat(self):
+        """Per-g-point Rayleigh coefficient: the SSI-weighted transmission
+        of a 1000 hPa column at the reference zenith angle, per interval,
+        mapped to g-points and back to a coefficient (ref
+        ckd_model.h:368-385)."""
+        wav_mid = 0.5 * (self.wavenumber1 + self.wavenumber2)
+        molar_column = 1.0e5 * MOLES_PER_PA
+        od_hr = molar_column * rayleigh_molar_scattering_coeff(wav_mid)
+        trans_hr = np.exp(-od_hr / REFERENCE_COS_SZA)
+        trans = (self.gpoint_fraction @ (self.ssi * trans_hr)
+                 / (self.gpoint_fraction @ self.ssi))
+        od = -np.log(np.maximum(1.0e-14, trans)) * REFERENCE_COS_SZA
+        self.rayleigh_molar_scat = od / molar_column
 
     @property
     def molecules(self):
@@ -101,7 +136,10 @@ class CkdModel:
         w.define_dimension("temperature", self.nt)
         w.define_dimension("pressure", self.np_)
         w.define_dimension("g_point", self.ng)
-        w.define_dimension("temperature_planck", len(self.temperature_planck))
+        sw = self.is_sw()
+        if not sw:
+            w.define_dimension("temperature_planck",
+                               len(self.temperature_planck))
         w.define_dimension("wavenumber", self.nwav)
         w.define_dimension("band", len(self.wavenumber1_band))
         save_g = self.wavenumber_hr is not None
@@ -118,14 +156,33 @@ class CkdModel:
         w.define_variable("pressure", "float", "pressure")
         w.write_long_name("Pressure", "pressure")
         w.write_units("Pa", "pressure")
-        w.define_variable("temperature_planck", "float", "temperature_planck")
-        w.write_long_name("Temperature for Planck function look-up table",
-                          "temperature_planck")
-        w.write_units("K", "temperature_planck")
-        w.define_variable("planck_function", "float", "temperature_planck",
-                          "g_point")
-        w.write_long_name("Planck function look-up table", "planck_function")
-        w.write_units("W m-2", "planck_function")
+        if sw:
+            if self.reference_total_solar_irradiance > 0.0:
+                w.define_variable("reference_total_solar_irradiance", "float")
+                w.write_long_name("Reference total solar irradiance",
+                                  "reference_total_solar_irradiance")
+                w.write_units("W m-2", "reference_total_solar_irradiance")
+            w.define_variable("solar_irradiance", "float", "g_point")
+            w.write_long_name("Solar irradiance across each g point",
+                              "solar_irradiance")
+            w.write_units("W m-2", "solar_irradiance")
+            if self.ssi is not None:
+                w.define_variable("solar_spectral_irradiance", "float",
+                                  "wavenumber")
+                w.write_long_name("Solar irradiance in each spectral interval",
+                                  "solar_spectral_irradiance")
+                w.write_units("W m-2", "solar_spectral_irradiance")
+        else:
+            w.define_variable("temperature_planck", "float",
+                              "temperature_planck")
+            w.write_long_name("Temperature for Planck function look-up table",
+                              "temperature_planck")
+            w.write_units("K", "temperature_planck")
+            w.define_variable("planck_function", "float",
+                              "temperature_planck", "g_point")
+            w.write_long_name("Planck function look-up table",
+                              "planck_function")
+            w.write_units("W m-2", "planck_function")
 
         w.define_variable("wavenumber1", "float", "wavenumber")
         w.write_long_name("Lower wavenumber bound of spectral interval",
@@ -154,9 +211,16 @@ class CkdModel:
             w.define_variable("g_point", "short", "wavenumber_hr")
             w.write_long_name("G point", "g_point")
 
+        xwave = "shortwave" if sw else "longwave"
         write_standard_attributes(
             w, "Definition of a correlated k-distribution model for "
-            "longwave gas absorption")
+            f"{xwave} gas absorption")
+        if sw:
+            w.define_variable("rayleigh_molar_scattering_coeff", "float",
+                              "g_point")
+            w.write_long_name("Rayleigh molar scattering coefficient in each "
+                              "g-point", "rayleigh_molar_scattering_coeff")
+            w.write_units("m2 mol-1", "rayleigh_molar_scattering_coeff")
         if self.model_id:
             w.write_attribute(self.model_id, "model_id")
         w.write_attribute(" ".join(self.molecules), "constituent_id")
@@ -175,7 +239,7 @@ class CkdModel:
             self.summary = (
                 "This file contains the description of a correlated "
                 "k-distribution model for computing\n"
-                "longwave gas absorption in the terrestrial atmosphere.  "
+                f"{xwave} gas absorption in the terrestrial atmosphere.  "
                 "The molar absorption coefficient\n"
                 "of each gas and each g point (k term or spectral interval) "
                 "is implemented as a look-up\n"
@@ -189,8 +253,18 @@ class CkdModel:
         w.write(self.ngas(), "n_gases")
         w.write(np.exp(self.log_pressure), "pressure")
         w.write(self.temperature, "temperature")
-        w.write(self.temperature_planck, "temperature_planck")
-        w.write(self.planck_function, "planck_function")
+        if sw:
+            if self.reference_total_solar_irradiance > 0.0:
+                w.write(self.reference_total_solar_irradiance,
+                        "reference_total_solar_irradiance")
+            w.write(self.solar_irradiance, "solar_irradiance")
+            w.write(self.rayleigh_molar_scat,
+                    "rayleigh_molar_scattering_coeff")
+            if self.ssi is not None:
+                w.write(self.ssi, "solar_spectral_irradiance")
+        else:
+            w.write(self.temperature_planck, "temperature_planck")
+            w.write(self.planck_function, "planck_function")
         w.write(self.wavenumber1, "wavenumber1")
         w.write(self.wavenumber2, "wavenumber2")
         w.write(self.gpoint_fraction, "gpoint_fraction")

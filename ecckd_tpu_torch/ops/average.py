@@ -1,8 +1,8 @@
-"""Spectral averaging, longwave half: candidate-interval fits and g-point
-LUT averaging.
+"""Spectral averaging: LW and SW candidate-interval fits and g-point LUT
+averaging.
 
 PyTorch counterpart of ``ecckd_tpu/ops/average.py``
-(ref find_g_points.cpp:54-110, average_optical_depth.cpp:21-197).
+(ref find_g_points.cpp:54-204, average_optical_depth.cpp:21-197).
 Reference quirks reproduced deliberately: the 0.9999999999999999
 transmission clamp (average_optical_depth.cpp:48), the LW logarithmic fit's
 Planck weights at the layer base for the numerator and the layer top for
@@ -113,6 +113,92 @@ def fit_optical_depth_lw(averaging_method, planck_hl, metric, i1, i2):
     parts, rows, finish = fit_parts_lw(averaging_method, planck_hl, metric)
     sums = fused_interval_sum(parts, metric.shape[-1], i1, i2,
                               dtype=metric.dtype)
+    return finish(sums, i1, i2)
+
+
+def fit_parts_sw(averaging_method, ssi, metric):
+    """Decomposed SW interval fit with solar-irradiance weights (ref
+    find_g_points.cpp:113-168); see :func:`fit_parts_lw`."""
+    nlay = metric.shape[0]
+    if averaging_method in ("linear", "transmission", "transmission-2",
+                            "square-root"):
+        parts = [part_of(metric, ssi), part_of(ssi)]
+
+        def finish(sums, i1, i2):
+            wsum_m, wsum = sums[:nlay], sums[nlay]
+            norm = 1.0 / wsum
+            if averaging_method == "linear":
+                return wsum_m * norm
+            if averaging_method == "square-root":
+                fit = wsum_m * norm
+                return fit * fit
+            # The clamp goes before the normalisation, as in the reference
+            mean = torch.clamp(wsum_m, max=_trans_clamp(metric.dtype)) * norm
+            return torch.abs(-torch.log1p(-mean) / (
+                LW_DIFFUSIVITY * _METHOD_SCALE[averaging_method]))
+
+        return parts, nlay + 1, finish
+
+    if averaging_method in ("logarithmic", "total-transmission"):
+        return _log_fit_parts(metric, ssi, ssi)
+    raise ValueError(f"Averaging method {averaging_method!r} not understood")
+
+
+def fit_optical_depth_sw(averaging_method, ssi, metric, i1, i2):
+    """Fitted (grey) od (nlay, nseg) per layer for each rank interval
+    [i1, i2] with SW solar-irradiance weighting."""
+    parts, rows, finish = fit_parts_sw(averaging_method, ssi, metric)
+    sums = fused_interval_sum(parts, metric.shape[-1], i1, i2,
+                              dtype=metric.dtype)
+    return finish(sums, i1, i2)
+
+
+def total_trans_fit_parts(ssi, bg_od, od):
+    """Decomposed total-transmission fit (ref find_g_points.cpp:173-204):
+    ``(parts, rows, finish)`` as :func:`fit_parts_lw`.
+
+    The fit needs, per interval, the broadband direct flux at secant 2 at
+    every level with and without the target gas.  Those 2*nlay+1 rows
+    depend on the spectrum alone, not on the interval bounds, so they are
+    materialised once (ssi, then the background-only fluxes, then the
+    fluxes with the gas) and every probe reduces them as plain
+    :func:`part_of` rows that kernel K3 takes, together with the linear
+    fallback numerator ``od * ssi``."""
+    sec = 2.0
+    nlay = od.shape[0]
+    levels = torch.cat([ssi[None, :],
+                        ssi * torch.exp(-sec * torch.cumsum(bg_od, dim=0)),
+                        ssi * torch.exp(-sec * torch.cumsum(bg_od + od,
+                                                            dim=0))])
+
+    def finish(sums, i1, i2):
+        top = sums[0]
+        bb_bg = sums[1:nlay + 1]
+        bb = sums[nlay + 1:2 * nlay + 1]
+        bb_bg_above = torch.cat([top[None], bb_bg[:-1]])
+        bb_above = torch.cat([top[None], bb[:-1]])
+        ok = (bb_bg > 0.0) & (bb > 0.0)
+        safe_bg = torch.where(ok, bb_bg, 1.0)
+        safe = torch.where(ok, bb, 1.0)
+        # The floor is 1e-300 rounded to the dtype: 0 in float32, as in JAX
+        bg_fit = -0.5 * torch.log(safe_bg / torch.clamp(bb_bg_above,
+                                                        min=1e-300))
+        fit = (-0.5 * torch.log(safe / torch.clamp(bb_above, min=1e-300))
+               - bg_fit)
+        linear = sums[2 * nlay + 1:] / top
+        # A profile with any empty flux falls back to the linear fit
+        # whole, as the reference overwrites the whole vector
+        any_bad = torch.any(~ok, dim=0)
+        return torch.where(any_bad[None, :], linear, fit)
+
+    return [part_of(levels), part_of(od, ssi)], 3 * nlay + 1, finish
+
+
+def fit_optical_depth_sw_total_trans(ssi, bg_od, od, i1, i2):
+    """Total-transmission fitted od (nlay, nseg) (ref
+    find_g_points.cpp:173-204)."""
+    parts, rows, finish = total_trans_fit_parts(ssi, bg_od, od)
+    sums = fused_interval_sum(parts, od.shape[-1], i1, i2, dtype=od.dtype)
     return finish(sums, i1, i2)
 
 

@@ -6,11 +6,13 @@ the CPU it runs the kernel's plain PyTorch version instead.
 """
 
 from .sweep_lw import sweep_lw_intervals, sweep_lw_plain
+from .sweep_sw import sweep_sw_intervals, sweep_sw_plain
 from .interval_sum import fused_interval_sum
 
-KERNELS = (sweep_lw_intervals, fused_interval_sum)
+KERNELS = (sweep_lw_intervals, sweep_sw_intervals, fused_interval_sum)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    sweep_sw_intervals.upwelling_launches = 0

@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels of ``ecckd_tpu_torch/csrc``.
 
-The ``.cu`` sources have a plain C interface and are compiled by ``nvcc``
-into one shared library, loaded with :mod:`ctypes`.  The library goes into
+The ``.cu`` sources have a plain C interface.  Each is compiled by its own
+``nvcc``, all at once, and the objects are linked into one shared library,
+loaded with :mod:`ctypes`.  The library goes into
 ``build/ecckd_tpu_torch/`` at the root of the checkout, under a name that
 carries a hash of the sources and flags, so it is built at first use and
 rebuilt whenever a source changes.  Nothing here runs at import time.
@@ -22,10 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ecckd_tpu_torch"
-SOURCES = ("sweep_lw.cu", "interval_sum.cu")
+SOURCES = ("sweep_lw.cu", "sweep_sw.cu", "interval_sum.cu")
 HEADERS = ("interval_reduce.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +37,8 @@ _SIGNATURES = {
     "ecckd_chunk_size": (),
     "ecckd_sweep_lw_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_sweep_lw_f32": (_P,) * 10 + (_I, _I, _I, _P),
+    "ecckd_sweep_sw_f64": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
+    "ecckd_sweep_sw_f32": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
     "ecckd_interval_sum_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_interval_sum_f32": (_P,) * 10 + (_I, _I, _I, _P),
 }
@@ -66,20 +70,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds):
+    """Run the commands at once; return their joined output or raise
+    with the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def _compile(target: Path) -> str:
-    """Compile the sources into ``target`` and return nvcc's report."""
+    """Compile each source into an object, all at once, link the objects
+    into ``target`` and return nvcc's report."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)   # atomic: a concurrent build sees old or new
-    report = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / (s + ".o")) for s in SOURCES]
+        report = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                       for s, o in zip(SOURCES, objs)])
+        lib = str(Path(tmpdir) / "lib.so")
+        report += _run([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", lib,
+                         *objs]])
+        os.replace(lib, target)   # atomic: a concurrent build sees old or new
     target.with_suffix(".log").write_text(report)
     return report
 

@@ -28,18 +28,20 @@ def sweep_lw_plain(planck_hl, bg_od, od_fit, seg_of_wav, surf_emissivity,
                               surf_planck, i1, i2)
 
 
-def _check(name, t, dtype, shape, device):
+def _check(kernel, name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and
+    ``shape`` on ``device``."""
     if t.device != device:
-        raise ValueError(f"sweep_lw: {name} is on {t.device}, expected "
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
                          f"{device}")
     if t.dtype != dtype:
-        raise TypeError(f"sweep_lw: {name} has dtype {t.dtype}, expected "
+        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected "
                         f"{dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"sweep_lw: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"sweep_lw: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def sweep_lw_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
@@ -70,14 +72,14 @@ def sweep_lw_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
     nlay = nlev1 - 1
     nseg = i1.shape[0]
     dev = planck_hl.device
-    _check("planck_hl", planck_hl, dtype, (nlev1, n), dev)
-    _check("bg_od", bg_od, dtype, (nlay, n), dev)
-    _check("od_fit", od_fit, dtype, (nlay, nseg), dev)
-    _check("seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
-    _check("surf_emissivity", surf_emissivity, dtype, (n,), dev)
-    _check("surf_planck", surf_planck, dtype, (n,), dev)
-    _check("i1", i1, torch.int32, (nseg,), dev)
-    _check("i2", i2, torch.int32, (nseg,), dev)
+    _check("sweep_lw", "planck_hl", planck_hl, dtype, (nlev1, n), dev)
+    _check("sweep_lw", "bg_od", bg_od, dtype, (nlay, n), dev)
+    _check("sweep_lw", "od_fit", od_fit, dtype, (nlay, nseg), dev)
+    _check("sweep_lw", "seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
+    _check("sweep_lw", "surf_emissivity", surf_emissivity, dtype, (n,), dev)
+    _check("sweep_lw", "surf_planck", surf_planck, dtype, (n,), dev)
+    _check("sweep_lw", "i1", i1, torch.int32, (nseg,), dev)
+    _check("sweep_lw", "i2", i2, torch.int32, (nseg,), dev)
     lib = _build.library()
     nblocks = -(-n // lib.ecckd_chunk_size())
     out = torch.empty((2 * nlev1, nseg), dtype=dtype, device=dev)

@@ -1,5 +1,5 @@
 from .._shared import equipartition as _ep, gas_data as _gd
-from .cost_kernel import CandidateCostLw, CkdEquipartition
+from .cost_kernel import CandidateCostLw, CandidateCostSw, CkdEquipartition
 
 Equipartition = _ep.Equipartition
 SingleGasData = _gd.SingleGasData

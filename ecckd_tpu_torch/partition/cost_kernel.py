@@ -1,13 +1,13 @@
-"""Batched candidate-interval cost kernel for the longwave g-point search.
+"""Batched candidate-interval cost kernels for the g-point search.
 
-PyTorch counterpart of the LW half of ``ecckd_tpu/partition/cost_kernel.py``
+PyTorch counterpart of ``ecckd_tpu/partition/cost_kernel.py``
 (ref CkdEquipartition::calc_error, find_g_points.cpp:206-426): one call
 evaluates the heating-rate/flux cost of many non-overlapping candidate rank
 intervals.  Per call the work is O(nwav x nlay) whatever the number of
 intervals: kernel K3 reduces the fit operands and the truth rows over every
-interval in one pass, and kernel K1 runs the flux recurrence once, each
-wavenumber carrying the fitted od of its own interval, and sums the fluxes
-per interval.
+interval in one pass, and the sweep kernel (K1 for the longwave, K2 for the
+shortwave) runs the flux recurrence once, each wavenumber carrying the
+fitted od of its own interval, and sums the fluxes per interval.
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ import torch
 
 from ecckd_tpu.constants import HR_WEIGHT
 from .._shared import equipartition as _ep
-from ..ops.average import fit_parts_lw
+from ..ops.average import fit_parts_lw, fit_parts_sw, total_trans_fit_parts
 from ..ops.heating_rate import heating_rate
 from ..ops.kernels.interval_sum import fused_interval_sum
 from ..ops.kernels.sweep_lw import sweep_lw_intervals
+from ..ops.kernels.sweep_sw import sweep_sw_intervals
 from ..ops.segments import part_of
 
 Equipartition = _ep.Equipartition
@@ -53,45 +54,30 @@ def _candidate_cost_from_fluxes(pressure_hl, layer_weight, flux_weight,
         + flux_weight * (dn_err * dn_err + up_err * up_err))
 
 
-class CandidateCostLw:
-    """LW candidate cost over a band of rank-ordered wavenumbers.
+def _truth_parts(hr, flux_dn_surf, flux_up_toa):
+    return [part_of(hr), part_of(flux_dn_surf), part_of(flux_up_toa)]
 
-    The arrays are bound once, as tensors on one device and of one float
-    dtype (:func:`ecckd_tpu_torch.convert.lw_band_state` builds them);
-    :meth:`costs` evaluates a batch of intervals.  Mirrors
-    CkdEquipartition::init_lw (find_g_points.cpp:209-238).
-    """
 
-    def __init__(self, averaging_method: str, flux_weight: float,
-                 layer_weight, pressure_hl, surf_emissivity, surf_planck,
-                 flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr):
-        self.averaging_method = averaging_method
-        self.flux_weight = float(flux_weight)
-        self.device = metric.device
-        self.dtype = metric.dtype
-        self.npoints = int(metric.shape[1])
-        arrays = dict(layer_weight=layer_weight, pressure_hl=pressure_hl,
-                      surf_emissivity=surf_emissivity,
-                      surf_planck=surf_planck, flux_dn_surf=flux_dn_surf,
-                      flux_up_toa=flux_up_toa, planck_hl=planck_hl,
-                      bg_od=bg_od, metric=metric, hr=hr)
+class _CandidateCostBase:
+    """Binding checks, the partition map and the bucket contract shared by
+    the LW and SW kernels; a subclass defines ``_kernel(i1, i2)``."""
+
+    def _bind(self, arrays, like):
+        """Check that every array is a tensor of ``like``'s device and
+        dtype and keep it as an attribute."""
+        self.device = like.device
+        self.dtype = like.dtype
+        self.npoints = int(like.shape[-1])
         for name, a in arrays.items():
             if not isinstance(a, torch.Tensor):
-                raise TypeError(f"CandidateCostLw: {name} must be a tensor")
+                raise TypeError(f"{type(self).__name__}: {name} must be a "
+                                "tensor")
             if a.device != self.device or a.dtype != self.dtype:
                 raise ValueError(
-                    f"CandidateCostLw: {name} is {a.dtype} on {a.device}; "
-                    f"all arrays must be {self.dtype} on {self.device}")
+                    f"{type(self).__name__}: {name} is {a.dtype} on "
+                    f"{a.device}; all arrays must be {self.dtype} on "
+                    f"{self.device}")
             setattr(self, name, a)
-        self.nlay = hr.shape[0]
-        # The fit operands never change between probes, so the parts are
-        # built once; fit and truth rows share one K3 pass per call.
-        parts, rows, finish = fit_parts_lw(averaging_method, planck_hl,
-                                           metric)
-        self._parts = parts + [part_of(hr), part_of(flux_dn_surf),
-                               part_of(flux_up_toa)]
-        self._fit_rows = rows
-        self._fit_finish = finish
         self._ranks = torch.arange(self.npoints, dtype=torch.int32,
                                    device=self.device)
 
@@ -103,23 +89,6 @@ class CandidateCostLw:
         seg = torch.searchsorted(i1, self._ranks, right=True,
                                  out_int32=True) - 1
         return torch.clamp(seg, min=0)
-
-    def _kernel(self, i1, i2):
-        nlay = self.nlay
-        seg_of_wav = self._device_seg_of_wav(i1)
-        sums = fused_interval_sum(self._parts, self.npoints, i1, i2,
-                                  dtype=self.dtype)
-        rows = self._fit_rows
-        od_fit = self._fit_finish(sums[:rows], i1, i2)
-        hr_true = sums[rows:rows + nlay]
-        fd_surf_true = sums[rows + nlay]
-        fu_toa_true = sums[rows + nlay + 1]
-        flux_dn, flux_up = sweep_lw_intervals(
-            self.planck_hl, self.bg_od, od_fit.contiguous(), seg_of_wav,
-            self.surf_emissivity, self.surf_planck, i1, i2)
-        return _candidate_cost_from_fluxes(
-            self.pressure_hl, self.layer_weight, self.flux_weight,
-            flux_dn, flux_up, hr_true, fd_surf_true, fu_toa_true)
 
     def costs(self, i1: np.ndarray, i2: np.ndarray) -> np.ndarray:
         """Candidate costs (float64 numpy) for sorted, non-overlapping
@@ -138,6 +107,192 @@ class CandidateCostLw:
         out = self._kernel(torch.from_numpy(i1p).to(self.device),
                            torch.from_numpy(i2p).to(self.device))
         return out.cpu().numpy()[pad:].astype(np.float64)
+
+
+class CandidateCostLw(_CandidateCostBase):
+    """LW candidate cost over a band of rank-ordered wavenumbers.
+
+    The arrays are bound once, as tensors on one device and of one float
+    dtype (:func:`ecckd_tpu_torch.convert.lw_band_state` builds them);
+    :meth:`costs` evaluates a batch of intervals.  Mirrors
+    CkdEquipartition::init_lw (find_g_points.cpp:209-238).
+    """
+
+    def __init__(self, averaging_method: str, flux_weight: float,
+                 layer_weight, pressure_hl, surf_emissivity, surf_planck,
+                 flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr):
+        self.averaging_method = averaging_method
+        self.flux_weight = float(flux_weight)
+        self._bind(dict(layer_weight=layer_weight, pressure_hl=pressure_hl,
+                        surf_emissivity=surf_emissivity,
+                        surf_planck=surf_planck, flux_dn_surf=flux_dn_surf,
+                        flux_up_toa=flux_up_toa, planck_hl=planck_hl,
+                        bg_od=bg_od, metric=metric, hr=hr), metric)
+        self.nlay = hr.shape[0]
+        # The fit operands never change between probes, so the parts are
+        # built once; fit and truth rows share one K3 pass per call.
+        parts, rows, finish = fit_parts_lw(averaging_method, planck_hl,
+                                           metric)
+        self._parts = parts + _truth_parts(hr, flux_dn_surf, flux_up_toa)
+        self._fit_rows = rows
+        self._fit_finish = finish
+
+    def _kernel(self, i1, i2):
+        nlay = self.nlay
+        seg_of_wav = self._device_seg_of_wav(i1)
+        sums = fused_interval_sum(self._parts, self.npoints, i1, i2,
+                                  dtype=self.dtype)
+        rows = self._fit_rows
+        od_fit = self._fit_finish(sums[:rows], i1, i2)
+        hr_true = sums[rows:rows + nlay]
+        fd_surf_true = sums[rows + nlay]
+        fu_toa_true = sums[rows + nlay + 1]
+        flux_dn, flux_up = sweep_lw_intervals(
+            self.planck_hl, self.bg_od, od_fit.contiguous(), seg_of_wav,
+            self.surf_emissivity, self.surf_planck, i1, i2)
+        return _candidate_cost_from_fluxes(
+            self.pressure_hl, self.layer_weight, self.flux_weight,
+            flux_dn, flux_up, hr_true, fd_surf_true, fu_toa_true)
+
+
+class CandidateCostSw(_CandidateCostBase):
+    """SW candidate cost over a band of rank-ordered wavenumbers (ref
+    CkdEquipartition::init_sw and init_sw_extras,
+    find_g_points.cpp:240-296).
+
+    ``surf_albedo`` is a float (one band) or an (nwav,) tensor; the sweep
+    runs the reflected beam only where some albedo is positive.  With the
+    total-transmission method, ``extras`` holds the truth of the runs with
+    the gas's od scaled by ``min_scaling`` and ``max_scaling`` (tensors
+    ``hr_low``, ``flux_dn_surf_low``, ``flux_up_toa_low`` and the ``_high``
+    three) and the two floats; the cost of an interval is the mean of the
+    two scaled costs (find_g_points.cpp:340-394).
+    :func:`ecckd_tpu_torch.convert.sw_band_state` builds the arguments.
+    """
+
+    def __init__(self, averaging_method: str, flux_weight: float,
+                 layer_weight, cos_sza, pressure_hl, ssi, surf_albedo,
+                 flux_dn_surf, flux_up_toa, bg_od, metric, hr, extras=None):
+        self.averaging_method = averaging_method
+        self.flux_weight = float(flux_weight)
+        self.cos_sza = float(cos_sza)
+        arrays = dict(layer_weight=layer_weight, pressure_hl=pressure_hl,
+                      ssi=ssi, flux_dn_surf=flux_dn_surf,
+                      flux_up_toa=flux_up_toa, bg_od=bg_od, metric=metric,
+                      hr=hr)
+        if isinstance(surf_albedo, torch.Tensor) and surf_albedo.ndim > 0:
+            arrays["surf_albedo"] = surf_albedo
+        else:
+            arrays["surf_albedo"] = torch.full_like(ssi, float(surf_albedo))
+        total_trans = averaging_method == "total-transmission"
+        if total_trans:
+            if extras is None:
+                raise ValueError("CandidateCostSw: total-transmission needs "
+                                 "extras")
+            self.min_scaling = float(extras["min_scaling"])
+            self.max_scaling = float(extras["max_scaling"])
+            arrays.update({f"{v}_{tag}": extras[f"{v}_{tag}"]
+                           for tag in ("low", "high")
+                           for v in ("hr", "flux_dn_surf", "flux_up_toa")})
+        self._bind(arrays, metric)
+        self.with_upwelling = bool(torch.any(self.surf_albedo > 0.0))
+        self.nlay = hr.shape[0]
+        # Fit and truth rows share one K3 pass per call; the truth is that
+        # of the two scaled runs for total-transmission.
+        if total_trans:
+            parts, rows, finish = total_trans_fit_parts(ssi, bg_od, metric)
+            truth = [_truth_parts(self.hr_low, self.flux_dn_surf_low,
+                                  self.flux_up_toa_low),
+                     _truth_parts(self.hr_high, self.flux_dn_surf_high,
+                                  self.flux_up_toa_high)]
+        else:
+            parts, rows, finish = fit_parts_sw(averaging_method, ssi, metric)
+            truth = []
+        self._fit_parts = parts
+        self._truth = truth + [_truth_parts(hr, flux_dn_surf, flux_up_toa)]
+        self._fit_rows = rows
+        self._fit_finish = finish
+
+    def _sums(self, i1, i2, ntruth):
+        """Fitted od (nlay, nseg) and the first ``ntruth`` truth sets, each
+        (hr (nlay, nseg), flux_dn_surf (nseg,), flux_up_toa (nseg,)), from
+        one K3 launch."""
+        nlay = self.nlay
+        truth = self._truth[:ntruth]
+        sums = fused_interval_sum(
+            self._fit_parts + [p for t in truth for p in t], self.npoints,
+            i1, i2, dtype=self.dtype)
+        rows = self._fit_rows
+        od_fit = self._fit_finish(sums[:rows], i1, i2)
+        sets = []
+        for k in range(len(truth)):
+            t = sums[rows + k * (nlay + 2):rows + (k + 1) * (nlay + 2)]
+            sets.append((t[:nlay], t[nlay], t[nlay + 1]))
+        return od_fit, sets
+
+    def _runs(self):
+        """(tag, od scaling) of the runs whose costs make up a probe's."""
+        if self.averaging_method == "total-transmission":
+            return (("LOW", self.min_scaling), ("HIGH", self.max_scaling))
+        return (("MID", 1.0),)
+
+    def _cost_with(self, od_fit, seg_of_wav, i1, i2, truth,
+                   want_components=False):
+        hr_true, fd_surf_true, fu_toa_true = truth
+        flux_dn, flux_up = sweep_sw_intervals(
+            self.ssi, self.bg_od, od_fit.contiguous(), seg_of_wav, i1, i2,
+            self.cos_sza, self.surf_albedo, self.with_upwelling)
+        # The SW heating rate uses downwelling only
+        # (calc_cost_function_sw.cpp:93)
+        hr_fit = heating_rate(self.pressure_hl, flux_dn)
+        hr_err = hr_fit - hr_true
+        dn_err = flux_dn[-1] - fd_surf_true
+        up_err = flux_up[0] - fu_toa_true
+        cf_hr2 = (HR_WEIGHT * HR_WEIGHT
+                  * torch.sum(self.layer_weight[:, None] * hr_err * hr_err,
+                              dim=0))
+        cf_flux2 = self.flux_weight * (dn_err * dn_err + up_err * up_err)
+        cost = torch.sqrt(cf_hr2 + cf_flux2)
+        if not want_components:
+            return cost
+        # What calc_cost_function_sw.cpp:93-105 dumps under debug_partition
+        return dict(flux_dn_surf_true=fd_surf_true,
+                    flux_dn_surf_fit=flux_dn[-1], flux_up_toa_true=fu_toa_true,
+                    flux_up_toa_fit=flux_up[0], hr_true=hr_true,
+                    hr_fit=hr_fit, cf_hr=torch.sqrt(cf_hr2),
+                    cf_flux=torch.sqrt(cf_flux2))
+
+    def _kernel(self, i1, i2):
+        seg_of_wav = self._device_seg_of_wav(i1)
+        runs = self._runs()
+        od_fit, truth = self._sums(i1, i2, len(runs))
+        costs = [self._cost_with(od_fit * scale, seg_of_wav, i1, i2, t)
+                 for (_, scale), t in zip(runs, truth)]
+        if len(costs) == 1:
+            return costs[0]
+        return 0.5 * (costs[0] + costs[1])
+
+    def components(self, i1: np.ndarray, i2: np.ndarray):
+        """Per-interval cost components for ``debug_partition``, as
+        ``{tag: {name: float64 numpy array}}``.
+
+        The tag is MID for a plain method; total-transmission gives LOW
+        and HIGH, the scaled runs whose costs are averaged, and MID, the
+        unscaled fit against the main truth (find_g_points.cpp:346-375)."""
+        i1 = torch.as_tensor(np.asarray(i1, np.int32), device=self.device)
+        i2 = torch.as_tensor(np.asarray(i2, np.int32), device=self.device)
+        seg_of_wav = self._device_seg_of_wav(i1)
+        runs = self._runs()
+        if len(runs) > 1:
+            runs = runs + (("MID", 1.0),)
+        od_fit, truth = self._sums(i1, i2, len(runs))
+        out = {}
+        for (tag, scale), t in zip(runs, truth):
+            comps = self._cost_with(od_fit * scale, seg_of_wav, i1, i2, t,
+                                    want_components=True)
+            out[tag] = {k: v.cpu().numpy().astype(np.float64)
+                        for k, v in comps.items()}
+        return out
 
 
 class CkdEquipartition(Equipartition):

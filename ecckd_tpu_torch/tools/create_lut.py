@@ -1,15 +1,16 @@
-"""create_lut (longwave, dense per-profile path): build a raw CKD look-up
-table.
+"""create_lut (dense per-profile path): build a raw CKD look-up table.
 
 PyTorch counterpart of ``ecckd_tpu/tools/create_lut.py``
 (ref create_look_up_table.cpp:27-606).  Line-by-line optical depths of each
 gas are averaged into each g-point over a set of temperature profiles (and
 concentrations, for a LUT gas), giving a ckd-definition file with min/max
-absorption bounds, the gpoint_fraction spectral mapping and the Planck
-LUT.  Not ported yet (ROADMAP): the shortwave (``ssi``), streaming from disk
-and sharded execution.
+absorption bounds and the gpoint_fraction spectral mapping; a longwave
+model carries a Planck LUT, a shortwave one (``ssi`` given, SSI weights)
+the solar irradiance per g-point and per interval and its Rayleigh
+coefficients.  Not ported yet (ROADMAP): streaming from disk and sharded
+execution.
 
-:func:`create_lut_lw_core` works on arrays; :func:`create_lut` is the file
+:func:`create_lut_core` works on arrays; :func:`create_lut` is the file
 tool around it (``python -m ecckd_tpu_torch.tools.create_lut key=value ...
 [device=cuda|cpu]``).
 """
@@ -57,6 +58,16 @@ class LutGas:
     composite_vmr: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class SolarSpectrum:
+    """The solar spectral irradiance file of a SW model: ``ssi`` (W m-2
+    per spectral point) on ``wavenumber`` (cm-1), the spectrum's grid, and
+    the total solar irradiance."""
+    ssi: np.ndarray
+    total_solar_irradiance: float
+    wavenumber: np.ndarray
+
+
 def _average_profile(ng, g_point, optical_depth, weight, averaging_method,
                      pressure_fl, pressure_hl, reference_surface_vmr):
     """One temperature profile -> (molar_abs, min, max), each (nlay, ng)
@@ -92,10 +103,12 @@ def _gpoint_fraction(ng, g_point, wavenumber, d_wavenumber, wavenumber1,
 
 
 def _remap_g_points(g_point, band_number, band_wn1, band_wn2,
-                    base_wavenumber_boundary, wavenumber_hr):
+                    base_wavenumber_boundary, wavenumber_hr,
+                    solar_irradiance=None, ssi=None):
     """Remove empty g-points (ref :111-160) and split the base g-point of a
-    band by wavenumber (ref :162-224).  Returns (g_point, band_number,
-    changed)."""
+    band by wavenumber (ref :162-224), carrying the SW ``solar_irradiance``
+    per g-point along (a split g-point's is summed anew from ``ssi``).
+    Returns (g_point, band_number, solar_irradiance, changed)."""
     ng = int(g_point.max()) + 1
     counts = np.bincount(g_point[g_point >= 0], minlength=ng)
     bad = np.nonzero(counts == 0)[0]
@@ -108,6 +121,8 @@ def _remap_g_points(g_point, band_number, band_wn1, band_wn2,
         remap[keep] = np.arange(len(keep))
         g_point = np.where(g_point >= 0, remap[g_point], -1)
         band_number = band_number[keep]
+        if solar_irradiance is not None:
+            solar_irradiance = solar_irradiance[keep]
         ng = len(keep)
         changed = True
     for iband in range(len(band_wn1)):
@@ -130,16 +145,24 @@ def _remap_g_points(g_point, band_number, band_wn1, band_wn2,
             sel = ((g_point == ig) & (wavenumber_hr >= new_bounds[k])
                    & (wavenumber_hr < new_bounds[k + 1]))
             new_g_point[sel] = ig + k
+        if solar_irradiance is not None:
+            new_si = np.empty(ng + nsplit)
+            new_si[:ig] = solar_irradiance[:ig]
+            new_si[ig + nsplit + 1:] = solar_irradiance[ig + 1:]
+            for k in range(nsplit + 1):
+                new_si[ig + k] = ssi[new_g_point == ig + k].sum()
+            solar_irradiance = new_si
         band_number, g_point = new_band_number, new_g_point
         ng += nsplit
         changed = True
-    return g_point, band_number, changed
+    return g_point, band_number, solar_irradiance, changed
 
 
 def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
-                temperature_stride, pressure_fl, device, dtype):
+                temperature_stride, pressure_fl, device, dtype, ssi=None):
     """Loop a gas's tables and temperature profiles, averaging each profile
-    to g-points (ref create_look_up_table.cpp:242-340, dense path).
+    to g-points (ref create_look_up_table.cpp:242-340, dense path) with
+    Planck weights, or with the solar irradiance ``ssi`` in the shortwave.
     ``pressure_fl`` is that of the first profile of the first gas (None
     before it is read).  Returns (k, kmin, kmax per table, temperature_fl,
     pressure_fl, last spectrum)."""
@@ -161,8 +184,11 @@ def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
             t_x_p = np.asarray(sp.temperature_hl) * p_hl
             t_fl_col = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl
             t_l.append(t_fl_col)
-            weight = _planck_weight(as_t(t_fl_col), as_t(sp.wavenumber),
-                                    as_t(sp.d_wavenumber))
+            if ssi is None:
+                weight = _planck_weight(as_t(t_fl_col), as_t(sp.wavenumber),
+                                        as_t(sp.d_wavenumber))
+            else:
+                weight = as_t(ssi)
             k, kmin, kmax = _average_profile(
                 ng, gp, as_t(sp.optical_depth), weight, averaging_method,
                 as_t(pressure_fl), as_t(p_hl), ref_vmr)
@@ -177,23 +203,38 @@ def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
     return k_c, kmin_c, kmax_c, t_fl, pressure_fl, sp
 
 
-def create_lut_lw_core(g_point, band_wn1, band_wn2, band_number,
-                       gases: Sequence[LutGas],
-                       averaging_method="transmission", temperature_stride=1,
-                       base_wavenumber_boundary=(), wavenumber_hr=None,
-                       device="cpu", dtype=torch.float64, history="",
-                       config="") -> CkdModel:
-    """Array-level LW create_lut: the CkdModel of the given g-points.
+def create_lut_core(g_point, band_wn1, band_wn2, band_number,
+                    gases: Sequence[LutGas],
+                    averaging_method="transmission", temperature_stride=1,
+                    base_wavenumber_boundary=(), wavenumber_hr=None,
+                    device="cpu", dtype=torch.float64, history="",
+                    config="", solar: Optional[SolarSpectrum] = None,
+                    solar_irradiance=None) -> CkdModel:
+    """Array-level create_lut: the CkdModel of the given g-points.
 
     ``g_point`` is the merged per-wavenumber map of find_g_points and
     ``band_number`` the band of each merged g-point; ``wavenumber_hr``
-    (the g-point file's wavenumbers) is needed only for a base split."""
+    (the g-point file's wavenumbers) is needed only for a base split.
+    With ``solar`` the averages are SSI-weighted on a 50 cm-1 interval
+    grid; with ``solar_irradiance`` too (per g-point, from a SW g-point
+    file) the model is shortwave."""
     g_point = np.asarray(g_point, np.int64)
     band_wn1 = np.asarray(band_wn1, np.float64)
     band_wn2 = np.asarray(band_wn2, np.float64)
-    g_point, band_number, changed_g = _remap_g_points(
+    base_wavenumber_boundary = np.asarray(base_wavenumber_boundary,
+                                          np.float64)
+    if len(base_wavenumber_boundary) and wavenumber_hr is None \
+            and solar is not None:
+        wavenumber_hr = solar.wavenumber
+    if solar_irradiance is not None:
+        if solar is None:
+            raise ValueError("a shortwave g-point file needs the solar "
+                             "spectrum (ssi)")
+        solar_irradiance = np.asarray(solar_irradiance, np.float64)
+    ssi = None if solar is None else np.asarray(solar.ssi, np.float64)
+    g_point, band_number, solar_irradiance, changed_g = _remap_g_points(
         g_point, np.asarray(band_number, np.int64), band_wn1, band_wn2,
-        np.asarray(base_wavenumber_boundary, np.float64), wavenumber_hr)
+        base_wavenumber_boundary, wavenumber_hr, solar_irradiance, ssi)
     ng = len(band_number)
 
     single_gas_data = []
@@ -203,7 +244,7 @@ def create_lut_lw_core(g_point, band_wn1, band_wn2, band_number,
         logs.log(f"  Averaging method = {averaging_method}")
         k_c, kmin_c, kmax_c, temperature_fl, pressure_fl, sp = _gas_tables(
             gas, ng, g_point, averaging_method, temperature_stride,
-            pressure_fl, device, dtype)
+            pressure_fl, device, dtype, ssi)
         g = GasData(gas.name, gas.conc_dependence)
         if gas.conc_dependence == ConcDependence.LUT:
             g.molar_abs = np.stack(k_c)
@@ -220,7 +261,7 @@ def create_lut_lw_core(g_point, band_wn1, band_wn2, band_number,
 
     # ---- gpoint_fraction on the fixed interval grid (ref :507-548) ----
     logs.log("Computing fraction of spectrum contributing to each g-point")
-    dwav = 10
+    dwav = 10 if solar is None else 50
     startwav = int(np.floor(band_wn1.min() / dwav) * dwav)
     endwav = int(np.ceil(band_wn2.max() / dwav) * dwav)
     wavenumber1 = dwav * np.arange(startwav // dwav, endwav // dwav,
@@ -231,26 +272,41 @@ def create_lut_lw_core(g_point, band_wn1, band_wn2, band_number,
     gpoint_fraction = _gpoint_fraction(ng, g_point, wavenumber_cm_1,
                                        d_wavenumber_cm_1, wavenumber1,
                                        wavenumber2)
+    common = dict(history=history, config=config)
 
-    # ---- Planck LUT: per-temperature sums over each g-point's spectrum,
-    # a one-hot matmul (deterministic, unlike an atomic scatter-add) ----
-    logs.log("Generating Planck-function look-up table")
-    temperature_lut = np.arange(120.0, 351.0)
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    wav_t, dwav_t = as_t(wavenumber_cm_1), as_t(d_wavenumber_cm_1)
-    onehot = gpoint_onehot(torch.as_tensor(g_point, device=device), ng,
-                           dtype)
-    chunk = max(1, min(16, int(256.0e6 / (8 * len(wavenumber_cm_1)))))
-    planck_lut = np.concatenate([
-        (planck_function(as_t(temperature_lut[i0:i0 + chunk]), wav_t, dwav_t)
-         @ onehot).cpu().numpy()
-        for i0 in range(0, len(temperature_lut), chunk)])
-
-    model = CkdModel(single_gas_data, pressure_fl, temperature_fl,
-                     wavenumber1, wavenumber2, gpoint_fraction, band_wn1,
-                     band_wn2, band_number, temperature_planck=temperature_lut,
-                     planck_function=planck_lut, history=history,
-                     config=config)
+    if solar_irradiance is not None:
+        # Solar irradiance per fixed interval (ref :555-561)
+        nint = len(wavenumber1)
+        ibin = np.ceil((np.asarray(solar.wavenumber) - wavenumber1[0])
+                       / dwav).astype(np.int64) - 1
+        valid = (ibin >= 0) & (ibin < nint)
+        ssi_intervals = np.zeros(nint)
+        np.add.at(ssi_intervals, ibin[valid], ssi[valid])
+        model = CkdModel(single_gas_data, pressure_fl, temperature_fl,
+                         wavenumber1, wavenumber2, gpoint_fraction, band_wn1,
+                         band_wn2, band_number,
+                         solar_irradiance=solar_irradiance, ssi=ssi_intervals,
+                         reference_total_solar_irradiance=float(
+                             solar.total_solar_irradiance), **common)
+    else:
+        # Planck LUT: per-temperature sums over each g-point's spectrum, a
+        # one-hot matmul (deterministic, unlike an atomic scatter-add)
+        logs.log("Generating Planck-function look-up table")
+        temperature_lut = np.arange(120.0, 351.0)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        wav_t, dwav_t = as_t(wavenumber_cm_1), as_t(d_wavenumber_cm_1)
+        onehot = gpoint_onehot(torch.as_tensor(g_point, device=device), ng,
+                               dtype)
+        chunk = max(1, min(16, int(256.0e6 / (8 * len(wavenumber_cm_1)))))
+        planck_lut = np.concatenate([
+            (planck_function(as_t(temperature_lut[i0:i0 + chunk]), wav_t,
+                             dwav_t) @ onehot).cpu().numpy()
+            for i0 in range(0, len(temperature_lut), chunk)])
+        model = CkdModel(single_gas_data, pressure_fl, temperature_fl,
+                         wavenumber1, wavenumber2, gpoint_fraction, band_wn1,
+                         band_wn2, band_number,
+                         temperature_planck=temperature_lut,
+                         planck_function=planck_lut, **common)
     if changed_g:
         model.wavenumber_hr = wavenumber_cm_1
         model.g_point = np.asarray(g_point, np.int32)
@@ -315,9 +371,6 @@ def create_lut(cfg: Config, argv=()) -> str:
     from ecckd_tpu.io import NcFile
 
     device, dtype = setup(cfg)
-    if cfg.read_string("ssi", default=None):
-        raise NotImplementedError("create_lut: the shortwave (ssi) is not "
-                                  "ported yet (ROADMAP: SW slice)")
     for key in ("streaming", "sharded"):
         if str(cfg.read_string(key, default="auto")).lower() in (
                 "1", "yes", "true"):
@@ -326,23 +379,31 @@ def create_lut(cfg: Config, argv=()) -> str:
                 "rest of create_lut, multi-GPU)")
     output = cfg.read_string("output")
     input_file = find_file(cfg.read_string("input"))
+    solar = None
+    ssi_file_name = cfg.read_string("ssi", default=None)
+    if ssi_file_name:
+        with NcFile(find_file(ssi_file_name)) as f:
+            solar = SolarSpectrum(
+                np.asarray(f.read("solar_spectral_irradiance"), np.float64),
+                float(f.read_scalar("total_solar_irradiance")),
+                np.asarray(f.read("wavenumber"), np.float64))
     logs.log(f"Reading {input_file}")
     with NcFile(input_file) as gf:
         if not gf.exist("g_point"):
             raise ValueError(f'"g_point" not found in "{input_file}"')
-        if gf.exist("solar_irradiance"):
-            raise NotImplementedError("create_lut: shortwave g-points are "
-                                      "not ported yet (ROADMAP: SW slice)")
         g_point = np.asarray(gf.read("g_point"), np.int64)
         band_wn1 = np.asarray(gf.read("wavenumber1_band"), np.float64)
         band_wn2 = np.asarray(gf.read("wavenumber2_band"), np.float64)
         band_number = np.asarray(gf.read("band_number"), np.int64)
+        solar_irradiance = (np.asarray(gf.read("solar_irradiance"),
+                                       np.float64)
+                            if gf.exist("solar_irradiance") else None)
         history = gf.attribute("history", default="") or ""
         config = gf.attribute("config", default="") or ""
         wavenumber_hr = (np.asarray(gf.read("wavenumber"), np.float64)
                          if gf.exist("wavenumber") else None)
     gases = [_file_gas(cfg, g) for g in read_string_list(cfg, "gases")]
-    model = create_lut_lw_core(
+    model = create_lut_core(
         g_point, band_wn1, band_wn2, band_number, gases,
         averaging_method=cfg.read_string("averaging_method",
                                          default="transmission"),
@@ -350,7 +411,8 @@ def create_lut(cfg: Config, argv=()) -> str:
         base_wavenumber_boundary=cfg.read_floats(
             "base_wavenumber_boundary", default=None) or (),
         wavenumber_hr=wavenumber_hr, device=device, dtype=dtype,
-        history=history, config=config)
+        history=history, config=config, solar=solar,
+        solar_irradiance=solar_irradiance)
     logs.log(f"Writing {output}")
     model.write(output, argv=list(argv) or ["create_lut"] + sys.argv[1:],
                 config_str=cfg.sprint())

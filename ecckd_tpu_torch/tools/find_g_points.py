@@ -1,18 +1,20 @@
-"""find_g_points (longwave, one device): partition reordered spectra into
-g-points.
+"""find_g_points (one device): partition reordered spectra into g-points.
 
 PyTorch counterpart of ``ecckd_tpu/tools/find_g_points.py``
 (ref find_g_points.cpp:430-1662).  Per gas and band an equipartition search
 finds rank intervals of equal heating-rate error; every sweep of candidate
-intervals is one call of :class:`~ecckd_tpu_torch.partition.CandidateCostLw`
-(kernels K3 and K1 on the card).  Covered: per-gas background spectra,
+intervals is one call of a candidate-cost kernel,
+:class:`~ecckd_tpu_torch.partition.CandidateCostLw` (kernels K3 and K1 on
+the card) in the longwave or
+:class:`~ecckd_tpu_torch.partition.CandidateCostSw` (K3 and K2) in the
+shortwave, where ``ssi`` is given.  Covered: per-gas background spectra,
 min/max g-point overrides with sqrt-spaced re-initialisation,
-base_split/base_wavenumber_boundary dissection, the hypercube gas overlap
-and the g-point NetCDF schema.  Not ported yet (ROADMAP): the shortwave
-(``ssi``), the cloud pseudo-gas, ``g_split``, ``debug_partition`` and
-``band_parallel``.
+base_split/base_wavenumber_boundary dissection, the SW total-transmission
+method with its low/high scaled runs, the SW cloud pseudo-gas,
+``debug_partition``, the hypercube gas overlap and the g-point NetCDF
+schema.  Not ported yet (ROADMAP): ``g_split`` and ``band_parallel``.
 
-:func:`find_g_points_lw_core` works on arrays; :func:`find_g_points` is the
+:func:`find_g_points_core` works on arrays; :func:`find_g_points` is the
 file tool around it (``python -m ecckd_tpu_torch.tools.find_g_points
 key=value ... [device=cuda|cpu]``).
 """
@@ -28,23 +30,29 @@ import torch
 
 from ecckd_tpu import logs
 from ecckd_tpu.config import Config
-from ecckd_tpu.constants import LW_DIFFUSIVITY
+from ecckd_tpu.constants import LW_DIFFUSIVITY, REFERENCE_COS_SZA
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from ..partition import (CandidateCostLw, CkdEquipartition, SingleGasData,
-                         merged_g_point_map, overlap_g_points)
+from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
+from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
+                         SingleGasData, merged_g_point_map, overlap_g_points)
 from .common import find_file, read_string_list, setup, tool_prologue
+
+# Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
+REFERENCE_ALBEDO = 0.15
 
 
 @dataclasses.dataclass
-class LwGasInput:
-    """One gas's inputs to the LW g-point search, in wavenumber order.
+class GasInput:
+    """One gas's inputs to the g-point search, in wavenumber order.
 
     The order fields come from reorder_spectrum; ``optical_depth`` and
     ``bg_optical_depth`` are (nlay, nwav) float64 arrays of one profile
     (the background is the sum of the other gases, or None).  The
-    per-band overrides default to the reference's values."""
+    per-band overrides default to the reference's values; the SW
+    total-transmission method scales the gas's od by at most
+    ``min(0.5, min_scaling)`` and at least ``max(2.5, max_scaling)``."""
     name: str
     rank: np.ndarray
     band_number: np.ndarray
@@ -61,18 +69,46 @@ class LwGasInput:
     min_g_points: Optional[Sequence[int]] = None
     max_g_points: Optional[Sequence[int]] = None
     base_wavenumber_boundary: Sequence[float] = ()
+    min_scaling: float = 1.0
+    max_scaling: float = 1.0
 
 
 @dataclasses.dataclass
-class LwGPoints:
-    """Result of :func:`find_g_points_lw_core`: per-gas g-points, the
-    merged g-points' band numbers and the merged per-wavenumber map."""
+class CloudInput:
+    """The SW cloud pseudo-gas: the fields of its order file (written by
+    the JAX package's reorder_cloud_spectrum) and the largest range of
+    reflectance one of its g-points may span."""
+    name: str
+    rank: np.ndarray
+    band_number: np.ndarray
+    wavenumber1_band: np.ndarray
+    wavenumber2_band: np.ndarray
+    sorting_variable: np.ndarray
+    max_reflectance_range: float = 0.26
+
+
+@dataclasses.dataclass
+class GPoints:
+    """Result of :func:`find_g_points_core`: per-gas g-points, the merged
+    g-points' band numbers, the merged per-wavenumber map and, in the
+    shortwave, the solar irradiance of each merged g-point."""
     gases: List[SingleGasData]
     band_number: np.ndarray
     g_point: np.ndarray
     wavenumber1_band: np.ndarray
     wavenumber2_band: np.ndarray
     wavenumber: np.ndarray
+    solar_irradiance: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _Shortwave:
+    """The SW state of a search.  ``max_no_rayleigh_wavenumber`` is
+    reassigned by each gas to the largest bound of its no-Rayleigh bands
+    and carries over to the next gas, as in the reference."""
+    ssi: np.ndarray
+    max_no_rayleigh_wavenumber: float
+    cos_sza: float = REFERENCE_COS_SZA
 
 
 def calc_median_sorting_variable(sorting_variable, weight, i1, i2):
@@ -121,6 +157,123 @@ def _lw_truth(temperature_hl, pressure_hl, wavenumber, d_wavenumber, od,
     return planck_hl, hr, flux_dn_surf, flux_up_toa
 
 
+def _sw_truth(cos_sza, pressure_hl, ssi, od, bg_od, albedo, scalings,
+              block_wav):
+    """SW truth fields on the device of ``od`` in wavenumber blocks: the
+    direct-beam heating rate and surface flux, and with ``scalings`` =
+    (min_scaling, max_scaling, use_albedo) the ``extras`` of the
+    total-transmission method, the same fields of the runs with the gas's
+    od scaled (with the reflected beam's TOA flux where ``use_albedo``,
+    else zeros) (ref find_g_points.cpp:906-960)."""
+    nlay, nwav = od.shape
+    hr = torch.empty_like(od)
+    flux_dn_surf = torch.empty(nwav, dtype=od.dtype, device=od.device)
+    extras = None
+    if scalings is not None:
+        extras = {}
+        for tag in ("low", "high"):
+            extras[f"hr_{tag}"] = torch.empty_like(od)
+            extras[f"flux_dn_surf_{tag}"] = torch.empty_like(flux_dn_surf)
+            extras[f"flux_up_toa_{tag}"] = torch.zeros_like(flux_dn_surf)
+    for i0 in range(0, nwav, block_wav):
+        sl = slice(i0, min(i0 + block_wav, nwav))
+        bg = None if bg_od is None else bg_od[:, sl]
+        tot = od[:, sl] if bg is None else bg + od[:, sl]
+        fd = rt_direct_sw(cos_sza, ssi[sl], tot)
+        hr[:, sl] = heating_rate(pressure_hl, fd)
+        flux_dn_surf[sl] = fd[-1]
+        if extras is None:
+            continue
+        min_scaling, max_scaling, use_albedo = scalings
+        for tag, scaling in (("low", min_scaling), ("high", max_scaling)):
+            od_s = scaling * od[:, sl]
+            if bg is not None:
+                od_s = bg + od_s
+            if use_albedo:
+                fds, fus = rt_norayleigh_sw(cos_sza, ssi[sl], od_s,
+                                            albedo[sl])
+                extras[f"flux_up_toa_{tag}"][sl] = fus[0]
+            else:
+                fds = rt_direct_sw(cos_sza, ssi[sl], od_s)
+            extras[f"hr_{tag}"][:, sl] = heating_rate(pressure_hl, fds)
+            extras[f"flux_dn_surf_{tag}"][sl] = fds[-1]
+    return hr, flux_dn_surf, extras
+
+
+def _cloud_pseudo_gas(cloud: CloudInput, ssi: np.ndarray) -> SingleGasData:
+    """SW cloud pseudo-gas: per band, g-points of equal solar energy, as
+    many as the band's reflectance range needs at ``max_reflectance_range``
+    each (ref find_g_points.cpp:545-651).  Host numpy, as in the JAX
+    package."""
+    irank = np.asarray(cloud.rank).astype(np.int64).copy()
+    iband = np.asarray(cloud.band_number)
+    sorting_variable = np.asarray(cloud.sorting_variable)
+    nband = len(cloud.wavenumber1_band)
+    n_g_points = np.zeros(nband, np.int64)
+    rank1_l, rank2_l, band_l, error_l, median_l = [], [], [], [], []
+    for jband in range(nband):
+        logs.log(f"Band {jband}")
+        band_index = np.nonzero(iband == jband)[0]
+        ibegin, iend = band_index[0], band_index[-1]
+        sv_band = sorting_variable[ibegin:iend + 1]
+        ng_band = int((sv_band.max() - sv_band.min())
+                      / cloud.max_reflectance_range) + 1
+        n_g_points[jband] = ng_band
+        # Partition into equal ranges of solar energy
+        ireorder = np.empty(len(band_index), np.int64)
+        ireorder[irank[ibegin:iend + 1] - ibegin] = np.arange(ibegin,
+                                                              iend + 1)
+        cum_ssi = np.full(len(irank), -1.0)
+        cum_ssi[ireorder] = np.cumsum(ssi[ireorder])
+        band_irradiance = ssi[ibegin:iend + 1].sum()
+        d_irr = band_irradiance * (1.0 + 1.0e-8) / ng_band
+        for jg in range(ng_band):
+            idx = np.nonzero((iband == jband) & (cum_ssi >= jg * d_irr)
+                             & (cum_ssi < (jg + 1) * d_irr))[0]
+            rank1_l.append(int(irank[idx].min()))
+            rank2_l.append(int(irank[idx].max()))
+            error_l.append(float(sorting_variable[idx].max()
+                                 - sorting_variable[idx].min()))
+            # -2 keeps cloud sorting variables below those of gases
+            median_l.append(-2.0 + float(sorting_variable[idx].mean()))
+            band_l.append(jband)
+    gas = SingleGasData(
+        molecule=cloud.name, n_g_points=n_g_points,
+        band_number=np.asarray(band_l, np.int32),
+        rank1=np.asarray(rank1_l, np.int64),
+        rank2=np.asarray(rank2_l, np.int64),
+        error=np.asarray(error_l), sorting_variable=np.asarray(median_l))
+    gas.store_g_points(irank)
+    gas.print()
+    return gas
+
+
+def _debug_partition(gas_name, jband, eq, bounds, kernel):
+    """Print the final partition's cost components to stderr (ref
+    find_g_points.cpp:1416-1423).  Only the SW cost function has
+    components (calc_cost_function_sw.cpp:93-105); LW prints the band
+    header alone, as the reference does."""
+    print(f"debug_partition_{gas_name.upper()}_band = {jband}",
+          file=sys.stderr)
+    if not isinstance(kernel, CandidateCostSw):
+        return
+    i1 = np.asarray([eq.lower_index(b) for b in bounds[:-1]], np.int32)
+    i2 = np.asarray([eq.upper_index(b) for b in bounds[1:]], np.int32)
+    i2 = np.maximum(i1, i2)
+    comps = kernel.components(i1, i2)
+    fmt = lambda v: np.array2string(np.atleast_1d(v), max_line_width=10 ** 9,
+                                    separator=" ")
+    for ig in range(len(i1)):
+        for tag, c in comps.items():
+            if len(comps) > 1:
+                print(f"  debug_partition_{tag}", file=sys.stderr)
+            for key in ("flux_dn_surf_true", "flux_dn_surf_fit",
+                        "flux_up_toa_true", "flux_up_toa_fit", "hr_true",
+                        "hr_fit", "cf_hr", "cf_flux"):
+                print(f"    debug_partition.{key} = "
+                      f"{fmt(c[key][..., ig])}", file=sys.stderr)
+
+
 def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
                  min_g, max_g):
     """One band's equipartition search with the min/max g-point overrides
@@ -144,11 +297,12 @@ def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
     return istatus, bounds, error, ng, eq
 
 
-def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
-                max_iterations, averaging_method, flux_weight, min_pressure,
-                block_wav, device, dtype) -> SingleGasData:
+def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
+                averaging_method, flux_weight, min_pressure, block_wav,
+                device, dtype, sw: Optional[_Shortwave],
+                debug_partition) -> SingleGasData:
     """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455,
-    LW, no g_split)."""
+    no g_split); shortwave where ``sw`` is given."""
     irank = np.asarray(gas.rank).astype(np.int64).copy()
     iband = np.asarray(gas.band_number)
     band_bound1 = np.asarray(gas.wavenumber1_band, np.float64)
@@ -166,6 +320,16 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
     else:
         raise ValueError("heating_rate_tolerance must have either 1 "
                          "element, or one per band")
+    if sw is not None:
+        min_scaling = min(0.5, gas.min_scaling)
+        max_scaling = max(2.5, gas.max_scaling)
+        # Bands wholly below the no-Rayleigh limit reflect the direct beam
+        # in the cost; the limit becomes their largest upper bound
+        band_albedo = np.zeros(nband)
+        no_rayleigh = band_bound2 <= sw.max_no_rayleigh_wavenumber
+        band_albedo[no_rayleigh] = REFERENCE_ALBEDO
+        if np.any(no_rayleigh):
+            sw.max_no_rayleigh_wavenumber = band_bound2[no_rayleigh].max()
 
     # ireorder: index that reorders arrays into rank order
     ireorder = np.empty(len(irank), np.int64)
@@ -188,13 +352,33 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
     nlay, nwav = od.shape
     logs.log(f"{nlay} layers\n{nwav} spectral points")
 
-    logs.log("Computing Planck function and longwave radiative transfer")
-    planck_hl, hr, flux_dn_surf, flux_up_toa = _lw_truth(
-        to_dev(gas.temperature_hl), to_dev(pressure_hl),
-        to_dev(wavenumber_cm_1), to_dev(d_wavenumber_cm_1), od, bg_od,
-        block_wav)
-    surf_planck = planck_hl[-1]
-    surf_planck_host = surf_planck.cpu().numpy().astype(np.float64)
+    extras = None
+    if sw is None:
+        logs.log("Computing Planck function and longwave radiative "
+                 "transfer")
+        planck_hl, hr, flux_dn_surf, flux_up_toa = _lw_truth(
+            to_dev(gas.temperature_hl), to_dev(pressure_hl),
+            to_dev(wavenumber_cm_1), to_dev(d_wavenumber_cm_1), od, bg_od,
+            block_wav)
+        surf_planck = planck_hl[-1]
+        weight_for_median = surf_planck.cpu().numpy().astype(np.float64)
+    else:
+        logs.log("Performing shortwave radiative transfer")
+        ssi_reorder = sw.ssi[ireorder]
+        # The truth reflects off the surface below the (reassigned)
+        # no-Rayleigh limit, compared with "<" (find_g_points.cpp:497-501)
+        albedo = np.zeros(nwav)
+        albedo[np.asarray(gas.wavenumber) < sw.max_no_rayleigh_wavenumber] \
+            = REFERENCE_ALBEDO
+        scalings = None
+        if averaging_method == "total-transmission":
+            scalings = (min_scaling, max_scaling,
+                        sw.max_no_rayleigh_wavenumber > 0.0)
+        hr, flux_dn_surf, extras = _sw_truth(
+            sw.cos_sza, to_dev(pressure_hl), to_dev(ssi_reorder), od, bg_od,
+            to_dev(albedo[ireorder]), scalings, block_wav)
+        flux_up_toa = torch.zeros_like(flux_dn_surf)
+        weight_for_median = ssi_reorder
 
     layer_weight = np.sqrt(pressure_hl[1:]) - np.sqrt(pressure_hl[:-1])
     pressure_fl = 0.5 * (pressure_hl[1:] + pressure_hl[:-1])
@@ -208,14 +392,13 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
         metric = od.mul_(-scale).expm1_().neg_()
     elif averaging_method == "square-root":
         metric = od.sqrt_()
-    elif averaging_method in ("linear", "logarithmic"):
+    elif averaging_method in ("linear", "logarithmic", "total-transmission"):
         metric = od
     else:
         raise ValueError(f"Averaging method {averaging_method!r} not "
                          "understood")
     if bg_od is None:
         bg_od = torch.zeros_like(metric)
-    surf_emissivity = torch.ones_like(surf_planck)
 
     logs.log("Finding g points:")
     n_g_points_per_band = []
@@ -225,21 +408,32 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
         band_index = np.nonzero(iband == jband)[0]
         ibegin, iend = int(band_index[0]), int(band_index[-1])
         sl = slice(ibegin, iend + 1)
-        state = dict(layer_weight=layer_weight, pressure_hl=pressure_hl)
-        state = {k: to_dev(v) for k, v in state.items()}
-        state.update(
-            surf_emissivity=surf_emissivity[sl].contiguous(),
-            surf_planck=surf_planck[sl].contiguous(),
-            flux_dn_surf=flux_dn_surf[sl].contiguous(),
-            flux_up_toa=flux_up_toa[sl].contiguous(),
-            planck_hl=planck_hl[:, sl].contiguous(),
-            bg_od=bg_od[:, sl].contiguous(),
-            metric=metric[:, sl].contiguous(), hr=hr[:, sl].contiguous())
-        kernel = CandidateCostLw(averaging_method, flux_weight, **state)
+        band = lambda a: a[..., sl].contiguous()
+        state = dict(layer_weight=to_dev(layer_weight),
+                     pressure_hl=to_dev(pressure_hl),
+                     flux_dn_surf=band(flux_dn_surf),
+                     flux_up_toa=band(flux_up_toa), bg_od=band(bg_od),
+                     metric=band(metric), hr=band(hr))
+        if sw is None:
+            kernel = CandidateCostLw(
+                averaging_method, flux_weight,
+                surf_emissivity=torch.ones_like(band(surf_planck)),
+                surf_planck=band(surf_planck), planck_hl=band(planck_hl),
+                **state)
+        else:
+            band_extras = None
+            if extras is not None:
+                band_extras = {k: band(v) for k, v in extras.items()}
+                band_extras.update(min_scaling=min_scaling,
+                                   max_scaling=max_scaling)
+            kernel = CandidateCostSw(
+                averaging_method, flux_weight, cos_sza=sw.cos_sza,
+                ssi=to_dev(ssi_reorder[sl]),
+                surf_albedo=float(band_albedo[jband]), extras=band_extras,
+                **state)
         istatus, bounds, error, ng, eq = _search_band(
             kernel, heating_rate_tolerance[jband], tolerance_tolerance,
             max_iterations, min_g_points[jband], max_g_points[jband])
-        del kernel, state
         logs.log(f"  Equipartition status: {istatus.describe()}")
         logs.log(f"      computational cost = {eq.total_comp_cost:.2f}")
 
@@ -296,6 +490,8 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
                 ireorder[irank] = np.arange(len(irank))
                 sorting_variable = sorting_variable[ireorder]
                 wavenumber_cm_1 = wavenumber_cm_1[ireorder]
+                if sw is not None:
+                    ssi_reorder = weight_for_median = sw.ssi[ireorder]
 
             upper_bound = bounds[1]
             lower_bound_local = bounds[0]
@@ -328,7 +524,10 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
             error_l.append(float(error[ig]))
             band_l.append(jband)
             median_l.append(calc_median_sorting_variable(
-                sorting_variable, surf_planck_host, ind1, ind2))
+                sorting_variable, weight_for_median, ind1, ind2))
+        if debug_partition:
+            _debug_partition(gas.name, jband, eq, bounds, kernel)
+        del kernel, eq, state   # free the band before the next one
 
     gas_data = SingleGasData(
         molecule=gas.name,
@@ -343,35 +542,66 @@ def _search_gas(gas: LwGasInput, hr_tol, tolerance_tolerance,
     return gas_data
 
 
-def find_g_points_lw_core(gases: Sequence[LwGasInput],
-                          heating_rate_tolerance, tolerance_tolerance=0.02,
-                          max_iterations=60, averaging_method="linear",
-                          flux_weight=0.02, min_pressure=0.0,
-                          block_wav=1 << 20, device="cpu",
-                          dtype=torch.float64) -> LwGPoints:
-    """Array-level LW find_g_points: search every gas, then overlap them
-    (Hogan 2010) into merged g-points and their per-wavenumber map."""
+def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
+                       tolerance_tolerance=0.02, max_iterations=60,
+                       averaging_method="linear", flux_weight=0.02,
+                       min_pressure=0.0, block_wav=1 << 20, device="cpu",
+                       dtype=torch.float64, ssi=None,
+                       cloud: Optional[CloudInput] = None,
+                       max_no_rayleigh_wavenumber=10000.0,
+                       debug_partition=False) -> GPoints:
+    """Array-level find_g_points: search every gas, then overlap them
+    (Hogan 2010) into merged g-points and their per-wavenumber map.
+
+    With ``ssi``, the (nwav,) solar spectral irradiance in wavenumber
+    order, the search is shortwave: costs of the direct beam (reflected
+    below ``max_no_rayleigh_wavenumber``), SSI weights, the cloud
+    pseudo-gas if ``cloud`` is given, and the solar irradiance of each
+    merged g-point in the result."""
     hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
+    sw = None
+    if ssi is not None:
+        sw = _Shortwave(np.asarray(ssi, np.float64),
+                        float(max_no_rayleigh_wavenumber))
     single_gas_data = []
+    band_bounds = None
+    if cloud is not None:
+        if sw is None:
+            raise ValueError("Don't yet know how to sort cloud properties "
+                             "in the longwave")
+        logs.log(f"*** FINDING G POINTS FOR {cloud.name}")
+        single_gas_data.append(_cloud_pseudo_gas(cloud, sw.ssi))
+        band_bounds = (cloud.wavenumber1_band, cloud.wavenumber2_band)
     for gas in gases:
         logs.log(f"*** FINDING G POINTS FOR {gas.name.upper()}")
         single_gas_data.append(_search_gas(
             gas, hr_tol, tolerance_tolerance, max_iterations,
             averaging_method, flux_weight, min_pressure, block_wav, device,
-            dtype))
+            dtype, sw, debug_partition))
+        band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
         logs.log("")
     logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
     band_number = overlap_g_points(single_gas_data)
-    last = gases[-1]
-    nwav = len(last.wavenumber)
-    g_point = merged_g_point_map(single_gas_data, len(band_number), nwav)
-    return LwGPoints(single_gas_data, band_number, g_point,
-                     np.asarray(last.wavenumber1_band, np.float64),
-                     np.asarray(last.wavenumber2_band, np.float64),
-                     np.asarray(last.wavenumber, np.float64))
+    ng = len(band_number)
+    wavenumber = (np.asarray(gases[-1].wavenumber, np.float64) if gases
+                  else np.zeros(0))
+    g_point = merged_g_point_map(single_gas_data, ng, len(wavenumber))
+    solar_irradiance = None
+    if sw is not None:
+        solar_irradiance = np.zeros(ng)
+        for ig in range(ng):
+            solar_irradiance[ig] = sw.ssi[g_point == ig].sum()
+        nbad = int(np.sum(solar_irradiance <= 0.0))
+        if nbad:
+            logs.warning(f"{nbad} shortwave g points have zero solar "
+                         "irradiance")
+    return GPoints(single_gas_data, band_number, g_point,
+                   np.asarray(band_bounds[0], np.float64),
+                   np.asarray(band_bounds[1], np.float64), wavenumber,
+                   solar_irradiance)
 
 
-def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> LwGasInput:
+def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
     """One gas's order file and merged spectra, as the JAX tool reads
     them."""
     from ecckd_tpu.io import read_order
@@ -394,7 +624,7 @@ def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> LwGasInput:
     logs.log("Generating target optical depth")
     with open_merged_spectrum_profile(cfg, iprofile, f"{gas_str}.") as pb:
         sp = pb.materialize()
-    return LwGasInput(
+    return GasInput(
         name=gas_str, rank=order.rank, band_number=order.band_number,
         wavenumber1_band=order.wavenumber1_band,
         wavenumber2_band=order.wavenumber2_band,
@@ -407,12 +637,30 @@ def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> LwGasInput:
         min_g_points=cfg.read_ints(f"{gas_str}.min_g_points", default=None),
         max_g_points=cfg.read_ints(f"{gas_str}.max_g_points", default=None),
         base_wavenumber_boundary=cfg.read_floats(
-            f"{gas_str}.base_wavenumber_boundary", default=None) or ())
+            f"{gas_str}.base_wavenumber_boundary", default=None) or (),
+        min_scaling=cfg.read_float(f"{gas_str}.min_scaling", default=1.0),
+        max_scaling=cfg.read_float(f"{gas_str}.max_scaling", default=1.0))
 
 
-def write_g_points(output: str, result: LwGPoints, cfg: Config, argv):
+def _read_cloud(cfg: Config, cloud_str: str) -> CloudInput:
+    """The cloud pseudo-gas's order file and reflectance range."""
+    from ecckd_tpu.io import read_order
+
+    reordering_input = cfg.read_string(f"{cloud_str}.reordering_input")
+    logs.log(f"Reading {reordering_input}")
+    order = read_order(find_file(reordering_input))
+    return CloudInput(
+        name=cloud_str, rank=order.rank, band_number=order.band_number,
+        wavenumber1_band=order.wavenumber1_band,
+        wavenumber2_band=order.wavenumber2_band,
+        sorting_variable=order.sorting_variable,
+        max_reflectance_range=cfg.read_float(
+            f"{cloud_str}.max_reflectance_range", default=0.26))
+
+
+def write_g_points(output: str, result: GPoints, cfg: Config, argv):
     """The g-point NetCDF file with the JAX tool's schema
-    (ref find_g_points.cpp:1485-1661, longwave)."""
+    (ref find_g_points.cpp:1485-1661)."""
     from ecckd_tpu.io import NcWriter, write_standard_attributes
 
     gases = result.gases
@@ -439,6 +687,12 @@ def write_g_points(output: str, result: LwGPoints, cfg: Config, argv):
     w.write_units("cm-1", "wavenumber2_band")
     w.define_variable("band_number", "short", "g_point")
     w.write_long_name("Band number of each g point", "band_number")
+    sw = result.solar_irradiance is not None
+    if sw:
+        w.define_variable("solar_irradiance", "float", "g_point")
+        w.write_long_name("Solar irradiance across each g point",
+                          "solar_irradiance")
+        w.write_units("W m-2", "solar_irradiance")
 
     for g in gases:
         m, M = g.molecule, g.Molecule
@@ -478,8 +732,9 @@ def write_g_points(output: str, result: LwGPoints, cfg: Config, argv):
                               deflate=2)
             w.write_long_name(f"{g.Molecule} g point", f"{g.molecule}_g_point")
 
-    write_standard_attributes(w, "Definition of the spectral intervals of a "
-                              "longwave CKD model")
+    write_standard_attributes(
+        w, "Definition of the spectral intervals of a "
+        + ("shortwave" if sw else "longwave") + " CKD model")
     w.write_attribute(" ".join(g.molecule for g in gases), "constituent_id")
     w.append_history(argv or sys.argv)
     w.write_attribute(cfg.sprint(), "config")
@@ -488,6 +743,8 @@ def write_g_points(output: str, result: LwGPoints, cfg: Config, argv):
     w.write(result.wavenumber1_band, "wavenumber1_band")
     w.write(result.wavenumber2_band, "wavenumber2_band")
     w.write(result.band_number, "band_number")
+    if sw:
+        w.write(result.solar_irradiance, "solar_irradiance")
     for g in gases:
         m = g.molecule
         w.write(np.asarray(g.n_g_points, np.int32), f"{m}_n_g_points")
@@ -507,24 +764,10 @@ def write_g_points(output: str, result: LwGPoints, cfg: Config, argv):
     w.close()
 
 
-_NOT_PORTED = {
-    "ssi": "the shortwave (ROADMAP: SW slice)",
-    "cloud": "the cloud pseudo-gas (ROADMAP: SW slice)",
-}
-
-
 def find_g_points(cfg: Config, argv=()) -> str:
     """The file tool: read order files and spectra, search, write the
     g-point file."""
     device, dtype = setup(cfg)
-    for key, what in _NOT_PORTED.items():
-        if cfg.read_string(key, default=None):
-            raise NotImplementedError(f"find_g_points: {what} is not "
-                                      "ported yet")
-    if cfg.read_bool("debug_partition", default=False):
-        raise NotImplementedError("find_g_points: debug_partition is not "
-                                  "ported yet (ROADMAP: rest of "
-                                  "find_g_points)")
     bp = str(cfg.read_string("band_parallel", default="auto")).lower()
     if bp not in ("auto", "off", "0", "no", "false"):
         raise NotImplementedError("find_g_points: band_parallel is not "
@@ -534,12 +777,22 @@ def find_g_points(cfg: Config, argv=()) -> str:
     if sharded in ("1", "yes", "true"):
         raise NotImplementedError("find_g_points: sharded sweeps are not "
                                   "ported yet (ROADMAP: multi-GPU)")
-    logs.log("Assuming longwave spectral region (ssi not provided)")
+    ssi = None
+    ssi_file_name = cfg.read_string("ssi", default=None)
+    if ssi_file_name:
+        from ecckd_tpu.io import NcFile
+        logs.log("Assuming shortwave spectral region (ssi provided)")
+        with NcFile(find_file(ssi_file_name)) as f:
+            ssi = np.asarray(f.read("solar_spectral_irradiance"), np.float64)
+    else:
+        logs.log("Assuming longwave spectral region (ssi not provided)")
     output = cfg.read_string("output")
     iprofile = cfg.read_int("iprofile", default=0)
+    cloud_str = cfg.read_string("cloud", default=None)
+    cloud = _read_cloud(cfg, cloud_str) if cloud_str else None
     gases = [_read_gas(cfg, g, iprofile)
              for g in read_string_list(cfg, "gases")]
-    result = find_g_points_lw_core(
+    result = find_g_points_core(
         gases, cfg.read_floats("heating_rate_tolerance"),
         tolerance_tolerance=cfg.read_float("tolerance_tolerance",
                                            default=0.02),
@@ -549,7 +802,10 @@ def find_g_points(cfg: Config, argv=()) -> str:
         flux_weight=cfg.read_float("flux_weight", default=0.02),
         min_pressure=cfg.read_float("min_pressure", default=0.0),
         block_wav=cfg.read_int("streaming_block_wav", default=1 << 20),
-        device=device, dtype=dtype)
+        device=device, dtype=dtype, ssi=ssi, cloud=cloud,
+        max_no_rayleigh_wavenumber=cfg.read_float(
+            "max_no_rayleigh_wavenumber", default=10000.0),
+        debug_partition=cfg.read_bool("debug_partition", default=False))
     logs.log(f"Writing {output}")
     write_g_points(output, result, cfg, argv)
     return output

@@ -1,20 +1,22 @@
-"""reorder_spectrum (longwave): rank wavenumbers within each band by a
-sorting variable.
+"""reorder_spectrum: rank wavenumbers within each band by a sorting
+variable.
 
 PyTorch counterpart of ``ecckd_tpu/tools/reorder_spectrum.py``
-(ref reorder_spectrum.cpp:36-313).  The sorting variable is the
-pseudo-height of peak cooling from a spectral radiative-transfer
-calculation with an idealised temperature profile; the per-band
-std::stable_sort is a NumPy stable argsort.  The shortwave form (``ssi``)
-is not ported yet (ROADMAP, SW slice).
+(ref reorder_spectrum.cpp:36-313).  In the longwave the sorting variable
+is the pseudo-height of peak cooling from a spectral radiative-transfer
+calculation with an idealised temperature profile; in the shortwave
+(``ssi`` given) it is the pseudo-height at which the od summed from the
+top of the atmosphere reaches ``threshold_optical_depth``.  The per-band
+std::stable_sort is a NumPy stable argsort.
 
 Usage: ``python -m ecckd_tpu_torch.tools.reorder_spectrum input=...
-output=... [device=cuda|cpu] [precision=float64|float32]``.
+output=... [ssi=...] [device=cuda|cpu] [precision=float64|float32]``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 
 import numpy as np
@@ -62,11 +64,38 @@ def _sorting_kernel(pressure_hl, wavenumber, d_wavenumber, od,
     return peak, column_od
 
 
+def _sw_sorting_kernel(pressure_hl, od, threshold_optical_depth=0.5):
+    """SW sorting variable and column od for one wavenumber block: the
+    pseudo-height where the od summed from the top reaches the threshold,
+    interpolated within the first layer that reaches it, or ``column_od -
+    threshold`` where the column is thinner (ref reorder_spectrum.cpp:
+    196-222).  The JAX tool's direct-beam heating rate is not computed:
+    the SW sort never reads it."""
+    t = threshold_optical_depth
+    log_p_hl = torch.log(pressure_hl)
+    column_od = torch.sum(od, dim=0)
+    pseudo_height_hl = log_p_hl[-1] - log_p_hl
+    cum_od = torch.cat([torch.zeros_like(od[:1]), torch.cumsum(od, dim=0)])
+    reaches = cum_od[1:] >= t
+    # First layer that reaches the threshold (0 when none does); argmax
+    # takes no bool and returns the first maximum
+    ilay = torch.argmax(reaches.to(torch.int32), dim=0)
+    cum_above = cum_od.gather(0, ilay[None])[0]
+    od_lay = od.gather(0, ilay[None])[0]
+    h_above = pseudo_height_hl[ilay]
+    h_below = pseudo_height_hl[ilay + 1]
+    interp_h = (((t - cum_above) * h_below
+                 + (cum_above + od_lay - t) * h_above)
+                / torch.clamp(od_lay, min=1.0e-12))
+    return torch.where(column_od <= t, column_od - t, interp_h), column_od
+
+
 def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
                              optical_depth, threshold_optical_depth=0.5,
                              block_wav=1 << 20, device="cpu",
-                             dtype=torch.float64):
-    """LW sorting variable per wavenumber, computed blockwise on ``device``.
+                             dtype=torch.float64, do_sw=False):
+    """LW (or, with ``do_sw``, SW) sorting variable per wavenumber,
+    computed blockwise on ``device``.
 
     ``optical_depth`` is a dense (nlay, nwav) array or anything with
     ``iter_blocks(block_wav)`` (the JAX package's ProfileBlocks).  Returns
@@ -87,9 +116,14 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
                   for i0 in range(0, nwav, block_wav))
     for i0, od_blk in blocks:
         sl = slice(i0, i0 + od_blk.shape[1])
-        s_blk, c_blk = _sorting_kernel(
-            p_hl, as_t(wavenumber[sl]), as_t(d_wavenumber[sl]), as_t(od_blk),
-            threshold_optical_depth=float(threshold_optical_depth))
+        if do_sw:
+            s_blk, c_blk = _sw_sorting_kernel(
+                p_hl, as_t(od_blk), float(threshold_optical_depth))
+        else:
+            s_blk, c_blk = _sorting_kernel(
+                p_hl, as_t(wavenumber[sl]), as_t(d_wavenumber[sl]),
+                as_t(od_blk),
+                threshold_optical_depth=float(threshold_optical_depth))
         sorting[sl] = s_blk.cpu().numpy()
         column_od[sl] = c_blk.cpu().numpy()
     return sorting, column_od
@@ -97,11 +131,13 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
 
 def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
                  band1=None, band2=None, threshold_optical_depth=0.5,
-                 block_wav=1 << 20, device="cpu", dtype=torch.float64):
-    """Array-level reorder_spectrum (LW): the order-file fields as a dict.
+                 block_wav=1 << 20, device="cpu", dtype=torch.float64,
+                 do_sw=False):
+    """Array-level reorder_spectrum: the order-file fields as a dict.
 
-    ``band1``/``band2`` are the band wavenumber bounds; None treats the
-    whole spectrum as one band.  Returns ``wavenumber1_band``,
+    ``do_sw`` selects the shortwave sorting variable.  ``band1``/``band2``
+    are the band wavenumber bounds; None treats the whole spectrum as one
+    band.  Returns ``wavenumber1_band``,
     ``wavenumber2_band`` (clamped to the spectrum), ``band_number``,
     ``rank``, ``column_optical_depth`` and ``sorting_variable``."""
     wavenumber = np.asarray(wavenumber)
@@ -109,7 +145,7 @@ def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
     nwav = len(wavenumber)
     sorting, column_od = compute_sorting_variable(
         pressure_hl, wavenumber, d_wavenumber, optical_depth,
-        threshold_optical_depth, block_wav, device, dtype)
+        threshold_optical_depth, block_wav, device, dtype, do_sw)
 
     if band1 is None:
         band1 = np.array([max(0.0, wavenumber[0] - d_wavenumber[0])])
@@ -155,15 +191,20 @@ def reorder_spectrum(cfg: Config, argv=()) -> str:
     from ecckd_tpu.io.spectrum import open_spectrum_profile
 
     device, dtype = setup(cfg)
-    if cfg.read_string("ssi", default=None) is not None:
-        raise NotImplementedError("reorder_spectrum: the shortwave form "
-                                  "(ssi) is not ported yet (ROADMAP: SW "
-                                  "slice)")
     input_file = find_file(cfg.read_string("input"))
     output_file = cfg.read_string("output")
+    ssi_file = cfg.read_string("ssi", default=None)
+    do_sw = ssi_file is not None
     iprofile = cfg.read_int("iprofile", default=0)
     threshold = cfg.read_float("threshold_optical_depth", default=0.5)
-    logs.log("Assuming longwave spectral region (ssi not provided)")
+    if do_sw:
+        # The SW sorting variable needs no irradiance, but a missing ssi
+        # file fails as it does in the JAX tool
+        if not os.path.exists(find_file(ssi_file)):
+            raise FileNotFoundError(f"ssi file {ssi_file!r} not found")
+        logs.log("Assuming shortwave spectral region (ssi provided)")
+    else:
+        logs.log("Assuming longwave spectral region (ssi not provided)")
     logs.log(f"Reading {input_file}")
     with open_spectrum_profile(input_file, iprofile) as sp:
         molecule = cfg.read_string("molecule", default=sp.molecule)
@@ -176,7 +217,7 @@ def reorder_spectrum(cfg: Config, argv=()) -> str:
             band2 = cfg.read_floats("wavenumber2")
         out = reorder_core(sp.pressure_hl, sp.wavenumber, sp.d_wavenumber,
                            sp, band1, band2, threshold, block_wav, device,
-                           dtype)
+                           dtype, do_sw)
         wavenumber, d_wavenumber = sp.wavenumber, sp.d_wavenumber
     logs.log(f"Writing {output_file}")
     write_order(output_file, argv or sys.argv, molecule, cfg.sprint(),

@@ -1,4 +1,5 @@
-"""Kernels K1 (LW sweep) and K3 (fused interval sum) of ecckd_tpu_torch.
+"""Kernels K1 (LW sweep), K2 (SW sweep) and K3 (fused interval sum) of
+ecckd_tpu_torch.
 
 This file imports no jax, so its card tests run on a machine without it:
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -15,7 +16,8 @@ import torch
 
 from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                          reset_launch_counts,
-                                         sweep_lw_intervals, sweep_lw_plain)
+                                         sweep_lw_intervals, sweep_lw_plain,
+                                         sweep_sw_intervals, sweep_sw_plain)
 from ecckd_tpu_torch.ops.kernels.interval_sum import _layout
 from ecckd_tpu_torch.ops.segments import (fused_groups, interval_sum_fused,
                                           part_of)
@@ -70,17 +72,42 @@ def _fit_parts(planck, bg_od, emis):
     return [part_of(bg_od, w), part_of(w), part_of(bg_od), part_of(emis)]
 
 
+def _sw_args(args, with_up=True):
+    """K2's arguments from the sweep operands of :func:`_inputs`: ssi from
+    the surface Planck row, albedo from the emissivity."""
+    planck, bg_od, od_fit, seg, emis, surfp, i1, i2 = args
+    return (surfp, bg_od, od_fit, seg, i1, i2, 0.5,
+            (1.0 - emis) if with_up else 0.0, with_up)
+
+
 def test_cpu_tensors_take_plain_path():
     reset_launch_counts()
     args = _to(_inputs(6, 700, [0, 300], [299, 699], seed=9), "cpu",
                torch.float64)
     for g, w in zip(sweep_lw_intervals(*args), sweep_lw_plain(*args)):
         assert torch.equal(g, w)
+    for with_up in (True, False):
+        sw = _sw_args(args, with_up)
+        for g, w in zip(sweep_sw_intervals(*sw), sweep_sw_plain(*sw)):
+            assert torch.equal(g, w)
     parts = _fit_parts(args[0], args[1], args[4])
     assert torch.equal(fused_interval_sum(parts, 700, args[6], args[7]),
                        interval_sum_fused(parts, 700, args[6], args[7]))
     assert sweep_lw_intervals.launches == 0
+    assert sweep_sw_intervals.launches == 0
     assert fused_interval_sum.launches == 0
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor on neither the CPU nor a CUDA card has no kernel: the
+    wrappers raise instead of computing somewhere else."""
+    args = _to(_inputs(4, 300, [0], [299], seed=2), "meta", torch.float64)
+    with pytest.raises(ValueError, match="no kernel"):
+        sweep_lw_intervals(*args)
+    with pytest.raises(ValueError, match="no kernel"):
+        sweep_sw_intervals(*_sw_args(args))
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_interval_sum([part_of(args[1])], 300, args[6], args[7])
 
 
 def test_groups_dedup_and_tables():
@@ -130,6 +157,13 @@ def test_kernels_match_plain(cuda, case, dtype):
     assert sweep_lw_intervals.launches == 1
     for g, w in zip(got, sweep_lw_plain(*args)):
         assert _row_err(g, w) <= RTOL[dtype]
+    for with_up in (True, False):
+        sw = _sw_args(args, with_up)
+        got = sweep_sw_intervals(*sw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, sweep_sw_plain(*sw)):
+            assert _row_err(g, w) <= RTOL[dtype]
+    assert sweep_sw_intervals.launches == 2
     parts = _fit_parts(args[0], args[1], args[4])
     g = fused_interval_sum(parts, n, args[6], args[7])
     assert fused_interval_sum.launches == 1
@@ -144,13 +178,12 @@ def test_kernels_deterministic(cuda):
                                                          300000], seed=3),
                cuda, torch.float64)
     parts = _fit_parts(args[0], args[1], args[4])
-    first = (sweep_lw_intervals(*args),
-             fused_interval_sum(parts, 300001, args[6], args[7]))
+    run = lambda: (*sweep_lw_intervals(*args), *sweep_sw_intervals(
+        *_sw_args(args)), fused_interval_sum(parts, 300001, args[6],
+                                             args[7]))
+    first = run()
     for _ in range(3):
-        again = (sweep_lw_intervals(*args),
-                 fused_interval_sum(parts, 300001, args[6], args[7]))
-        assert all(torch.equal(a, b) for a, b in zip(first[0], again[0]))
-        assert torch.equal(first[1], again[1])
+        assert all(torch.equal(a, b) for a, b in zip(first, run()))
 
 
 @pytest.mark.gpu
@@ -168,6 +201,17 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fused_interval_sum([lambda s, n: args[1][:, s:s + n]], 512,
                            args[6], args[7])
+    sw = list(_sw_args(args))
+    for k, bad_arg, err in (
+            (0, sw[0].float(), TypeError),                 # dtype
+            (1, sw[1].cpu(), ValueError),                  # device
+            (2, sw[2][:, :0].contiguous(), ValueError),    # shape
+            (1, sw[1].t().contiguous().t(), ValueError),   # not contiguous
+            (7, sw[7][:-1], ValueError)):                  # albedo shape
+        bad = list(sw)
+        bad[k] = bad_arg
+        with pytest.raises(err):
+            sweep_sw_intervals(*bad)
 
 
 def test_setup_device_and_dtype():
@@ -186,13 +230,9 @@ def test_setup_device_and_dtype():
 
 
 @pytest.mark.parametrize("tool,keys", [
-    ("find_g_points", {"ssi": "ssi.h5"}),
-    ("find_g_points", {"cloud": "cloud"}),
-    ("find_g_points", {"debug_partition": "1"}),
     ("find_g_points", {"band_parallel": "parallel"}),
     ("find_g_points", {"sharded": "1"}),
     ("find_g_points", {"gases": "h2o", "h2o.g_split": "0.5"}),
-    ("create_lut", {"ssi": "ssi.h5"}),
     ("create_lut", {"streaming": "1"}),
     ("create_lut", {"sharded": "1"}),
 ])
@@ -263,20 +303,69 @@ def test_candidate_costs_card_vs_cpu(cuda, method):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("method", ["transmission", "total-transmission"])
+def test_sw_candidate_costs_card_vs_cpu(cuda, method):
+    """The SW candidate cost (K3, fit, K2, cost) on the card against the
+    CPU path, to 1e-11 of the largest cost; the reflected beam runs for
+    transmission (albedo 0.15), not for total-transmission."""
+    from ecckd_tpu_torch.convert import sw_band_state
+    from ecckd_tpu_torch.ops import (heating_rate, rt_direct_sw,
+                                     rt_norayleigh_sw)
+    from ecckd_tpu_torch.partition import CandidateCostSw
+    p, _, _, _, od = _rig_profile()
+    rng = np.random.default_rng(5)
+    col = np.sort(10.0 ** rng.uniform(-3, 0.5, od.shape[1]))
+    od = col[None, :] * rng.dirichlet(np.ones(od.shape[0]), od.shape[1]).T
+    ssi = np.abs(rng.normal(1.0, 0.3, od.shape[1]))
+    T = torch.from_numpy
+    fd = rt_direct_sw(0.5, T(ssi), T(od))
+    lw = np.diff(np.sqrt(p))
+    albedo = 0.15 if method == "transmission" else 0.0
+    arrays = dict(layer_weight=lw / lw.sum(), pressure_hl=p, ssi=ssi,
+                  surf_albedo=albedo, flux_dn_surf=fd[-1].numpy(),
+                  flux_up_toa=np.zeros(len(ssi)), bg_od=np.zeros_like(od),
+                  metric=(-np.expm1(-1.66 * od) if method == "transmission"
+                          else od), hr=heating_rate(T(p), fd).numpy())
+    extras = None
+    if method == "total-transmission":
+        extras = dict(min_scaling=0.5, max_scaling=2.5)
+        for tag, scale in (("low", 0.5), ("high", 2.5)):
+            fds, fus = rt_norayleigh_sw(0.5, T(ssi), T(scale * od),
+                                        torch.full((len(ssi),), 0.15,
+                                                   dtype=torch.float64))
+            extras.update({f"hr_{tag}": heating_rate(T(p), fds).numpy(),
+                           f"flux_dn_surf_{tag}": fds[-1].numpy(),
+                           f"flux_up_toa_{tag}": fus[0].numpy()})
+    costs = [CandidateCostSw(method, 0.02, cos_sza=0.5,
+                             **sw_band_state(arrays, extras, d,
+                                             torch.float64))
+             for d in ("cpu", cuda)]
+    reset_launch_counts()
+    for i1, i2 in (([0, 300, 700], [299, 699, 1023]), ([5, 6], [5, 900]),
+                   ([0, 100, 100, 1000], [99, 100, 999, 1023])):
+        i1 = np.asarray(i1, np.int32)
+        i2 = np.asarray(i2, np.int32)
+        want, got = (c.costs(i1, i2) for c in costs)
+        assert np.abs(got - want).max() <= 1e-11 * np.abs(want).max()
+    assert sweep_sw_intervals.launches == 3 * (
+        2 if method == "total-transmission" else 1)
+
+
+@pytest.mark.gpu
 def test_chain_core_float32_on_card(cuda):
     """precision=float32 runs the chain on the card: contiguous ranks,
     errors of the order of the tolerance, a finite positive LUT."""
     from types import SimpleNamespace
     from ecckd_tpu_torch.models import ConcDependence
-    from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_lw_core
-    from ecckd_tpu_torch.tools.find_g_points import (LwGasInput,
-                                                     find_g_points_lw_core)
+    from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_core
+    from ecckd_tpu_torch.tools.find_g_points import (GasInput,
+                                                     find_g_points_core)
     from ecckd_tpu_torch.tools.reorder_spectrum import reorder_core
     p, t, wav, dwav, od = _rig_profile()
     f32 = torch.float32
     o = reorder_core(p, wav, dwav, od, device=cuda, dtype=f32)
-    gp = find_g_points_lw_core(
-        [LwGasInput("h2o", o["rank"], o["band_number"], o["wavenumber1_band"],
+    gp = find_g_points_core(
+        [GasInput("h2o", o["rank"], o["band_number"], o["wavenumber1_band"],
                     o["wavenumber2_band"], o["sorting_variable"], p, t, wav,
                     dwav, od)], 0.4, averaging_method="transmission",
         device=cuda, dtype=f32)
@@ -285,7 +374,7 @@ def test_chain_core_float32_on_card(cuda):
     assert g.error.max() < 0.8
     sp = SimpleNamespace(pressure_hl=p, temperature_hl=t, wavenumber=wav,
                          d_wavenumber=dwav, optical_depth=od, ncol=1)
-    model = create_lut_lw_core(gp.g_point, gp.wavenumber1_band,
+    model = create_lut_core(gp.g_point, gp.wavenumber1_band,
                                gp.wavenumber2_band, gp.band_number,
                                [LutGas("h2o", ConcDependence.LINEAR,
                                        [lambda i: (sp, 0.01)])],

@@ -254,8 +254,8 @@ import sys
 import numpy as np
 import torch
 from ecckd_tpu_torch.tools.reorder_spectrum import reorder_core
-from ecckd_tpu_torch.tools.find_g_points import LwGasInput, find_g_points_lw_core
-from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_lw_core
+from ecckd_tpu_torch.tools.find_g_points import GasInput, find_g_points_core
+from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_core
 from ecckd_tpu_torch.models import ConcDependence
 from types import SimpleNamespace
 nlay, nwav = 6, 256
@@ -266,12 +266,12 @@ dwav = np.gradient(wav)
 k = 1e-4 + 50.0 / (1.0 + ((wav - 700.0) / 40.0) ** 2)
 od = np.diff(p)[:, None] * 1e-5 * k[None, :]
 o = reorder_core(p, wav, dwav, od)
-g = find_g_points_lw_core([LwGasInput("h2o", o["rank"], o["band_number"],
+g = find_g_points_core([GasInput("h2o", o["rank"], o["band_number"],
     o["wavenumber1_band"], o["wavenumber2_band"], o["sorting_variable"],
     p, t, wav, dwav, od)], 1.0, averaging_method="transmission")
 sp = SimpleNamespace(pressure_hl=p, temperature_hl=t, wavenumber=wav,
                      d_wavenumber=dwav, optical_depth=od, ncol=1)
-m = create_lut_lw_core(g.g_point, g.wavenumber1_band, g.wavenumber2_band,
+m = create_lut_core(g.g_point, g.wavenumber1_band, g.wavenumber2_band,
                        g.band_number, [LutGas("h2o", ConcDependence.LINEAR,
                                               [lambda i: (sp, 0.01)])])
 assert np.all(np.isfinite(m.single_gas_data[0].molar_abs))
