@@ -24,10 +24,18 @@ Phases (every failed check raises; nothing is caught):
      spectrum, two bands (the lower reflects the direct beam), the
      total-transmission search and a transmission-averaged LUT;
   7. each main path once more under ``torch.profiler``: wall and device
-     seconds, and the device time of the costliest kernels and copies.
+     seconds, and the device time of the costliest kernels and copies;
+  8. the experiment path of ``scripts/exp_kernels.py`` as ported
+     (``ecckd_tpu_torch.scripts.exp_kernels.main``, all three variants, at
+     2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
+     layers) against K1, E2 (fused LW fit and truth sums) against K3, both
+     against their plain versions, with kernel, plain, yardstick and
+     library times.
 Launch counts are set to 0 just before each main path and read just after.
-The last line is a JSON object with "ok" and the device; the line before
-it lists each kernel with its launches on the main paths, error and times.
+No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
+last line is a JSON object with "ok" and the device; the line before it
+lists each kernel with its launches on the main paths, error, times and
+the bound of its work on the card.
 """
 
 from __future__ import annotations
@@ -50,6 +58,17 @@ HR_TOL = 0.2
 HR_TOL_SW = 0.5
 SW_BANDS = ([250.0, 10000.0], [10000.0, 50000.0])
 BARS = {torch.float64: 1e-10, torch.float32: 1e-5}
+# The least time of a kernel's work: its bytes (each input read once, each
+# output written once) over the H100 SXM's device memory rate, or its
+# operations over the peak rate outside the tensor cores (float32 and float64
+# from NVIDIA's H100 SXM data sheet), whichever is longer.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# Operations per layer and wavenumber of the LW sweep (od, emissivity and
+# factor with their clamps, two sources, two recurrences) and of the SW
+# sweep with its reflected beam (two running sums, two exps and products).
+LW_LAYER_OPS = 21
+SW_LAYER_OPS = 9
 
 
 def log(*args):
@@ -83,6 +102,58 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def memberships(i1, i2, n):
+    """Wavenumbers summed over all intervals, each counted once for every
+    interval that holds it."""
+    lo = np.maximum(np.asarray(i1, np.int64), 0)
+    hi = np.minimum(np.asarray(i2, np.int64), n - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by) of ``nbytes`` moved and ``ops`` done."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                          "operations")
+
+
+def lw_sweep_bound(args):
+    """Bound of K1 and E1 on (planck, bg_od, od_fit, seg, emis, surfp, i1,
+    i2): one read of every input, the two flux rows per level written."""
+    planck, bg_od, od_fit, seg, emis, surfp, i1, i2 = args
+    nlay, n = bg_od.shape
+    nseg = i1.shape[0]
+    es = planck.element_size()
+    nbytes = (es * (planck.numel() + bg_od.numel() + od_fit.numel() + 2 * n
+                    + 2 * (nlay + 1) * nseg) + 4 * (n + 2 * nseg))
+    ops = (LW_LAYER_OPS * nlay * n
+           + 2 * (nlay + 1) * memberships(i1.cpu(), i2.cpu(), n))
+    return bound(nbytes, ops, planck.dtype)
+
+
+def row_sums_bound(rows, nwav, nprod, i1, i2, dtype):
+    """Bound of K3 and E2: ``rows`` operand rows read once, ``nprod``
+    products per wavenumber, each output row summed per interval."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nseg = len(i1)
+    nbytes = es * (rows * nwav + rows * nseg) + 4 * 2 * nseg
+    ops = nprod * nwav + rows * memberships(i1, i2, nwav)
+    return bound(nbytes, ops, dtype)
+
+
+def membership_matmul_ms(rows, i1, i2):
+    """One ``torch.matmul`` of stacked rows by the 0/1 (nwav, nseg)
+    membership, built outside the timed region: the contraction the Pallas
+    sum kernels perform, without forming the rows."""
+    idx = torch.arange(rows.shape[1], device=rows.device)[:, None]
+    member = ((idx >= i1.long()[None, :]) & (idx <= i2.long()[None, :])
+              ).to(rows.dtype)
+    ms = cuda_ms(lambda: torch.matmul(rows, member), 10)
+    del member
+    return ms
 
 
 # ---------------------------------------------------------------- inputs
@@ -241,7 +312,27 @@ def phase_kernels(dev):
                 f"ms (CUDA events)")
             check(rel <= BARS[dtype], f"{name} {tag} within {BARS[dtype]}")
             res[name] = dict(max_abs_err=absolute, max_rel_err=rel, ms=ms,
-                             plain_ms=plain_ms)
+                             plain_ms=plain_ms, library_ms=None)
+        rows = torch.cat([m * w_num, w_num, h, fdt[None], sweep_args[4][None]])
+        res["interval_sum"]["library_ms"] = membership_matmul_ms(
+            rows, sweep_args[6], sweep_args[7])
+        del rows
+        nseg = len(i1)
+        # K2: ssi, bg_od, od_fit, albedo and the two flux rows per level
+        sw_bytes = (torch.finfo(dtype).bits // 8
+                    * (2 * n + nlay * n + nlay * nseg + 2 * (nlay + 1) * nseg)
+                    + 4 * (n + 2 * nseg))
+        for name, (b, by) in (
+                ("sweep_lw", lw_sweep_bound(sweep_args)),
+                ("sweep_sw_up", bound(
+                    sw_bytes, SW_LAYER_OPS * nlay * n
+                    + 2 * (nlay + 1) * memberships(i1, i2, n), dtype)),
+                ("interval_sum", row_sums_bound(3 * nlay + 2, n, nlay, i1,
+                                                i2, dtype))):
+            res[name].update(bound_ms=b, bound_by=by)
+            log(f"[kernels] {name} {tag}: bound {b:.4f} ms ({by}), kernel "
+                f"{res[name]['ms'] / b:.1f}x the bound; library "
+                f"{res[name]['library_ms']}")
         out[tag] = res
     return out
 
@@ -252,7 +343,7 @@ def run_chain(profiles, device, hr_tol, lut_profiles=None, ssi=None,
     returns (order, g-points, model, seconds per stage).  LW: transmission
     search and LUT.  SW (``ssi`` given): total-transmission search with
     the h2o scalings 0.5 and 2.5, transmission-averaged LUT."""
-    from ecckd_tpu.config import Config
+    from ecckd_tpu_torch.config import Config
     from ecckd_tpu_torch.models import ConcDependence
     from ecckd_tpu_torch.tools.common import setup
     from ecckd_tpu_torch.tools.create_lut import (LutGas, SolarSpectrum,
@@ -447,10 +538,99 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
                 f"ms {e.count:6d} x  {e.key[:90]}")
 
 
+def phase_experiment():
+    """The experiment path: ``exp_kernels.main`` with all three variants
+    in float32 (the script's type) and float64, counts set to 0 just
+    before and read just after; then E1 against K1 on the same inputs,
+    E1 and E2 against their plain versions, and their yardsticks."""
+    from ecckd_tpu_torch.ops.kernels import (KERNELS, fused_sums_lw_plain,
+                                             reset_launch_counts,
+                                             sweep_lw_scan_plain)
+    from ecckd_tpu_torch.scripts import exp_kernels
+    say = lambda line: log(f"[experiment] {line}")
+    dtypes = (torch.float32, torch.float64)
+    reset_launch_counts()
+    runs = {dt: exp_kernels.main(device="cuda", dtype=dt, nwav=NWAV_FULL,
+                                 iters=20, out=say) for dt in dtypes}
+    launches = {k.__name__: k.launches for k in KERNELS}
+    say(f"launches {launches}")
+    for name in ("sweep_lw_scan_intervals", "fused_sums_lw_intervals"):
+        check(launches[name] > 0, f"{name} launched on the experiment path")
+    out = {}
+    for dtype in dtypes:
+        tag = "f64" if dtype == torch.float64 else "f32"
+        bar = BARS[dtype]
+        run = runs.pop(dtype)
+        d = run["inputs"]
+        sweep_args = (d["planck_hl"], d["bg_od"], run["od_fit"],
+                      d["seg_of_wav"], d["surf_emissivity"], d["surf_planck"],
+                      d["i1"], d["i2"])
+        sums_args = (d["metric"], d["planck_hl"], d["hr"], d["flux_dn_surf"],
+                     d["flux_up_toa"], d["i1"], d["i2"])
+        scan, isum = run["sweep-scan"], run["isum-pallas"]
+        vs_k1 = max(row_err(g, w)[0] for g, w in zip(scan["got"],
+                                                     scan["ref"]))
+        vs_k3 = row_err(isum["got"], isum["ref"])[0]
+        say(f"E1 vs K1 {tag}: max rel err (normwise per row) {vs_k1:.3e} "
+            f"(bar {bar:.0e}); E2 vs K3: {vs_k3:.3e}")
+        check(vs_k1 <= bar, f"E1 agrees with K1 within {bar} ({tag})")
+        check(vs_k3 <= bar, f"E2 agrees with K3 within {bar} ({tag})")
+        res = {}
+        for name, got, plain, args, yard in (
+                ("sweep_lw_scan", scan["got"], sweep_lw_scan_plain,
+                 sweep_args, run["sweep-v0"]["ms"]),
+                ("fused_sums_lw", (isum["got"],),
+                 lambda *a: (fused_sums_lw_plain(*a),), sums_args,
+                 isum["k3_ms"])):
+            want = plain(*args)
+            torch.cuda.synchronize()
+            errs = [row_err(g, w) for g, w in zip(got, want)]
+            rel = max(e[0] for e in errs)
+            check(rel <= bar, f"{name} {tag} within {bar} of its plain "
+                  "version")
+            res[name] = dict(max_rel_err=rel,
+                             max_abs_err=max(e[1] for e in errs),
+                             ms=(scan if name == "sweep_lw_scan"
+                                 else isum)["ms"],
+                             plain_ms=cuda_ms(lambda: plain(*args), 3),
+                             yardstick_ms=yard, library_ms=None)
+        n, nlay = NWAV_FULL, exp_kernels.NLAY
+        w_num = d["planck_hl"][1:]
+        rows = torch.cat([d["metric"] * w_num, w_num, d["hr"],
+                          d["flux_dn_surf"][None], d["flux_up_toa"][None]])
+        res["fused_sums_lw"]["library_ms"] = membership_matmul_ms(
+            rows, d["i1"], d["i2"])
+        del rows
+        i1, i2 = d["i1"].cpu().numpy(), d["i2"].cpu().numpy()
+        for name, (b, by) in (
+                ("sweep_lw_scan", lw_sweep_bound(sweep_args)),
+                ("fused_sums_lw", row_sums_bound(3 * nlay + 2, n, nlay, i1,
+                                                 i2, dtype))):
+            r = res[name]
+            r.update(bound_ms=b, bound_by=by)
+            say(f"{name} {tag}: max rel err vs plain {r['max_rel_err']:.3e} "
+                f"(bar {bar:.0e}), max abs err {r['max_abs_err']:.3e}; "
+                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"{'K1' if name == 'sweep_lw_scan' else 'K3'} "
+                f"{r['yardstick_ms']:.4f} ms, library {r['library_ms']} ms, "
+                f"bound {b:.4f} ms ({by}) (CUDA events)")
+        out[tag] = res
+        del run, d, sweep_args, sums_args, scan, isum
+    return out, launches
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=res["max_abs_err"],
-                ms=res["ms"], plain_ms=res["plain_ms"])
+                ms=res["ms"], plain_ms=res["plain_ms"],
+                bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+                library_ms=res["library_ms"])
+
+
+def jax_modules():
+    return sorted(m for m in sys.modules
+                  if any(m == top or m.startswith(top + ".")
+                         for top in ("jax", "ecckd_tpu")))
 
 
 def main() -> int:
@@ -467,7 +647,10 @@ def main() -> int:
     lw_profiles, lw_launches = phase_lw_main_path()
     sw_profiles, ssi, sw_launches = phase_sw_main_path()
     phase_profile(lw_profiles, sw_profiles, ssi)
-    check("jax" not in sys.modules, "jax never imported")
+    del lw_profiles, sw_profiles
+    exp, exp_launches = phase_experiment()
+    check(not jax_modules(), f"no module of jax or ecckd_tpu imported "
+          f"(found {jax_modules()[:5]})")
     f64 = times["f64"]
     kernels = [
         kernel_entry("sweep_lw", "ecckd_tpu_torch/csrc/sweep_lw.cu",
@@ -481,6 +664,16 @@ def main() -> int:
                      lw_launches["fused_interval_sum"]
                      + sw_launches["fused_interval_sum"],
                      f64["interval_sum"]),
+        kernel_entry("sweep_lw_scan",
+                     "ecckd_tpu_torch/csrc/sweep_lw_scan.cu",
+                     "scripts/exp_kernels.py:132",
+                     exp_launches["sweep_lw_scan_intervals"],
+                     exp["f64"]["sweep_lw_scan"]),
+        kernel_entry("fused_sums_lw",
+                     "ecckd_tpu_torch/csrc/fused_sums_lw.cu",
+                     "scripts/exp_kernels.py:224",
+                     exp_launches["fused_sums_lw_intervals"],
+                     exp["f64"]["fused_sums_lw"]),
     ]
     log(smi)
     print(json.dumps({"kernels": kernels}))

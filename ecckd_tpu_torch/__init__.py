@@ -10,13 +10,20 @@ Hopper in CUDA C++ (``csrc/``) and bound with ctypes (``ops/kernels/``):
 * K2, the SW broadband sweep with per-interval flux sums
   (replaces ``ecckd_tpu/ops/pallas/sweep_sw.py``);
 * K3, the fused multi-row interval sum
-  (replaces ``ecckd_tpu/ops/segments.py:_isum_pallas_kernel``).
+  (replaces ``ecckd_tpu/ops/segments.py:_isum_pallas_kernel``);
+
+and two more on the round-5 experiment path
+(:mod:`ecckd_tpu_torch.scripts.exp_kernels`, replacing the kernels of
+``scripts/exp_kernels.py``): E1, the LW sweep by affine scans across
+layers, and E2, the LW fit and truth interval sums in one pass.
 
 Each kernel wrapper runs its plain PyTorch version for tensors on the CPU
-and launches the kernel for CUDA tensors; nothing falls back.  Host-only
-modules are shared with the JAX package (``config``, ``logs``, ``errors``,
-``constants``, and ``partition/equipartition.py`` and ``gas_data.py``
-through :mod:`ecckd_tpu_torch._shared`).  This package never imports jax.
+and launches the kernel for CUDA tensors; nothing falls back.  The host
+modules it needs are its own copies of the JAX package's (``config``,
+``logs``, ``errors``, ``constants``, ``tools/common.py``,
+``partition/equipartition.py`` and ``gas_data.py``, and ``io`` without the
+``.spbin`` shard reader).  This package imports neither jax nor
+``ecckd_tpu``.
 """
 
 __version__ = "0.1.0"

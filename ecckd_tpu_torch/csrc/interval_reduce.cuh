@@ -1,5 +1,6 @@
 // Deterministic per-interval reduction shared by the hand-written Hopper
-// kernels (sweep_lw.cu, interval_sum.cu).
+// kernels (sweep_lw.cu, sweep_sw.cu, interval_sum.cu, sweep_lw_scan.cu,
+// fused_sums_lw.cu).
 //
 // Every kernel here produces, per wavenumber w, a set of rows v[r](w) and
 // needs S[r][j] = sum of v[r](w) over w in the inclusive interval
@@ -15,6 +16,8 @@
 //    thread.  Rows are staged in shared memory kStageRows at a time; each
 //    warp then takes (row, interval) pairs and sums the interval's part of
 //    the tile with a fixed lane-strided loop and a fixed shuffle tree.
+//    A kernel that lays its rows out in shared memory itself (a block of
+//    rows over a narrower tile of wavenumbers) hands them to reduce().
 //  * Tile sums go into the block's own slice of a partial buffer
 //    (read-modify-write by one lane, ordered by the tile loop), and a second
 //    kernel adds the slices of the blocks an interval meets in block order.
@@ -62,13 +65,22 @@ struct Reducer {
   int nstaged;     // staged slots (the same in every thread)
 
   // Every thread of the block calls this first.  ``s_count`` is a
-  // __shared__ int of the caller.
+  // __shared__ int of the caller; ``smem`` holds reducer_smem_bytes().
   __device__ void init(unsigned char* smem, int* s_count, const int* i1_,
                        const int* i2_, T* partial_all, int nrows, int n_,
                        int nseg_) {
     stage = reinterpret_cast<T*>(smem);
     stage_row = reinterpret_cast<int*>(stage + kStageRows * kThreads);
-    list = stage_row + kStageRows;
+    init_list(stage_row + kStageRows, s_count, i1_, i2_, partial_all, nrows,
+              n_, nseg_);
+  }
+
+  // init() for a kernel that stages no rows here and calls reduce() on its
+  // own buffer; ``list_`` is shared memory for ``nseg_`` ints.
+  __device__ void init_list(int* list_, int* s_count, const int* i1_,
+                            const int* i2_, T* partial_all, int nrows,
+                            int n_, int nseg_) {
+    list = list_;
     i1 = i1_;
     i2 = i2_;
     n = n_;
@@ -94,22 +106,33 @@ struct Reducer {
     __syncthreads();
   }
 
+  // Add rows g < nrows_buf of ``buf`` (row g at buf + g * ld, wavenumbers
+  // w0 .. w0 + width - 1) into the partial slice at output rows row_of(g).
+  // Every thread of the block calls it, between barriers.
+  template <typename RowOf>
+  __device__ void reduce(const T* buf, int nrows_buf, int ld, int width,
+                         RowOf row_of) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int p = warp; p < nrows_buf * count; p += kWarps) {
+      const int g = p / count;
+      const int j = list[p - g * count];
+      const int lo = max(max(i1[j], 0), w0) - w0;
+      const int hi = min(min(i2[j], n - 1), w0 + width - 1) - w0;
+      if (lo > hi) continue;  // the same in every lane of the warp
+      T s = T(0);
+      for (int k = lo + lane; k <= hi; k += 32) s += buf[g * ld + k];
+      s = warp_sum(s);
+      if (lane == 0) partial[(size_t)row_of(g) * nseg + j] += s;
+    }
+  }
+
   // Reduce the staged rows of the current tile into the partial slice.
   __device__ void flush() {
     if (nstaged == 0) return;
     __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int p = warp; p < nstaged * count; p += kWarps) {
-      const int g = p / count;
-      const int j = list[p - g * count];
-      const int lo = max(max(i1[j], 0), w0) - w0;
-      const int hi = min(min(i2[j], n - 1), w0 + kThreads - 1) - w0;
-      if (lo > hi) continue;  // the same in every lane of the warp
-      T s = T(0);
-      for (int k = lo + lane; k <= hi; k += 32) s += stage[g * kThreads + k];
-      s = warp_sum(s);
-      if (lane == 0) partial[(size_t)stage_row[g] * nseg + j] += s;
-    }
+    const int* rows = stage_row;
+    reduce(stage, nstaged, kThreads, kThreads,
+           [rows](int g) { return rows[g]; });
     __syncthreads();
     nstaged = 0;
   }
@@ -139,13 +162,13 @@ __global__ void sum_partials(const T* __restrict__ partial, T* __restrict__ out,
   out[idx] = s;
 }
 
-// Launch ``kernel`` over the chunks, then the block-order sum into ``out``.
+// Launch ``kernel`` over the chunks with ``smem`` bytes of dynamic shared
+// memory, then the block-order sum into ``out``.
 template <typename T, typename Kernel, typename... Args>
-inline int launch_reduced(Kernel kernel, T* partial, T* out, const int* i1,
-                          const int* i2, int nrows, int n, int nseg,
-                          cudaStream_t stream, Args... args) {
+inline int launch_reduced_smem(Kernel kernel, size_t smem, T* partial, T* out,
+                               const int* i1, const int* i2, int nrows, int n,
+                               int nseg, cudaStream_t stream, Args... args) {
   const int nblocks = (n + kChunk - 1) / kChunk;
-  const size_t smem = reducer_smem_bytes<T>(nseg);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
@@ -165,6 +188,15 @@ inline int launch_reduced(Kernel kernel, T* partial, T* out, const int* i1,
         partial, out, i1, i2, nrows, nseg, n);
   }
   return (int)cudaGetLastError();
+}
+
+// launch_reduced_smem() for a kernel that stages its rows in the Reducer.
+template <typename T, typename Kernel, typename... Args>
+inline int launch_reduced(Kernel kernel, T* partial, T* out, const int* i1,
+                          const int* i2, int nrows, int n, int nseg,
+                          cudaStream_t stream, Args... args) {
+  return launch_reduced_smem<T>(kernel, reducer_smem_bytes<T>(nseg), partial,
+                                out, i1, i2, nrows, n, nseg, stream, args...);
 }
 
 }  // namespace ecckd

@@ -1,0 +1,149 @@
+"""Leveled logging and a named-activity timer.
+
+Functional equivalents of the reference's Logging.h streams
+(src/include/Logging.h:36-155: LOG/DETAIL/DEBUG/WARNING/ERROR with a
+``log_level`` config key, optional file sink and a progress stream) and
+Timer.h (src/include/Timer.h:27-173: named wall-clock activities, report
+on demand).
+
+The port's own copy of ``ecckd_tpu/logs.py``: the port imports nothing of
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from contextlib import contextmanager
+from typing import Dict, Optional, TextIO
+
+_LEVELS = {"error": 0, "warning": 1, "info": 2, "progress": 2,
+           "detail": 3, "debug": 4}
+_current_level = 2
+_log_file: Optional[TextIO] = None
+_progress_open = False
+
+
+def set_log_level(level: str) -> None:
+    global _current_level
+    key = level.lower()
+    if key not in _LEVELS:
+        raise ValueError(f"Unknown log level {level!r}; choose from {sorted(_LEVELS)}")
+    _current_level = _LEVELS[key]
+
+
+def set_log_file(path: Optional[str]) -> None:
+    """Duplicate every emitted message into ``path`` (append), mirroring
+    the reference's optional file output (Logging.h:36-155 /
+    Logging.cpp ``set_log_file``).  ``None`` closes the sink."""
+    global _log_file
+    if _log_file is not None:
+        _log_file.close()
+        _log_file = None
+    if path is not None:
+        _log_file = open(path, "a")
+
+
+def _end_progress(stream) -> None:
+    """Terminate an open progress line before a normal message."""
+    global _progress_open
+    if _progress_open:
+        print("", file=stream, flush=True)
+        _progress_open = False
+
+
+def _emit(level: int, prefix: str, *args) -> None:
+    if level <= _current_level:
+        msg = " ".join(str(a) for a in args)
+        stream = sys.stderr if prefix else sys.stdout
+        _end_progress(stream)
+        print(f"{prefix}{msg}", file=stream, flush=True)
+        if _log_file is not None:
+            print(f"{prefix}{msg}", file=_log_file, flush=True)
+
+
+def progress(*args) -> None:
+    """In-place progress reporting (reference progress bar,
+    Logging.h:112-125: equipartition prints one dot per cost evaluation,
+    the minimizer a per-iteration line).  On a TTY the line is rewritten
+    with a carriage return; otherwise each update is a plain line.  The
+    file sink records every update as a full line."""
+    global _progress_open
+    if _LEVELS["progress"] > _current_level:
+        return
+    msg = " ".join(str(a) for a in args)
+    if sys.stdout.isatty():
+        print(f"\r{msg}", end="", file=sys.stdout, flush=True)
+        _progress_open = True
+    else:
+        print(msg, file=sys.stdout, flush=True)
+    if _log_file is not None:
+        print(msg, file=_log_file, flush=True)
+
+
+def log(*args) -> None:
+    _emit(2, "", *args)
+
+
+def detail(*args) -> None:
+    _emit(3, "", *args)
+
+
+def debug(*args) -> None:
+    _emit(4, "", *args)
+
+
+def warning(*args) -> None:
+    _emit(1, "*** Warning: ", *args)
+
+
+def error(*args) -> None:
+    _emit(0, "*** Error: ", *args)
+
+
+class Timer:
+    """Accumulate wall-clock time in named activities.
+
+    ``start(name)`` switches accumulation to that activity (ending the
+    previous one); ``report()`` returns a formatted table.
+    """
+
+    def __init__(self):
+        self._totals: Dict[str, float] = {}
+        self._active: Optional[str] = None
+        self._t0 = 0.0
+
+    def start(self, name: str) -> None:
+        now = time.perf_counter()
+        if self._active is not None:
+            self._totals[self._active] = (
+                self._totals.get(self._active, 0.0) + now - self._t0)
+        self._active = name
+        self._t0 = now
+
+    def stop(self) -> None:
+        if self._active is not None:
+            now = time.perf_counter()
+            self._totals[self._active] = (
+                self._totals.get(self._active, 0.0) + now - self._t0)
+            self._active = None
+
+    def total(self, name: str) -> float:
+        return self._totals.get(name, 0.0)
+
+    def report(self) -> str:
+        self.stop()
+        lines = ["Elapsed times:"]
+        for name, t in self._totals.items():
+            lines.append(f"  {name:30s} {t:10.3f} s")
+        lines.append(f"  {'Total':30s} {sum(self._totals.values()):10.3f} s")
+        return "\n".join(lines)
+
+
+@contextmanager
+def timed(timer: Timer, name: str):
+    timer.start(name)
+    try:
+        yield
+    finally:
+        timer.stop()

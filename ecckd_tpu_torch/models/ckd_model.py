@@ -17,7 +17,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ecckd_tpu.constants import K_NAME, MOLES_PER_PA, REFERENCE_COS_SZA
+from ..constants import K_NAME, MOLES_PER_PA, REFERENCE_COS_SZA
 from ..ops.rayleigh import rayleigh_molar_scattering_coeff
 from .gas_optics import ConcDependence
 
@@ -130,7 +130,7 @@ class CkdModel:
               config_str: str = ""):
         """Write a ckd-definition file with the reference's exact variable
         names, dimensions, types and attributes (ckd_model.cpp:288-641)."""
-        from ecckd_tpu.io import NcWriter, write_standard_attributes
+        from ..io import NcWriter, write_standard_attributes
 
         w = NcWriter(file_name)
         w.define_dimension("temperature", self.nt)

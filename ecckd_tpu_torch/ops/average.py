@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ecckd_tpu.constants import (ACCEL_GRAVITY, LW_DIFFUSIVITY,
-                                 MOLAR_MASS_DRY_AIR)
+from ..constants import ACCEL_GRAVITY, LW_DIFFUSIVITY, MOLAR_MASS_DRY_AIR
 from .kernels.interval_sum import fused_interval_sum
 from .segments import part_of
 

@@ -6,7 +6,7 @@ PyTorch counterpart of ``ecckd_tpu/ops/heating_rate.py``
 
 from __future__ import annotations
 
-from ecckd_tpu.constants import ACCEL_GRAVITY, SPECIFIC_HEAT_AIR
+from ..constants import ACCEL_GRAVITY, SPECIFIC_HEAT_AIR
 
 
 def heating_rate(pressure_hl, flux_dn, flux_up=None):

@@ -8,8 +8,11 @@ the CPU it runs the kernel's plain PyTorch version instead.
 from .sweep_lw import sweep_lw_intervals, sweep_lw_plain
 from .sweep_sw import sweep_sw_intervals, sweep_sw_plain
 from .interval_sum import fused_interval_sum
+from .sweep_lw_scan import sweep_lw_scan_intervals, sweep_lw_scan_plain
+from .fused_sums_lw import fused_sums_lw_intervals, fused_sums_lw_plain
 
-KERNELS = (sweep_lw_intervals, sweep_sw_intervals, fused_interval_sum)
+KERNELS = (sweep_lw_intervals, sweep_sw_intervals, fused_interval_sum,
+           sweep_lw_scan_intervals, fused_sums_lw_intervals)
 
 
 def reset_launch_counts():

@@ -63,38 +63,47 @@ def sweep_lw_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
     if planck_hl.device.type == "cpu":
         return sweep_lw_plain(planck_hl, bg_od, od_fit, seg_of_wav,
                               surf_emissivity, surf_planck, i1, i2)
+    out = launch_lw("sweep_lw", "ecckd_sweep_lw", planck_hl, bg_od, od_fit,
+                    seg_of_wav, surf_emissivity, surf_planck, i1, i2)
+    sweep_lw_intervals.launches += 1
+    return out
+
+
+def launch_lw(kernel, entry, planck_hl, bg_od, od_fit, seg_of_wav,
+              surf_emissivity, surf_planck, i1, i2):
+    """Check the arguments of a LW sweep kernel (K1, E1), launch the entry
+    point ``entry`` + ``_f64`` or ``_f32`` on the current stream and return
+    (flux_dn, flux_up)."""
     if planck_hl.device.type != "cuda":
-        raise ValueError(f"sweep_lw: no kernel for device {planck_hl.device}")
+        raise ValueError(f"{kernel}: no kernel for device {planck_hl.device}")
     dtype = planck_hl.dtype
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"sweep_lw: unsupported dtype {dtype}")
+        raise TypeError(f"{kernel}: unsupported dtype {dtype}")
     nlev1, n = planck_hl.shape
     nlay = nlev1 - 1
     nseg = i1.shape[0]
     dev = planck_hl.device
-    _check("sweep_lw", "planck_hl", planck_hl, dtype, (nlev1, n), dev)
-    _check("sweep_lw", "bg_od", bg_od, dtype, (nlay, n), dev)
-    _check("sweep_lw", "od_fit", od_fit, dtype, (nlay, nseg), dev)
-    _check("sweep_lw", "seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
-    _check("sweep_lw", "surf_emissivity", surf_emissivity, dtype, (n,), dev)
-    _check("sweep_lw", "surf_planck", surf_planck, dtype, (n,), dev)
-    _check("sweep_lw", "i1", i1, torch.int32, (nseg,), dev)
-    _check("sweep_lw", "i2", i2, torch.int32, (nseg,), dev)
+    _check(kernel, "planck_hl", planck_hl, dtype, (nlev1, n), dev)
+    _check(kernel, "bg_od", bg_od, dtype, (nlay, n), dev)
+    _check(kernel, "od_fit", od_fit, dtype, (nlay, nseg), dev)
+    _check(kernel, "seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
+    _check(kernel, "surf_emissivity", surf_emissivity, dtype, (n,), dev)
+    _check(kernel, "surf_planck", surf_planck, dtype, (n,), dev)
+    _check(kernel, "i1", i1, torch.int32, (nseg,), dev)
+    _check(kernel, "i2", i2, torch.int32, (nseg,), dev)
     lib = _build.library()
     nblocks = -(-n // lib.ecckd_chunk_size())
     out = torch.empty((2 * nlev1, nseg), dtype=dtype, device=dev)
     partial = torch.empty(max(1, nblocks * 2 * nlev1 * nseg), dtype=dtype,
                           device=dev)
-    fn = (lib.ecckd_sweep_lw_f64 if dtype == torch.float64
-          else lib.ecckd_sweep_lw_f32)
+    fn = getattr(lib, entry + ("_f64" if dtype == torch.float64 else "_f32"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(planck_hl.data_ptr(), bg_od.data_ptr(), od_fit.data_ptr(),
                  seg_of_wav.data_ptr(), surf_emissivity.data_ptr(),
                  surf_planck.data_ptr(), i1.data_ptr(), i2.data_ptr(),
                  partial.data_ptr(), out.data_ptr(), nlay, n, nseg, stream)
-    _build.check(err, "sweep_lw")
-    sweep_lw_intervals.launches += 1
+    _build.check(err, kernel)
     return out[:nlev1], out[nlev1:]
 
 

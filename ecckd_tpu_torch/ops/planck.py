@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ecckd_tpu.constants import BOLTZMANN_K, PI, PLANCK_H, SPEED_OF_LIGHT
+from ..constants import BOLTZMANN_K, PI, PLANCK_H, SPEED_OF_LIGHT
 
 
 def planck_function(temperature, wavenumber_cm_1, d_wavenumber_cm_1):

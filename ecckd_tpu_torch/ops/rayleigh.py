@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ecckd_tpu.constants import AVOGADRO_CONSTANT
+from ..constants import AVOGADRO_CONSTANT
 
 
 def rayleigh_molar_scattering_coeff(wavenumber_cm_1):

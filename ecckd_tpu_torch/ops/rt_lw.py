@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ecckd_tpu.constants import LW_DIFFUSIVITY
+from ..constants import LW_DIFFUSIVITY
 from .segments import interval_sum_fused
 
 # Below this emissivity the linear-in-planck "factor" is replaced by its

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ecckd_tpu.constants import SW_DIFFUSE_SECANT
+from ..constants import SW_DIFFUSE_SECANT
 from .segments import interval_sum_fused
 
 

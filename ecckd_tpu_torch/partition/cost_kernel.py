@@ -17,16 +17,14 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ecckd_tpu.constants import HR_WEIGHT
-from .._shared import equipartition as _ep
+from ..constants import HR_WEIGHT
 from ..ops.average import fit_parts_lw, fit_parts_sw, total_trans_fit_parts
 from ..ops.heating_rate import heating_rate
 from ..ops.kernels.interval_sum import fused_interval_sum
 from ..ops.kernels.sweep_lw import sweep_lw_intervals
 from ..ops.kernels.sweep_sw import sweep_sw_intervals
 from ..ops.segments import part_of
-
-Equipartition = _ep.Equipartition
+from .equipartition import Equipartition
 
 
 def _pad_to_bucket(n: int) -> int:

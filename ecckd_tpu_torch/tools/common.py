@@ -1,22 +1,73 @@
 """Shared prologue of the port's pipeline tools.
 
-``tool_prologue``, ``read_string_list`` and ``find_file`` are the JAX
-package's host helpers (``ecckd_tpu/tools/common.py`` imports no jax);
-:func:`setup` replaces its ``setup_jax`` (:92-112) and fixes the device and
-dtype a tool computes in.
+``find_file``, the search path, ``tool_prologue`` and ``read_string_list``
+are the port's own copy of ``ecckd_tpu/tools/common.py:21-69`` (the port
+imports nothing of the JAX package); :func:`setup` replaces its
+``setup_jax`` and fixes the device and dtype a tool computes in.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ecckd_tpu.config import Config
-from ecckd_tpu.tools.common import (find_file, read_string_list,  # noqa: F401
-                                    tool_prologue)
+from .. import logs
+from ..config import Config
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
+_search_path: List[str] = []
+
+
+def prepend_search_directory(path: str):
+    _search_path.insert(0, path)
+
+
+def append_search_directory(path: str):
+    _search_path.append(path)
+
+
+def find_file(name: str) -> str:
+    """Resolve a file name against the search path (ref file_manager.cpp)."""
+    if os.path.isabs(name) or os.path.exists(name):
+        return name
+    for d in _search_path:
+        candidate = os.path.join(d, name)
+        if os.path.exists(candidate):
+            return candidate
+    return name
+
+
+def tool_prologue(argv: Sequence[str]) -> Config:
+    """Parse CLI args into a Config and apply log level / search path."""
+    cfg = Config.from_args(list(argv))
+    level = cfg.read_string("log_level", default=None)
+    if level:
+        logs.set_log_level(level)
+    log_file = cfg.read_string("log_file", default=None)
+    if log_file:
+        logs.set_log_file(log_file)
+    pp = cfg.read_string("prepend_path", default=None)
+    if pp:
+        prepend_search_directory(pp)
+    ap = cfg.read_string("append_path", default=None)
+    if ap:
+        append_search_directory(ap)
+    return cfg
+
+
+def read_string_list(cfg: Config, key: str) -> List[str]:
+    """Iterate a space-separated list the reference way (index until None)."""
+    out = []
+    i = 0
+    while True:
+        val = cfg.read_string(key, i, default=None)
+        if val is None:
+            break
+        out.append(val)
+        i += 1
+    return out
 
 
 def setup(cfg: Optional[Config] = None) -> Tuple[torch.device, torch.dtype]:

@@ -24,8 +24,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ecckd_tpu import logs
-from ecckd_tpu.config import Config
+from .. import logs
+from ..config import Config
 from ..models import CkdModel, ConcDependence, GasData
 from ..ops.average import average_od_to_gpoints, od_to_molar_abs
 from ..ops.planck import planck_function
@@ -315,7 +315,7 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
 
 def _file_gas(cfg: Config, gas_str: str) -> LutGas:
     """A gas's table sources from its config keys and spectrum files."""
-    from ecckd_tpu.io.spectrum import (open_merged_spectrum_profile,
+    from ..io.spectrum import (open_merged_spectrum_profile,
                                        open_spectrum_profile)
 
     cd_str = cfg.read_string(f"{gas_str}.conc_dependence", default=None)
@@ -368,7 +368,7 @@ def _file_gas(cfg: Config, gas_str: str) -> LutGas:
 def create_lut(cfg: Config, argv=()) -> str:
     """The file tool: read the g-point file and spectra, write the
     ckd-definition file."""
-    from ecckd_tpu.io import NcFile
+    from ..io import NcFile
 
     device, dtype = setup(cfg)
     for key in ("streaming", "sharded"):
@@ -421,7 +421,7 @@ def create_lut(cfg: Config, argv=()) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    from ecckd_tpu.errors import run_tool
+    from ..errors import run_tool
     return run_tool(
         lambda: create_lut(tool_prologue(argv), argv=["create_lut"] + argv),
         name="create_lut")

@@ -28,9 +28,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ecckd_tpu import logs
-from ecckd_tpu.config import Config
-from ecckd_tpu.constants import LW_DIFFUSIVITY, REFERENCE_COS_SZA
+from .. import logs
+from ..config import Config
+from ..constants import LW_DIFFUSIVITY, REFERENCE_COS_SZA
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
@@ -604,8 +604,8 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
 def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
     """One gas's order file and merged spectra, as the JAX tool reads
     them."""
-    from ecckd_tpu.io import read_order
-    from ecckd_tpu.io.spectrum import open_merged_spectrum_profile
+    from ..io import read_order
+    from ..io.spectrum import open_merged_spectrum_profile
 
     if cfg.exist(f"{gas_str}.g_split"):
         raise NotImplementedError("find_g_points: g_split is not ported yet "
@@ -644,7 +644,7 @@ def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
 
 def _read_cloud(cfg: Config, cloud_str: str) -> CloudInput:
     """The cloud pseudo-gas's order file and reflectance range."""
-    from ecckd_tpu.io import read_order
+    from ..io import read_order
 
     reordering_input = cfg.read_string(f"{cloud_str}.reordering_input")
     logs.log(f"Reading {reordering_input}")
@@ -661,7 +661,7 @@ def _read_cloud(cfg: Config, cloud_str: str) -> CloudInput:
 def write_g_points(output: str, result: GPoints, cfg: Config, argv):
     """The g-point NetCDF file with the JAX tool's schema
     (ref find_g_points.cpp:1485-1661)."""
-    from ecckd_tpu.io import NcWriter, write_standard_attributes
+    from ..io import NcWriter, write_standard_attributes
 
     gases = result.gases
     ng = len(result.band_number)
@@ -780,7 +780,7 @@ def find_g_points(cfg: Config, argv=()) -> str:
     ssi = None
     ssi_file_name = cfg.read_string("ssi", default=None)
     if ssi_file_name:
-        from ecckd_tpu.io import NcFile
+        from ..io import NcFile
         logs.log("Assuming shortwave spectral region (ssi provided)")
         with NcFile(find_file(ssi_file_name)) as f:
             ssi = np.asarray(f.read("solar_spectral_irradiance"), np.float64)
@@ -813,7 +813,7 @@ def find_g_points(cfg: Config, argv=()) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    from ecckd_tpu.errors import run_tool
+    from ..errors import run_tool
     return run_tool(
         lambda: find_g_points(tool_prologue(argv),
                               argv=["find_g_points"] + argv),

@@ -22,8 +22,8 @@ import sys
 import numpy as np
 import torch
 
-from ecckd_tpu import logs
-from ecckd_tpu.config import Config
+from .. import logs
+from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
@@ -187,8 +187,8 @@ def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
 def reorder_spectrum(cfg: Config, argv=()) -> str:
     """The file tool: read one profile of a spectrum file, write the
     ordering file with the JAX tool's schema."""
-    from ecckd_tpu.io.order import write_order
-    from ecckd_tpu.io.spectrum import open_spectrum_profile
+    from ..io.order import write_order
+    from ..io.spectrum import open_spectrum_profile
 
     device, dtype = setup(cfg)
     input_file = find_file(cfg.read_string("input"))
@@ -229,7 +229,7 @@ def reorder_spectrum(cfg: Config, argv=()) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    from ecckd_tpu.errors import run_tool
+    from ..errors import run_tool
     return run_tool(
         lambda: reorder_spectrum(tool_prologue(argv),
                                  argv=["reorder_spectrum"] + argv),

@@ -1,0 +1,166 @@
+"""The port's own copies of the JAX package's host modules agree with it.
+
+``ecckd_tpu_torch`` keeps copies of ``constants``, ``config``,
+``partition/equipartition.py`` and ``io`` instead of importing them; these
+tests hold each copy to the original: the same constants, the same config
+keys and values, the same equipartition bounds, and g-point files that the
+JAX package reads back as it reads its own.
+"""
+
+import numpy as np
+import pytest
+
+import ecckd_tpu.constants as jconstants
+import ecckd_tpu_torch.constants as tconstants
+from ecckd_tpu.config import Config as JConfig
+from ecckd_tpu.partition.equipartition import Equipartition as JEquipartition
+from ecckd_tpu_torch.config import Config as TConfig
+from ecckd_tpu_torch.partition.equipartition import (
+    Equipartition as TEquipartition)
+
+from test_config_io import SAMPLE
+
+
+def test_constants_equal():
+    names = sorted(n for n in vars(jconstants) if n.isupper())
+    assert names == sorted(n for n in vars(tconstants) if n.isupper())
+    assert len(names) > 10
+    for n in names:
+        assert getattr(tconstants, n) == getattr(jconstants, n), n
+
+
+def _entries(cfg):
+    return [(k, cfg.read_string(k), cfg.size(k)) for k in cfg.keys()]
+
+
+@pytest.mark.parametrize("build", ["text", "args"])
+def test_config_reads_the_same(tmp_path, build):
+    """The sample of tests/test_config_io.py, from text and from a file
+    with command-line overrides: the same keys, values and sizes, the same
+    typed reads and the same provenance string."""
+    if build == "text":
+        j, t = JConfig.from_text(SAMPLE), TConfig.from_text(SAMPLE)
+    else:
+        p = tmp_path / "test.cfg"
+        p.write_text(SAMPLE)
+        argv = ["gases=h2o o3", "o3.input=alt.h5", "-quiet", str(p)]
+        j, t = JConfig.from_args(argv), TConfig.from_args(argv)
+    assert _entries(t) == _entries(j)
+    assert t.sprint() == j.sprint()
+    assert t.serialize() == j.serialize()
+    for cfg in (j, t):
+        assert cfg.read_floats("vector_value") == [1.0, 2.5, -3.0]
+    assert t.read_strings("h2o.background_input") \
+        == j.read_strings("h2o.background_input")
+    assert _entries(t.section("h2o")) == _entries(j.section("h2o"))
+
+
+def _ramp(base, npoints):
+    """The synthetic ramp of tests/test_equipartition.py on either
+    package's Equipartition."""
+    class Ramp(base):
+        def __init__(self):
+            super().__init__()
+            self.values = np.exp(np.linspace(-2.0, 10.0, npoints))
+
+        def calc_error(self, bound1, bound2):
+            i1 = int(np.ceil(bound1 * (npoints - 1)))
+            i2 = int(np.floor(bound2 * (npoints - 1)))
+            return abs(self.values[i1:i2 + 1].sum()
+                       - (i2 - i1 + 1) * self.values[(i1 + i2) // 2])
+
+    te = Ramp()
+    te.set_partition_max_iterations(200)
+    te.set_line_search_max_iterations(15)
+    te.set_partition_tolerance(0.01)
+    te.set_resolution(1.0 / npoints)
+    return te
+
+
+def test_equipartition_bounds_equal():
+    results = []
+    for base in (JEquipartition, TEquipartition):
+        te = _ramp(base, 20000)
+        bounds = np.linspace(0.0, 1.0, 17)
+        error = np.zeros(16)
+        status_n = te.equipartition_n(bounds, error)
+        status_e, bounds_e, error_e = _ramp(base, 20000).equipartition_e(
+            float(error[0]), 0.0, 1.0)
+        results.append((status_n.name, bounds, error, status_e.name,
+                        bounds_e, error_e))
+    (jn, jb, je, jse, jbe, jee), (tn, tb, te_, tse, tbe, tee) = results
+    assert (tn, tse) == (jn, jse)
+    assert np.array_equal(tb, jb) and np.array_equal(te_, je)
+    assert np.array_equal(tbe, jbe) and np.array_equal(tee, jee)
+    assert len(tee) >= 8
+
+
+def test_g_point_file_reads_back_through_jax_ncfile(tmp_path):
+    """A two-gas LW g-point file written by the port's writer: the JAX
+    package's NcFile sees the variables, values, dimension scales and
+    attributes that were written."""
+    h5py = pytest.importorskip("h5py")
+    from ecckd_tpu.io import NcFile
+    from ecckd_tpu_torch.partition import SingleGasData
+    from ecckd_tpu_torch.tools.find_g_points import GPoints, write_g_points
+
+    rng = np.random.default_rng(1)
+    nwav = 40
+    gases = []
+    for m, r2 in (("h2o", [9, 19, 29, 39]), ("co2", [14, 39])):
+        ng = len(r2)
+        r1 = np.r_[0, np.asarray(r2[:-1]) + 1]
+        g = SingleGasData(m, np.array([ng], np.int32), np.zeros(ng, np.int32),
+                          r1.astype(np.int32), np.asarray(r2, np.int32),
+                          rng.uniform(0, 1, ng), rng.uniform(0, 5, ng))
+        g.store_g_points(np.arange(nwav))
+        g.g_min = np.arange(5) % ng
+        g.g_max = np.minimum(g.g_min + 1, ng - 1)
+        gases.append(g)
+    wav = np.linspace(100.0, 500.0, nwav)
+    result = GPoints(gases, np.zeros(5, np.int16), np.arange(nwav) % 5,
+                     np.array([100.0]), np.array([500.0]), wav)
+    path = str(tmp_path / "g_points.h5")
+    write_g_points(path, result, TConfig({"gases": "h2o co2"}),
+                   ["find_g_points", "gases=h2o co2"])
+
+    with NcFile(path) as f:
+        assert f.read_scalar("n_gases") == 2
+        np.testing.assert_array_equal(f.read("wavenumber"), wav)
+        np.testing.assert_array_equal(f.read("g_point"), np.arange(nwav) % 5)
+        for g in gases:
+            m = g.molecule
+            np.testing.assert_array_equal(f.read(f"{m}_rank1"), g.rank1)
+            np.testing.assert_array_equal(f.read(f"{m}_rank2"), g.rank2)
+            np.testing.assert_allclose(f.read(f"{m}_error"),
+                                       g.error.astype(np.float32))
+            np.testing.assert_array_equal(f.read(f"{m}_g_point"), g.g_point)
+            assert f.attribute("long_name", f"{m}_rank1") \
+                == f"Rank of first wavenumber for {m.upper()}"
+        assert f.attribute("constituent_id") == "h2o co2"
+        assert f.attribute("Conventions") == "CF-1.7"
+        assert f.attribute("title").endswith("longwave CKD model")
+        assert "find_g_points 'gases=h2o co2'" in f.attribute("history")
+        assert f.attribute("config") == "gases={h2o co2}"
+        assert f.attribute("units", "wavenumber") == "cm-1"
+        assert "g_point" in f.names() and "h2o_g_point" in f.names()
+    with h5py.File(path) as raw:
+        # variables named as a dimension are stored under the netCDF-4
+        # library's _nc4_non_coord_ prefix
+        for var, dim in (("h2o_rank1", "h2o_g_point"),
+                         ("band_number", "g_point"),
+                         ("co2_n_g_points", "band"),
+                         ("_nc4_non_coord_g_point", "wavenumber"),
+                         ("_nc4_non_coord_co2_g_point", "wavenumber")):
+            assert [s.name for s in raw[var].dims[0].values()] \
+                == ["/" + dim], var
+        for dim in ("band", "g_point", "h2o_g_point", "wavenumber"):
+            assert raw[dim].attrs["CLASS"] == b"DIMENSION_SCALE", dim
+
+
+def test_spectrum_shards_not_read():
+    """The port reads NetCDF spectra; a .spbin shard path raises and names
+    the ROADMAP item instead of loading the JAX package's native loader."""
+    from ecckd_tpu_torch.io import read_spectrum
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        read_spectrum("ckdmip_h2o_000.spbin", 0)

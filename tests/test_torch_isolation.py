@@ -1,0 +1,71 @@
+"""ecckd_tpu_torch stands alone: it imports neither jax nor ecckd_tpu.
+
+Two checks: a scan of the import statements of every module of the port
+and of ``chip_smoke.py``, and a fresh interpreter that refuses to import
+jax or the JAX package and imports every module of the port and
+``chip_smoke`` all the same.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "ecckd_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name):
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "ecckd_tpu"))
+
+
+def test_sources_import_nothing_of_jax_or_the_jax_package():
+    found = []
+    for path in SOURCES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                      for n in names if _forbidden(n)]
+    assert len(SOURCES) > 30
+    assert not found, found
+
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == top or name.startswith(top + ".")
+               for top in ("jax", "ecckd_tpu")):
+            raise ImportError(f"import of {name} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import ecckd_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ecckd_tpu_torch.__path__,
+                                                "ecckd_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if any(m == top or m.startswith(top + ".")
+                    for top in ("jax", "ecckd_tpu")))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_with_jax_and_the_jax_package_refused():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 30

@@ -1,4 +1,5 @@
-"""Kernels K1 (LW sweep), K2 (SW sweep) and K3 (fused interval sum) of
+"""Kernels K1 (LW sweep), K2 (SW sweep), K3 (fused interval sum), E1 (LW
+sweep by scans across layers) and E2 (fused LW fit and truth sums) of
 ecckd_tpu_torch.
 
 This file imports no jax, so its card tests run on a machine without it:
@@ -15,8 +16,12 @@ import pytest
 import torch
 
 from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
+                                         fused_sums_lw_intervals,
+                                         fused_sums_lw_plain,
                                          reset_launch_counts,
                                          sweep_lw_intervals, sweep_lw_plain,
+                                         sweep_lw_scan_intervals,
+                                         sweep_lw_scan_plain,
                                          sweep_sw_intervals, sweep_sw_plain)
 from ecckd_tpu_torch.ops.kernels.interval_sum import _layout
 from ecckd_tpu_torch.ops.segments import (fused_groups, interval_sum_fused,
@@ -171,6 +176,63 @@ def test_kernels_match_plain(cuda, case, dtype):
     assert _row_err(g, w) <= RTOL[dtype]
 
 
+def _sum_args(args, seed):
+    """E2's arguments beside the sweep operands of :func:`_inputs`."""
+    planck, bg_od, _, _, emis, surfp, i1, i2 = args
+    rng = np.random.default_rng(seed)
+    nlay, nwav = bg_od.shape
+    metric = torch.as_tensor(-np.expm1(-1.66 * rng.gamma(0.5, 1.0,
+                                                          (nlay, nwav))),
+                             dtype=bg_od.dtype, device=bg_od.device)
+    return metric, planck, bg_od * 1e-5, surfp, emis, i1, i2
+
+
+# (nlay, nwav): from one layer a lane to four; no nwav is a multiple
+# of the 4096-wavenumber chunk or of E1's 32-wavenumber tile
+_EXP_SHAPES = [(1, 5003), (15, 9001), (50, 70001), (64, 4099), (100, 12345)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nlay,nwav", _EXP_SHAPES)
+def test_experiment_kernels_match_plain(cuda, nlay, nwav, dtype):
+    """E1 and E2 against their plain versions, with front-padded bucket
+    columns, a shared boundary index and ranks outside every fit."""
+    i1 = [0, 0, 0, 1000, 3000, 3000]
+    i2 = [0, 0, 1000, 2999, nwav - 1, nwav - 50]
+    args = _to(_inputs(nlay, nwav, i1, i2, seed=nlay, seg_outside=77),
+               cuda, dtype)
+    reset_launch_counts()
+    got = sweep_lw_scan_intervals(*args)
+    torch.cuda.synchronize()
+    assert sweep_lw_scan_intervals.launches == 1
+    for g, w in zip(got, sweep_lw_scan_plain(*args)):
+        assert _row_err(g, w) <= RTOL[dtype]
+    sums = _sum_args(args, seed=nlay)
+    got = fused_sums_lw_intervals(*sums)
+    torch.cuda.synchronize()
+    assert fused_sums_lw_intervals.launches == 1
+    assert got.shape == (3 * nlay + 2, len(i1))
+    assert _row_err(got, fused_sums_lw_plain(*sums)) <= RTOL[dtype]
+
+
+@pytest.mark.gpu
+def test_experiment_kernels_deterministic_and_bounded(cuda):
+    """Bit-identical repeats; E1 refuses more layers than it takes."""
+    args = _to(_inputs(50, 300001, [0, 0, 10, 150000], [0, 9, 150000,
+                                                         300000], seed=3),
+               cuda, torch.float64)
+    sums = _sum_args(args, seed=3)
+    run = lambda: (*sweep_lw_scan_intervals(*args),
+                   fused_sums_lw_intervals(*sums))
+    first = run()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, run()))
+    deep = _to(_inputs(129, 700, [0], [699], seed=5), cuda, torch.float64)
+    with pytest.raises(ValueError, match="layers"):
+        sweep_lw_scan_intervals(*deep)
+
+
 @pytest.mark.gpu
 def test_kernels_deterministic(cuda):
     """No floating-point atomics: repeated launches are bit-identical."""
@@ -215,7 +277,7 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
 
 
 def test_setup_device_and_dtype():
-    from ecckd_tpu.config import Config
+    from ecckd_tpu_torch.config import Config
     from ecckd_tpu_torch.tools.common import setup
     assert setup(Config({"device": "cpu"})) == (torch.device("cpu"),
                                                 torch.float64)
@@ -240,7 +302,7 @@ def test_unported_options_raise(tool, keys):
     """Options of the JAX tools that the port does not have yet raise
     before any file is read."""
     import importlib
-    from ecckd_tpu.config import Config
+    from ecckd_tpu_torch.config import Config
     mod = importlib.import_module(f"ecckd_tpu_torch.tools.{tool}")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(mod, tool)(Config({"device": "cpu", "output": "x.h5",
