@@ -9,9 +9,12 @@ Phases (every failed check raises; nothing is caught):
   1. the card's name and power limit;
   2. the kernel build;
   3. kernels K1 (LW sweep), K2 (SW sweep, with and without the reflected
-     beam) and K3 (fused interval sum) against their plain PyTorch versions
-     at pipeline shapes (2^20 wavenumbers, 50 layers, 64 intervals),
-     float64 and float32, with CUDA-event times;
+     beam) and K3 (fused interval sum, on the LW fit and truth rows and on
+     the 255 rows of the SW total-transmission launch) against their plain
+     PyTorch versions at pipeline shapes (2^20 wavenumbers, 50 layers, 64
+     intervals), float64 and float32, with CUDA-event times; K3's sums of
+     each interval bit-identical launched alone, in a launch with the
+     intervals reversed and the pads removed, and in a repeat;
   4. the small test rigs (1024 wavenumbers, 15 layers; LW, and SW over two
      bands) through the array cores of reorder -> find_g_points ->
      create_lut on the CPU (plain versions) and twice on the card
@@ -28,9 +31,9 @@ Phases (every failed check raises; nothing is caught):
   8. the experiment path of ``scripts/exp_kernels.py`` as ported
      (``ecckd_tpu_torch.scripts.exp_kernels.main``, all three variants, at
      2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
-     layers) against K1, E2 (fused LW fit and truth sums) against K3, both
-     against their plain versions, with kernel, plain, yardstick and
-     library times.
+     layers) against K1, E2 (fused LW fit and truth sums) bit-identical
+     to K3, both against their plain versions, with kernel, plain,
+     yardstick and library times.
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -243,9 +246,42 @@ def phase_build():
             log(f"[build]   {line.strip()}")
 
 
+def sw_total_trans_parts(ssi, bg_od, od, h, fd, up):
+    """The parts of the SW main path's K3 launch with total-transmission
+    (ops/average.py:total_trans_fit_parts and partition/cost_kernel.py):
+    the 2*nlay+1 direct-flux levels, od*ssi, and the LOW and HIGH truth
+    sets (heating rates and two boundary fluxes, scaled 0.5 and 2.5):
+    5*nlay + 5 output rows from 5*nlay + 6 operand rows."""
+    from ecckd_tpu_torch.ops.average import total_trans_fit_parts
+    from ecckd_tpu_torch.ops.segments import part_of
+    fit = total_trans_fit_parts(ssi, bg_od, od)[0]
+    return fit + [part_of(a * scale) for scale in (0.5, 2.5)
+                  for a in (h, fd, up)]
+
+
+def check_batch_independent(parts, n, i1, i2, npad, tag):
+    """K3's sums of every interval are the same bits in the launch of all
+    of them, alone, in a launch with the intervals reversed and the pads
+    removed, and in a repeat."""
+    from ecckd_tpu_torch.ops.kernels import fused_interval_sum
+    whole = fused_interval_sum(parts, n, i1, i2)
+    check(torch.equal(whole, fused_interval_sum(parts, n, i1, i2)),
+          f"interval_sum {tag}: repeats bit-identical")
+    rev = torch.arange(len(i1) - 1, npad - 1, -1, device=i1.device)
+    flipped = fused_interval_sum(parts, n, i1[rev], i2[rev])
+    check(torch.equal(flipped, whole[:, rev]),
+          f"interval_sum {tag}: reversed launch without pads bit-identical")
+    for j in range(len(i1)):
+        alone = fused_interval_sum(parts, n, i1[j:j + 1], i2[j:j + 1])
+        check(torch.equal(alone, whole[:, j:j + 1]),
+              f"interval_sum {tag}: interval {j} alone bit-identical")
+    log(f"[kernels] interval_sum {tag}: each of {len(i1)} intervals "
+        "bit-identical alone, reversed without pads and repeated")
+
+
 def phase_kernels(dev):
-    """K1, K2 (both variants) and K3 against their plain versions at
-    pipeline shapes."""
+    """K1, K2 (both variants) and K3 (LW and SW rows) against their plain
+    versions at pipeline shapes."""
     from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                              sweep_lw_intervals,
                                              sweep_lw_plain,
@@ -285,6 +321,8 @@ def phase_kernels(dev):
         m, h, fdt = f(metric), f(hr), f(fd)
         parts = [part_of(m, w_num), part_of(w_num), part_of(h),
                  part_of(fdt), part_of(sweep_args[4])]
+        sw_parts = sw_total_trans_parts(sw_args[0], sw_args[1], f(metric),
+                                        h, fdt, sweep_args[4])
         tag = "f64" if dtype == torch.float64 else "f32"
         res = {}
         for name, kern, plain in (
@@ -298,6 +336,11 @@ def phase_kernels(dev):
                  lambda: (fused_interval_sum(parts, n, sweep_args[6],
                                              sweep_args[7]),),
                  lambda: (interval_sum_fused(parts, n, sweep_args[6],
+                                             sweep_args[7]),)),
+                ("interval_sum_sw",
+                 lambda: (fused_interval_sum(sw_parts, n, sweep_args[6],
+                                             sweep_args[7]),),
+                 lambda: (interval_sum_fused(sw_parts, n, sweep_args[6],
                                              sweep_args[7]),))):
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -317,6 +360,13 @@ def phase_kernels(dev):
         res["interval_sum"]["library_ms"] = membership_matmul_ms(
             rows, sweep_args[6], sweep_args[7])
         del rows
+        rows = torch.cat([p(0, n) for p in sw_parts])
+        check(rows.shape[0] == 5 * nlay + 5, "255 SW rows")
+        res["interval_sum_sw"]["library_ms"] = membership_matmul_ms(
+            rows, sweep_args[6], sweep_args[7])
+        del rows
+        check_batch_independent(parts, n, sweep_args[6], sweep_args[7], 6,
+                                f"LW rows {tag}")
         nseg = len(i1)
         # K2: ssi, bg_od, od_fit, albedo and the two flux rows per level
         sw_bytes = (torch.finfo(dtype).bits // 8
@@ -328,12 +378,15 @@ def phase_kernels(dev):
                     sw_bytes, SW_LAYER_OPS * nlay * n
                     + 2 * (nlay + 1) * memberships(i1, i2, n), dtype)),
                 ("interval_sum", row_sums_bound(3 * nlay + 2, n, nlay, i1,
-                                                i2, dtype))):
+                                                i2, dtype)),
+                ("interval_sum_sw", row_sums_bound(5 * nlay + 6, n, nlay, i1,
+                                                   i2, dtype))):
             res[name].update(bound_ms=b, bound_by=by)
             log(f"[kernels] {name} {tag}: bound {b:.4f} ms ({by}), kernel "
                 f"{res[name]['ms'] / b:.1f}x the bound; library "
                 f"{res[name]['library_ms']}")
         out[tag] = res
+        del sw_parts
     return out
 
 
@@ -571,10 +624,11 @@ def phase_experiment():
         vs_k1 = max(row_err(g, w)[0] for g, w in zip(scan["got"],
                                                      scan["ref"]))
         vs_k3 = row_err(isum["got"], isum["ref"])[0]
+        same = torch.equal(isum["got"], isum["ref"])
         say(f"E1 vs K1 {tag}: max rel err (normwise per row) {vs_k1:.3e} "
-            f"(bar {bar:.0e}); E2 vs K3: {vs_k3:.3e}")
+            f"(bar {bar:.0e}); E2 vs K3: {vs_k3:.3e}, bit-identical {same}")
         check(vs_k1 <= bar, f"E1 agrees with K1 within {bar} ({tag})")
-        check(vs_k3 <= bar, f"E2 agrees with K3 within {bar} ({tag})")
+        check(same, f"E2's sums equal K3's bit for bit ({tag})")
         res = {}
         for name, got, plain, args, yard in (
                 ("sweep_lw_scan", scan["got"], sweep_lw_scan_plain,
@@ -664,6 +718,11 @@ def main() -> int:
                      lw_launches["fused_interval_sum"]
                      + sw_launches["fused_interval_sum"],
                      f64["interval_sum"]),
+        kernel_entry("interval_sum_sw",
+                     "ecckd_tpu_torch/csrc/interval_sum.cu",
+                     "ecckd_tpu/ops/segments.py:123",
+                     sw_launches["fused_interval_sum"],
+                     f64["interval_sum_sw"]),
         kernel_entry("sweep_lw_scan",
                      "ecckd_tpu_torch/csrc/sweep_lw_scan.cu",
                      "scripts/exp_kernels.py:132",

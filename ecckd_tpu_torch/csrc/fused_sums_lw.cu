@@ -15,67 +15,70 @@
 // f64, 0.38 ms at 3.35 TB/s, against one multiply and 3*nlay + 2 adds a
 // wavenumber.
 // What the design does about it:
-//  * one thread per wavenumber reads each operand value once (coalesced
-//    across the threads of a warp) and forms the product in registers; the
-//    denominator row reuses the planck value it already holds;
-//  * against K3 it needs no deduplicated operand-pointer table and no
-//    per-row lookups of parts and operands: the row layout is fixed at
-//    compile time;
-//  * the rows go through K1-K3's deterministic reducer
-//    (interval_reduce.cuh): fixed-size wavenumber chunks, no
-//    floating-point atomics, bit-identical repeats.  Each row is summed in
-//    the same order as K3 sums it.
+//  * the row layout is fixed at compile time: an item is a layer k, whose
+//    three rows come from one 16-byte load stream each of metric, planck
+//    and hr; the denominator row is the planck value already loaded;
+//  * the streaming and the reduction are those of K3
+//    (interval_stream.cuh), so each row is summed in the same order as K3
+//    sums it: E2's sums equal K3's bit for bit on the same parts.
 // The TPU kernel's bf16 split of the membership matmul is not carried over.
-#include "interval_reduce.cuh"
+#include "interval_stream.cuh"
 
 namespace ecckd {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_sums_lw_kernel(const T* __restrict__ metric,
-                     const T* __restrict__ planck, const T* __restrict__ hr,
-                     const T* __restrict__ fd_surf,
-                     const T* __restrict__ fu_toa, int nlay,
-                     const int* __restrict__ i1, const int* __restrict__ i2,
-                     T* __restrict__ partial, int nrows, int n, int nseg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_count;
-  Reducer<T> red;
-  red.init(smem, &s_count, i1, i2, partial, nrows, n, nseg);
-  const int c0 = blockIdx.x * kChunk;
-  for (int t = 0; t < kTilesPerBlock; ++t) {
-    const int w0 = c0 + t * kThreads;
-    if (w0 >= n) break;  // the same in every thread of the block
-    red.w0 = w0;
-    const int w = w0 + threadIdx.x;
-    const bool valid = w < n;
-    for (int k = 0; k < nlay; ++k) {
-      const size_t at = (size_t)k * n + w;
-      const T p = valid ? planck[at + n] : T(0);   // planck row k + 1
-      const T m = valid ? metric[at] : T(0);
-      const T h = valid ? hr[at] : T(0);
-      red.put(m * p, k);
-      red.put(p, nlay + k);
-      red.put(h, 2 * nlay + k);
-    }
-    red.put(valid ? fd_surf[w] : T(0), 3 * nlay);
-    red.put(valid ? fu_toa[w] : T(0), 3 * nlay + 1);
-    red.flush();
+struct LwRows {
+  static constexpr int kRows = 3;
+  static constexpr int kItems = 3;
+  const T* metric;
+  const T* planck;
+  const T* hr;
+  const T* fd_surf;
+  const T* fu_toa;
+  int nlay;
+
+  __device__ void stage(int, unsigned char*) {}
+
+  // Item k < nlay: rows k (metric * planck), nlay + k (planck) and
+  // 2*nlay + k (hr); item nlay: rows 3*nlay (fd_surf) and 3*nlay + 1.
+  __device__ int row(int item, int q) const {
+    if (item < nlay) return q * nlay + item;
+    return item == nlay && q < 2 ? 3 * nlay + q : -1;
   }
-}
+
+  __device__ void load(int item, int s0, int n,
+                       T (&v)[kRows][stream::kPer<T>]) const {
+    constexpr int P = stream::kPer<T>;
+    if (item < nlay) {
+      const size_t at = (size_t)item * n;
+      stream::load_strip<T>(metric + at, s0, n, v[0]);
+      stream::load_strip<T>(planck + at + n, s0, n, v[1]);  // row item + 1
+      stream::load_strip<T>(hr + at, s0, n, v[2]);
+#pragma unroll
+      for (int k = 0; k < P; ++k) v[0][k] = stream::mul(v[0][k], v[1][k]);
+    } else {
+      stream::load_strip<T>(fd_surf, s0, n, v[0]);
+      stream::load_strip<T>(fu_toa, s0, n, v[1]);
+#pragma unroll
+      for (int k = 0; k < P; ++k) v[2][k] = T(0);
+    }
+  }
+};
 
 template <typename T>
 int fused_sums_lw(const void* metric, const void* planck, const void* hr,
-                  const void* fd_surf, const void* fu_toa, const void* i1,
-                  const void* i2, void* partial, void* out, int nlay, int n,
-                  int nseg, void* stream) {
-  return launch_reduced<T>(
-      fused_sums_lw_kernel<T>, static_cast<T*>(partial), static_cast<T*>(out),
-      static_cast<const int*>(i1), static_cast<const int*>(i2),
-      3 * nlay + 2, n, nseg, static_cast<cudaStream_t>(stream),
-      static_cast<const T*>(metric), static_cast<const T*>(planck),
-      static_cast<const T*>(hr), static_cast<const T*>(fd_surf),
-      static_cast<const T*>(fu_toa), nlay);
+                  const void* fd_surf, const void* fu_toa, const void* table,
+                  void* partial, void* out, int nlay, int n, int nseg,
+                  int nentries, int cmax, void* stream) {
+  using Src = LwRows<T>;
+  Src src{static_cast<const T*>(metric), static_cast<const T*>(planck),
+          static_cast<const T*>(hr), static_cast<const T*>(fd_surf),
+          static_cast<const T*>(fu_toa), nlay};
+  const int ngroups = (nlay + 1 + Src::kItems - 1) / Src::kItems;
+  return stream::launch<T>(src, ngroups, static_cast<const int*>(table),
+                           nentries, cmax, 0, static_cast<T*>(partial),
+                           static_cast<T*>(out), 3 * nlay + 2, n, nseg,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace ecckd
@@ -83,26 +86,29 @@ int fused_sums_lw(const void* metric, const void* planck, const void* hr,
 extern "C" {
 
 // ``metric`` and ``hr`` are (nlay, n), ``planck`` (nlay+1, n), ``fd_surf``
-// and ``fu_toa`` (n,); ``out`` is (3*nlay+2, nseg); ``partial`` is scratch
-// of ceil(n / ecckd_chunk_size()) * (3*nlay+2) * nseg values.  Returns the
-// CUDA error code of the launches (0 on success).
+// and ``fu_toa`` (n,); ``table`` the int32 interval table of
+// interval_stream.cuh (as for ecckd_interval_sum_*); ``out`` is
+// (3*nlay+2, nseg); ``partial`` scratch of (slots in the table) *
+// (3*nlay+2) values.  Returns the CUDA error code of the launches (0 on
+// success).
 int ecckd_fused_sums_lw_f64(const void* metric, const void* planck,
                             const void* hr, const void* fd_surf,
-                            const void* fu_toa, const void* i1,
-                            const void* i2, void* partial, void* out,
-                            int nlay, int n, int nseg, void* stream) {
-  return ecckd::fused_sums_lw<double>(metric, planck, hr, fd_surf, fu_toa, i1,
-                                      i2, partial, out, nlay, n, nseg,
-                                      stream);
+                            const void* fu_toa, const void* table,
+                            void* partial, void* out, int nlay, int n,
+                            int nseg, int nentries, int cmax, void* stream) {
+  return ecckd::fused_sums_lw<double>(metric, planck, hr, fd_surf, fu_toa,
+                                      table, partial, out, nlay, n, nseg,
+                                      nentries, cmax, stream);
 }
 
 int ecckd_fused_sums_lw_f32(const void* metric, const void* planck,
                             const void* hr, const void* fd_surf,
-                            const void* fu_toa, const void* i1,
-                            const void* i2, void* partial, void* out,
-                            int nlay, int n, int nseg, void* stream) {
-  return ecckd::fused_sums_lw<float>(metric, planck, hr, fd_surf, fu_toa, i1,
-                                     i2, partial, out, nlay, n, nseg, stream);
+                            const void* fu_toa, const void* table,
+                            void* partial, void* out, int nlay, int n,
+                            int nseg, int nentries, int cmax, void* stream) {
+  return ecckd::fused_sums_lw<float>(metric, planck, hr, fd_surf, fu_toa,
+                                     table, partial, out, nlay, n, nseg,
+                                     nentries, cmax, stream);
 }
 
 }  // extern "C"

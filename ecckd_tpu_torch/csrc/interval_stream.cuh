@@ -1,0 +1,290 @@
+// Streaming interval-sum core of kernels K3 (interval_sum.cu) and E2
+// (fused_sums_lw.cu).
+//
+// Serves the ports of the Pallas TPU kernels ecckd_tpu/ops/segments.py
+// (_interval_sum_fused_pallas) and scripts/exp_kernels.py
+// (fused_sums_pallas).  Each forms, per wavenumber w, a set of rows v[r](w)
+// from a few operand rows and needs S[r][j] = sum of v[r](w) over the
+// inclusive interval [i1[j], i2[j]].
+//
+// What bounds it on an H100: device memory.  Each operand byte is needed
+// once (1.27 GB for the 152 LW rows at 2^20 wavenumbers in f64, 0.38 ms at
+// 3.35 TB/s) against one multiply and one add per row and wavenumber.  A
+// 0/1 membership matmul would do 2 * rows * n * nseg operations instead.
+// What the design does about it:
+//  * Fixed grid, independent of the intervals: strips of kStrip
+//    wavenumbers, one per warp; chunks of kStripWarps strips, one per
+//    block and group of rows.  The group index runs fastest, so the blocks
+//    that read one chunk of an operand shared by two rows run together and
+//    the second read comes from L2.
+//  * Each lane loads kIters 16-byte vectors of each row of an item (two or
+//    three rows) before it sums any, with no block barrier in the streaming
+//    loop.  A row whose base is not 16-byte aligned is read as scalars
+//    into the same lanes and slots, so its sums are the same bits.
+//  * The host resolves the intervals once per launch
+//    (ops/kernels/interval_stream.py): identical clamped intervals are
+//    reduced once, each chunk gets the list of the (few) intervals that
+//    meet it, each (interval, chunk) pair one slot of a compact partial
+//    buffer.  A warp keeps a bit mask of the entries that meet its strip;
+//    for each it takes a masked lane sum in a fixed order and a fixed
+//    shuffle tree, so its work per strip does not grow with the intervals
+//    of the chunk.  The block adds its warps' strip sums in warp order
+//    (one barrier after the streaming loop) and writes one value per
+//    (slot, row).  sum_slots adds an interval's slots in chunk order.
+// So the sum of interval j depends only on the data, on the clamped
+// (i1[j], i2[j]) and on the fixed grid, never on the other intervals of
+// the launch, and there are no floating-point atomics: repeats are
+// bit-identical.  Products use __dmul_rn / __fmul_rn, which the compiler
+// never contracts into an add, so a row's value does not depend on how
+// the kernel that forms it is written.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+// 0 in the ablation's copy: the masked sums and shuffle trees are skipped
+// and the loaded values only kept alive (scripts/ablate_kernels.py).
+#define ECCKD_STREAM_REDUCE 1
+
+namespace ecckd {
+namespace stream {
+
+constexpr int kStrip = 256;                     // wavenumbers per warp
+constexpr int kStripWarps = 8;                  // warps per block
+constexpr int kThreads = 32 * kStripWarps;
+constexpr int kChunk = kStrip * kStripWarps;    // wavenumbers per block
+constexpr int kMaxEntries = 32;                 // entries per pass (ballot)
+
+template <typename T> struct Vec;
+template <> struct Vec<double> { using type = double2; };
+template <> struct Vec<float> { using type = float4; };
+
+template <typename T>
+constexpr int kVec = 16 / sizeof(T);            // values per 16-byte load
+template <typename T>
+constexpr int kIters = kStrip / (32 * kVec<T>); // loads per lane and row
+template <typename T>
+constexpr int kPer = kStrip / 32;               // values per lane and row
+
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Offset of value slot k of this lane from the strip's first wavenumber:
+// load it = k / kVec, element e = k % kVec.
+template <typename T>
+__device__ __forceinline__ int slot_offset(int k, int lane) {
+  return (k / kVec<T>) * 32 * kVec<T> + lane * kVec<T> + (k % kVec<T>);
+}
+
+// This lane's kPer values of ``row`` in the strip starting at ``s0``
+// (zero past ``n``).
+template <typename T>
+__device__ __forceinline__ void load_strip(const T* __restrict__ row, int s0,
+                                           int n, T (&v)[kPer<T>]) {
+  const int lane = threadIdx.x & 31;
+  constexpr int V = kVec<T>;
+  if (s0 + kStrip <= n) {
+    const T* p = row + s0 + lane * V;
+    if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+      using VT = typename Vec<T>::type;
+#pragma unroll
+      for (int it = 0; it < kIters<T>; ++it) {
+        const VT x = __ldg(reinterpret_cast<const VT*>(p + it * 32 * V));
+        const T* xs = reinterpret_cast<const T*>(&x);
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[it * V + e] = xs[e];
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < kIters<T>; ++it)
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[it * V + e] = __ldg(p + it * 32 * V + e);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer<T>; ++k) {
+      const int w = s0 + slot_offset<T>(k, lane);
+      v[k] = w < n ? __ldg(row + w) : T(0);
+    }
+  }
+}
+
+// Sum over the interval [lo, hi] (absolute, clamped) of this warp's strip
+// values ``v``, in lane 0: masked lane sums in slot order, then the tree.
+template <typename T>
+__device__ __forceinline__ T strip_sum(const T (&v)[kPer<T>], int s0, int lo,
+                                       int hi) {
+  const int lane = threadIdx.x & 31;
+  const int a = lo - s0, b = hi - s0;
+  T s = T(0);
+#pragma unroll
+  for (int k = 0; k < kPer<T>; ++k) {
+    const int o = slot_offset<T>(k, lane);
+    s += (o >= a && o <= b) ? v[k] : T(0);
+  }
+  return warp_sum(s);
+}
+
+// Int32 table of a launch (built by ops/kernels/interval_stream.py):
+//   chunk_ptr[nchunks + 1]      entries of chunk c: chunk_ptr[c] .. [c+1]
+//   entry[3 * nentries]         (lo, hi, slot) per entry, by chunk
+//   col[2 * nseg]               (first slot, slot count) per output column
+struct Table {
+  const int* chunk_ptr;
+  const int* entry;
+  const int* col;
+};
+
+__host__ __device__ inline Table table_of(const int* t, int n, int nentries) {
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  return Table{t, t + nchunks + 1, t + nchunks + 1 + 3 * nentries};
+}
+
+// Dynamic shared memory of a block: entries, warp masks, warp sums, and
+// ``extra`` bytes of the row source (16-byte aligned at the end).
+template <typename T>
+inline size_t smem_bytes(int rows_per_block, int cmax, size_t extra) {
+  size_t b = sizeof(int) * (3 * (size_t)cmax + kStripWarps);
+  b = (b + 15) / 16 * 16;
+  b += sizeof(T) * (size_t)kStripWarps * rows_per_block * cmax;
+  b = (b + 15) / 16 * 16;
+  return b + extra;
+}
+
+// The streaming kernel.  ``Src`` gives kRows rows per item and
+// kItems items per block:
+//   __device__ void stage(int item0, unsigned char* smem)  (block, once)
+//   __device__ int row(int item, int q) const   output row, or -1
+//   __device__ void load(int item, int s0, int n, T (&v)[kRows][kPer<T>])
+// Block (g, c) takes items g*kItems .. and chunk c.
+template <typename T, typename Src>
+__global__ void __launch_bounds__(kThreads)
+stream_kernel(Src src, const int* __restrict__ table, int nentries,
+              T* __restrict__ partial, int nrows, int n, int cmax) {
+  constexpr int R = Src::kRows;
+  constexpr int RPB = Src::kRows * Src::kItems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Table tab = table_of(table, n, nentries);
+  const int g = blockIdx.x, c = blockIdx.y;
+  const int e0 = tab.chunk_ptr[c], e1 = tab.chunk_ptr[c + 1];
+  if (e0 == e1) return;  // the same in every thread of the block
+  int* s_ent = reinterpret_cast<int*>(smem);          // [cmax][3]
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_ent + 3 * cmax);
+  size_t off = sizeof(int) * (3 * (size_t)cmax + kStripWarps);
+  off = (off + 15) / 16 * 16;
+  T* s_sum = reinterpret_cast<T*>(smem + off);        // [warp][RPB][cmax]
+  off += sizeof(T) * (size_t)kStripWarps * RPB * cmax;
+  off = (off + 15) / 16 * 16;
+  const int item0 = g * Src::kItems;
+  src.stage(item0, smem + off);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s0 = c * kChunk + warp * kStrip;
+
+  for (int p0 = e0; p0 < e1; p0 += cmax) {
+    const int np = min(cmax, e1 - p0);
+    for (int k = threadIdx.x; k < 3 * np; k += kThreads)
+      s_ent[k] = tab.entry[3 * p0 + k];
+    __syncthreads();
+    // The entries that meet this warp's strip
+    const bool meets = lane < np && s_ent[3 * lane] <= s0 + kStrip - 1
+                       && s_ent[3 * lane + 1] >= s0;
+    const unsigned mask = __ballot_sync(0xffffffffu, meets);
+    if (lane == 0) s_mask[warp] = mask;
+    if (mask) {
+      for (int i = 0; i < Src::kItems; ++i) {
+        const int item = item0 + i;
+        if (src.row(item, 0) < 0) break;
+        T v[R][kPer<T>];
+        src.load(item, s0, n, v);
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          T* out = s_sum + ((size_t)warp * RPB + i * R + q) * cmax;
+#if ECCKD_STREAM_REDUCE
+          for (unsigned m = mask; m; m &= m - 1) {
+            const int e = __ffs(m) - 1;
+            const T s = strip_sum<T>(v[q], s0, s_ent[3 * e],
+                                     s_ent[3 * e + 1]);
+            if (lane == 0) out[e] = s;
+          }
+#else
+          T s = T(0);
+#pragma unroll
+          for (int k = 0; k < kPer<T>; ++k) s += v[q][k];
+          if (s == T(1.2345e-30)) out[0] = s;
+#endif
+        }
+      }
+    }
+    __syncthreads();
+    // Warp sums in warp order, one value per (slot, row)
+    for (int k = threadIdx.x; k < RPB * np; k += kThreads) {
+      const int rr = k / np, e = k - rr * np;
+      const int r = src.row(item0 + rr / R, rr % R);
+      if (r < 0) continue;
+      T s = T(0);
+      for (int w = 0; w < kStripWarps; ++w)
+        if ((s_mask[w] >> e) & 1u) s += s_sum[((size_t)w * RPB + rr) * cmax + e];
+      partial[(size_t)s_ent[3 * e + 2] * nrows + r] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// out[r][j] = the slots of column j added in chunk order (0 if empty).
+template <typename T>
+__global__ void sum_slots(const T* __restrict__ partial, T* __restrict__ out,
+                          const int* __restrict__ col, int nrows, int nseg) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nrows * nseg) return;
+  const int j = idx / nrows, r = idx - j * nrows;
+  const int first = col[2 * j], count = col[2 * j + 1];
+  T s = T(0);
+#pragma unroll 8
+  for (int k = 0; k < count; ++k) s += partial[(size_t)(first + k) * nrows + r];
+  out[(size_t)r * nseg + j] = s;
+}
+
+// Launch the streaming kernel over (row groups, chunks), then sum_slots.
+template <typename T, typename Src>
+inline int launch(const Src& src, int ngroups, const int* table, int nentries,
+                  int cmax, size_t extra_smem, T* partial, T* out, int nrows,
+                  int n, int nseg, cudaStream_t stream) {
+  const int nchunks = (n + kChunk - 1) / kChunk;
+  const size_t smem = smem_bytes<T>(Src::kRows * Src::kItems, cmax,
+                                    extra_smem);
+  if (cmax < 1 || cmax > kMaxEntries) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(stream_kernel<T, Src>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (nentries > 0 && ngroups > 0) {
+    stream_kernel<T, Src><<<dim3(ngroups, nchunks), kThreads, smem, stream>>>(
+        src, table, nentries, partial, nrows, n, cmax);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int total = nrows * nseg;
+  if (total > 0) {
+    sum_slots<T><<<(total + 255) / 256, 256, 0, stream>>>(
+        partial, out, table_of(table, n, nentries).col, nrows, nseg);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace stream
+}  // namespace ecckd

@@ -2,114 +2,140 @@
 //
 // Replaces the Pallas TPU kernel ecckd_tpu/ops/segments.py
 // (_interval_sum_fused_pallas, body _isum_pallas_kernel, groups from
-// _pallas_groups).  Each output row belongs to a "part", the elementwise
-// product of a few deduplicated operand rows ((rows, n) operands contribute
-// their row j, (1, n) operands broadcast), and is summed over every
-// inclusive interval [i1[j], i2[j]].  For the LW candidate cost the parts
-// are the fit numerator metric*planck, the fit weights planck, the truth
-// heating rates and the two boundary fluxes: 3*nlay + 2 rows from 3*nlay + 2
-// operand rows.
+// _pallas_groups).  Each output row is the elementwise product of a few
+// operand rows ((rows, n) operands contribute their row j, (1, n) operands
+// broadcast), summed over every inclusive interval [i1[j], i2[j]].  For the
+// LW candidate cost the rows are the fit numerator metric*planck, the fit
+// weights planck, the truth heating rates and the two boundary fluxes
+// (3*nlay + 2 rows); for the SW total-transmission cost the 2*nlay + 1 flux
+// levels, od*ssi and two scaled truth sets (5*nlay + 5 rows).
 //
 // What bounds it on an H100: device memory.  Each output row costs one or
-// two loads and a multiply per wavenumber; at 2^20 x (3*50 + 2) rows in f64
-// the operands are ~1.3 GB, read once.
+// two loads and a multiply per wavenumber; at 2^20 x 152 rows in f64 the
+// distinct operands are 1.27 GB, read once.
 // What the design does about it:
-//  * one thread per wavenumber builds every product in registers from the
-//    operand rows (coalesced across threads), so no product row is ever
-//    written to device memory; an operand row shared by two parts is read
-//    twice, the second time mostly from cache;
-//  * no membership matrix is built: the deterministic reducer of
-//    interval_reduce.cuh sums each row over each interval's part of the
-//    tile in shared memory, with fixed-size wavenumber chunks and no
-//    atomics.
+//  * the wrapper resolves the part layout once per parts list into one
+//    descriptor per output row: the address of each operand's row (a
+//    broadcast operand's only row), the first two inline, any further ones
+//    in a list.  A block copies its 8 rows' descriptors into shared memory
+//    once, so the streaming loop chases no table;
+//  * the streaming and the reduction are those of interval_stream.cuh:
+//    16-byte loads of two rows at a time, masked warp sums per strip over
+//    the few intervals that meet it, compact per-chunk partials, no
+//    atomics.  An operand row shared by two output rows (planck in the LW
+//    fit) is read by blocks that run together, the second time from L2.
 // The TPU kernel's bf16 split of the membership matmul is not carried over.
-#include "interval_reduce.cuh"
+#include "interval_stream.cuh"
 
 namespace ecckd {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-interval_sum_kernel(const T* const* __restrict__ ops,
-                    const int* __restrict__ op_rows,
-                    const int* __restrict__ part_off,
-                    const int* __restrict__ part_ops,
-                    const int* __restrict__ row_part,
-                    const int* __restrict__ row_j, const int* __restrict__ i1,
-                    const int* __restrict__ i2, T* __restrict__ partial,
-                    int nrows, int n, int nseg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_count;
-  Reducer<T> red;
-  red.init(smem, &s_count, i1, i2, partial, nrows, n, nseg);
-  const int c0 = blockIdx.x * kChunk;
-  for (int t = 0; t < kTilesPerBlock; ++t) {
-    const int w0 = c0 + t * kThreads;
-    if (w0 >= n) break;  // the same in every thread of the block
-    red.w0 = w0;
-    const int w = w0 + threadIdx.x;
-    for (int r = 0; r < nrows; ++r) {
-      T v = T(0);
-      if (w < n) {
-        const int p = row_part[r], j = row_j[r];
-        const int q1 = part_off[p + 1];
-        for (int q = part_off[p]; q < q1; ++q) {
-          const int k = part_ops[q];
-          const size_t row = op_rows[k] == 1 ? 0 : (size_t)j;
-          const T x = ops[k][row * n + w];
-          v = q == part_off[p] ? x : v * x;
-        }
-      }
-      red.put(v, r);
-    }
-    red.flush();
-  }
-}
+// One output row: the product a * b * extra[extra_at .. extra_at + nextra)
+// of operand rows (b == 0 for a single operand).
+struct RowDesc {
+  long long a;
+  long long b;
+  int extra_at;
+  int nextra;
+};
+static_assert(sizeof(RowDesc) == 24, "RowDesc is three 8-byte words");
 
 template <typename T>
-int interval_sum(const void* ops, const void* op_rows, const void* part_off,
-                 const void* part_ops, const void* row_part,
-                 const void* row_j, const void* i1, const void* i2,
+struct PartRows {
+  static constexpr int kRows = 2;
+  static constexpr int kItems = 4;
+  const RowDesc* desc;
+  const T* const* extra;
+  int nrows;
+  int r0;
+  RowDesc* s_desc;
+
+  // The descriptors of the block's rows into shared memory; the streaming
+  // kernel's first barrier comes before any thread reads them.
+  __device__ void stage(int item0, unsigned char* smem) {
+    s_desc = reinterpret_cast<RowDesc*>(smem);
+    r0 = item0 * kRows;
+    for (int k = threadIdx.x; k < kRows * kItems && r0 + k < nrows;
+         k += blockDim.x)
+      s_desc[k] = desc[r0 + k];
+  }
+
+  __device__ int row(int item, int q) const {
+    const int r = item * kRows + q;
+    return r < nrows ? r : -1;
+  }
+
+  __device__ void load(int item, int s0, int n,
+                       T (&v)[kRows][stream::kPer<T>]) const {
+    constexpr int P = stream::kPer<T>;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int r = item * kRows + q;
+      if (r >= nrows) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) v[q][k] = T(0);
+        continue;
+      }
+      const RowDesc d = s_desc[r - r0];
+      stream::load_strip<T>(reinterpret_cast<const T*>(d.a), s0, n, v[q]);
+      if (d.b) {
+        T t[P];
+        stream::load_strip<T>(reinterpret_cast<const T*>(d.b), s0, n, t);
+#pragma unroll
+        for (int k = 0; k < P; ++k) v[q][k] = stream::mul(v[q][k], t[k]);
+      }
+      for (int x = 0; x < d.nextra; ++x) {
+        T t[P];
+        stream::load_strip<T>(extra[d.extra_at + x], s0, n, t);
+#pragma unroll
+        for (int k = 0; k < P; ++k) v[q][k] = stream::mul(v[q][k], t[k]);
+      }
+    }
+  }
+};
+
+template <typename T>
+int interval_sum(const void* desc, const void* extra, const void* table,
                  void* partial, void* out, int nrows, int n, int nseg,
-                 void* stream) {
-  return launch_reduced<T>(
-      interval_sum_kernel<T>, static_cast<T*>(partial), static_cast<T*>(out),
-      static_cast<const int*>(i1), static_cast<const int*>(i2), nrows, n,
-      nseg, static_cast<cudaStream_t>(stream),
-      static_cast<const T* const*>(ops), static_cast<const int*>(op_rows),
-      static_cast<const int*>(part_off), static_cast<const int*>(part_ops),
-      static_cast<const int*>(row_part), static_cast<const int*>(row_j));
+                 int nentries, int cmax, void* stream) {
+  using Src = PartRows<T>;
+  Src src{static_cast<const RowDesc*>(desc),
+          static_cast<const T* const*>(extra), nrows, 0, nullptr};
+  const int rows_per_block = Src::kRows * Src::kItems;
+  const int ngroups = (nrows + rows_per_block - 1) / rows_per_block;
+  return stream::launch<T>(src, ngroups, static_cast<const int*>(table),
+                           nentries, cmax, sizeof(RowDesc) * rows_per_block,
+                           static_cast<T*>(partial), static_cast<T*>(out),
+                           nrows, n, nseg, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace ecckd
 
 extern "C" {
 
-// ``ops`` is a device array of operand pointers; ``op_rows`` their row
-// counts (1 broadcasts); part p multiplies operands
-// part_ops[part_off[p]:part_off[p+1]] in that order; output row r is row
-// row_j[r] of part row_part[r].  ``out`` is (nrows, nseg); ``partial`` is
-// scratch of ceil(n / ecckd_chunk_size()) * nrows * nseg values.  Returns
-// the CUDA error code of the launches (0 on success).
-int ecckd_interval_sum_f64(const void* ops, const void* op_rows,
-                           const void* part_off, const void* part_ops,
-                           const void* row_part, const void* row_j,
-                           const void* i1, const void* i2, void* partial,
-                           void* out, int nrows, int n, int nseg,
+// Wavenumbers per chunk of the streaming core.
+int ecckd_stream_chunk_size() { return ecckd::stream::kChunk; }
+
+// ``desc`` is a device array of one RowDesc per output row (three 8-byte
+// words: operand row addresses a, b and extra_at | nextra << 32), ``extra``
+// a device array of further operand row addresses; ``table`` the int32
+// interval table of interval_stream.cuh with ``nentries`` entries and at
+// most ``cmax`` (1 to 32) per block pass.  ``out`` is
+// (nrows, nseg); ``partial`` scratch of (slots in the table) * nrows
+// values.  Returns the CUDA error code of the launches (0 on success).
+int ecckd_interval_sum_f64(const void* desc, const void* extra,
+                           const void* table, void* partial, void* out,
+                           int nrows, int n, int nseg, int nentries, int cmax,
                            void* stream) {
-  return ecckd::interval_sum<double>(ops, op_rows, part_off, part_ops,
-                                     row_part, row_j, i1, i2, partial, out,
-                                     nrows, n, nseg, stream);
+  return ecckd::interval_sum<double>(desc, extra, table, partial, out, nrows,
+                                     n, nseg, nentries, cmax, stream);
 }
 
-int ecckd_interval_sum_f32(const void* ops, const void* op_rows,
-                           const void* part_off, const void* part_ops,
-                           const void* row_part, const void* row_j,
-                           const void* i1, const void* i2, void* partial,
-                           void* out, int nrows, int n, int nseg,
+int ecckd_interval_sum_f32(const void* desc, const void* extra,
+                           const void* table, void* partial, void* out,
+                           int nrows, int n, int nseg, int nentries, int cmax,
                            void* stream) {
-  return ecckd::interval_sum<float>(ops, op_rows, part_off, part_ops,
-                                    row_part, row_j, i1, i2, partial, out,
-                                    nrows, n, nseg, stream);
+  return ecckd::interval_sum<float>(desc, extra, table, partial, out, nrows,
+                                    n, nseg, nentries, cmax, stream);
 }
 
 }  // extern "C"

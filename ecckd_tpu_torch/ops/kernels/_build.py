@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ecckd_tpu_torch"
 SOURCES = ("sweep_lw.cu", "sweep_sw.cu", "interval_sum.cu",
            "sweep_lw_scan.cu", "fused_sums_lw.cu")
-HEADERS = ("interval_reduce.cuh", "lw_coeffs.cuh")
+HEADERS = ("interval_reduce.cuh", "interval_stream.cuh", "lw_coeffs.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -40,13 +40,14 @@ _SIGNATURES = {
     "ecckd_sweep_lw_f32": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_sweep_sw_f64": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
     "ecckd_sweep_sw_f32": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
-    "ecckd_interval_sum_f64": (_P,) * 10 + (_I, _I, _I, _P),
-    "ecckd_interval_sum_f32": (_P,) * 10 + (_I, _I, _I, _P),
+    "ecckd_stream_chunk_size": (),
+    "ecckd_interval_sum_f64": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "ecckd_interval_sum_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ecckd_scan_max_layers": (),
     "ecckd_sweep_lw_scan_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_sweep_lw_scan_f32": (_P,) * 10 + (_I, _I, _I, _P),
-    "ecckd_fused_sums_lw_f64": (_P,) * 9 + (_I, _I, _I, _P),
-    "ecckd_fused_sums_lw_f32": (_P,) * 9 + (_I, _I, _I, _P),
+    "ecckd_fused_sums_lw_f64": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "ecckd_fused_sums_lw_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()

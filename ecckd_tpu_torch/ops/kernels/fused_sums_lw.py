@@ -14,6 +14,7 @@ import torch
 
 from ..segments import interval_sum_fused
 from . import _build
+from .interval_stream import check_library, device_table
 from .sweep_lw import _check
 
 
@@ -64,19 +65,20 @@ def fused_sums_lw_intervals(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
             ("i2", i2, torch.int32, (nseg,))):
         _check("fused_sums_lw", name, t, want_dtype, shape, dev)
     lib = _build.library()
-    nblocks = -(-n // lib.ecckd_chunk_size())
+    check_library(lib)
     nrows = 3 * nlay + 2
-    out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-    partial = torch.empty(max(1, nblocks * nrows * nseg), dtype=dtype,
-                          device=dev)
     fn = (lib.ecckd_fused_sums_lw_f64 if dtype == torch.float64
           else lib.ecckd_fused_sums_lw_f32)
     with torch.cuda.device(dev):
+        table_d, tab = device_table(i1, i2, n, dev)
+        out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
+        partial = torch.empty(max(1, tab.nslots * nrows), dtype=dtype,
+                              device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(metric.data_ptr(), planck_hl.data_ptr(), hr.data_ptr(),
-                 fd_surf.data_ptr(), fu_toa.data_ptr(), i1.data_ptr(),
-                 i2.data_ptr(), partial.data_ptr(), out.data_ptr(), nlay, n,
-                 nseg, stream)
+                 fd_surf.data_ptr(), fu_toa.data_ptr(), table_d.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), nlay, n, nseg,
+                 tab.nentries, tab.cmax, stream)
     _build.check(err, "fused_sums_lw")
     fused_sums_lw_intervals.launches += 1
     return out

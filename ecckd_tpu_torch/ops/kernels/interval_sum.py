@@ -5,15 +5,41 @@ the Pallas TPU kernel ``ecckd_tpu/ops/segments.py:_isum_pallas_kernel``.
 For tensors on the CPU the wrapper runs the plain version
 :func:`ecckd_tpu_torch.ops.segments.interval_sum_fused`; for CUDA tensors
 it launches the kernel or raises.
+
+The kernel reads one descriptor per output row (:func:`row_table`): the
+addresses of the operand rows whose product the row is.  The table depends
+only on the operands' addresses, shapes and dtype and on the parts'
+structure, so it is built and uploaded once per parts list and kept.  A
+launch adds the interval table of its bounds (:mod:`.interval_stream`),
+kept per bound tensors.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..segments import fused_groups, interval_sum_fused
 from . import _build
+from .interval_stream import check_library, device_table
+
+
+class RowTable(NamedTuple):
+    """``desc`` is (rows, 3) int64 per output row: the addresses of its
+    first two operand rows (0 for none) and ``extra_at | nextra << 32``,
+    its further operand rows' addresses in ``extra``; ``desc_d`` and
+    ``extra_d`` are the same on the device."""
+    desc: np.ndarray
+    extra: np.ndarray
+    desc_d: torch.Tensor
+    extra_d: torch.Tensor
+
+
+_ROW_TABLES: "OrderedDict[tuple, RowTable]" = OrderedDict()
+_ROW_TABLES_KEPT = 8
 
 
 def _operand_device(parts, i1):
@@ -23,20 +49,57 @@ def _operand_device(parts, i1):
     return i1.device
 
 
-def _layout(meta):
-    """Int32 tables the kernel reads (besides each operand's row count):
-    per part its operand list, per output row its part and its row within
-    the part."""
-    part_off = [0]
-    part_ops = []
-    row_part = []
-    row_j = []
-    for p, (idxs, rows) in enumerate(meta):
-        part_ops.extend(idxs)
-        part_off.append(len(part_ops))
-        row_part.extend([p] * rows)
-        row_j.extend(range(rows))
-    return part_off, part_ops, row_part, row_j
+def row_table(meta, unique, n: int) -> RowTable:
+    """The descriptor table of ``fused_groups``' ``(meta, unique)``, from
+    the cache when the same operands (addresses, shapes, dtype, device)
+    form the same parts."""
+    key = (n, meta, tuple((a.data_ptr(), tuple(a.shape), a.dtype, a.device)
+                          for a in unique))
+    hit = _ROW_TABLES.get(key)
+    if hit is not None:
+        _ROW_TABLES.move_to_end(key)
+        return hit
+    desc = []
+    extra = []
+    for idxs, rows in meta:
+        for j in range(rows):
+            addr = [unique[k].data_ptr() + (0 if unique[k].shape[0] == 1
+                                            else j * n)
+                    * unique[k].element_size() for k in idxs]
+            word = len(extra) | (len(addr[2:]) << 32)
+            extra.extend(addr[2:])
+            desc.append((addr[0], addr[1] if len(addr) > 1 else 0, word))
+    desc = np.asarray(desc, np.int64).reshape(-1, 3)
+    extra = np.asarray(extra, np.int64)
+    dev = unique[0].device
+    table = RowTable(desc, extra, torch.from_numpy(desc).to(dev),
+                     torch.from_numpy(np.r_[extra, 0]).to(dev))
+    _ROW_TABLES[key] = table
+    while len(_ROW_TABLES) > _ROW_TABLES_KEPT:
+        _ROW_TABLES.popitem(last=False)
+    return table
+
+
+def rows_from_table(table: RowTable, unique, n: int):
+    """Plain reading of a row table: the (rows, n) products it describes,
+    each address mapped back to a row of the operands ``unique``."""
+    def row_at(addr):
+        for a in unique:
+            es = a.element_size()
+            off = int(addr) - a.data_ptr()
+            if 0 <= off < a.numel() * es:
+                return a.reshape(-1)[off // es:off // es + n]
+        raise ValueError(f"address {addr:#x} is in no operand")
+
+    out = []
+    for a_addr, b_addr, word in table.desc:
+        at, count = int(word) & 0xFFFFFFFF, int(word) >> 32
+        v = row_at(a_addr)
+        for addr in ([b_addr] if b_addr else []) + list(
+                table.extra[at:at + count]):
+            v = v * row_at(addr)
+        out.append(v)
+    return torch.stack(out)
 
 
 def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
@@ -44,7 +107,7 @@ def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
 
     On the card every part must be a :func:`~ecckd_tpu_torch.ops.segments.
     part_of` product of contiguous (rows, n) or (n,) tensors of one float
-    dtype; operands shared by several parts are read once per wavenumber.
+    dtype.
     """
     dev = _operand_device(parts, i1)
     if dev.type == "cpu":
@@ -76,30 +139,21 @@ def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
                 or b.shape[0] != nseg or not b.is_contiguous()):
             raise ValueError(f"interval_sum: {name} must be a contiguous "
                              f"int32 ({nseg},) tensor on {dev}")
-    part_off, part_ops, row_part, row_j = _layout(meta)
-    nrows = len(row_part)
-    op_rows = [a.shape[0] for a in unique]
-    table = np.asarray(op_rows + part_off + part_ops + row_part + row_j,
-                       np.int32)
+    rows = row_table(meta, unique, n)
+    nrows = rows.desc.shape[0]
     lib = _build.library()
-    nblocks = -(-n // lib.ecckd_chunk_size())
+    check_library(lib)
     with torch.cuda.device(dev):
-        ptrs = torch.tensor([a.data_ptr() for a in unique],
-                            dtype=torch.int64).to(dev)
-        meta_d = torch.from_numpy(table).to(dev)
+        table_d, tab = device_table(i1, i2, n, dev)
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-        partial = torch.empty(max(1, nblocks * nrows * nseg), dtype=dtype,
+        partial = torch.empty(max(1, tab.nslots * nrows), dtype=dtype,
                               device=dev)
-        base = meta_d.data_ptr()
-        offs = np.cumsum([0, len(op_rows), len(part_off), len(part_ops),
-                          len(row_part)]) * 4
         fn = (lib.ecckd_interval_sum_f64 if dtype == torch.float64
               else lib.ecckd_interval_sum_f32)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptrs.data_ptr(), base + int(offs[0]), base + int(offs[1]),
-                 base + int(offs[2]), base + int(offs[3]),
-                 base + int(offs[4]), i1.data_ptr(), i2.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), nrows, n, nseg, stream)
+        err = fn(rows.desc_d.data_ptr(), rows.extra_d.data_ptr(),
+                 table_d.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                 nrows, n, nseg, tab.nentries, tab.cmax, stream)
     _build.check(err, "interval_sum")
     fused_interval_sum.launches += 1
     return out

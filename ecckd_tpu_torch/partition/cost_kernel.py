@@ -20,6 +20,7 @@ import torch
 from ..constants import HR_WEIGHT
 from ..ops.average import fit_parts_lw, fit_parts_sw, total_trans_fit_parts
 from ..ops.heating_rate import heating_rate
+from ..ops.kernels.interval_stream import device_bounds
 from ..ops.kernels.interval_sum import fused_interval_sum
 from ..ops.kernels.sweep_lw import sweep_lw_intervals
 from ..ops.kernels.sweep_sw import sweep_sw_intervals
@@ -102,8 +103,7 @@ class _CandidateCostBase:
         i1p[pad:] = i1
         i2p = np.zeros(nb, np.int32)
         i2p[pad:] = i2
-        out = self._kernel(torch.from_numpy(i1p).to(self.device),
-                           torch.from_numpy(i2p).to(self.device))
+        out = self._kernel(*device_bounds(i1p, i2p, self.device))
         return out.cpu().numpy()[pad:].astype(np.float64)
 
 

@@ -3,14 +3,17 @@
 Times K1, K3, E1 and E2 on the experiment inputs (:func:`~ecckd_tpu_torch.
 scripts.exp_kernels.build_inputs`, 2^20 x 50 x 64, float64 then float32)
 with parts of their work switched off.  Each variant is a copy of the
-package under ``build/ablate/<variant>/`` with one line of a CUDA source
-edited, built and timed in a process of its own, in the order base,
+package under ``build/ablate/<variant>/`` with a line of one or two CUDA
+sources edited, built and timed in a process of its own, in the order base,
 no-reduce, no-scan, base.  An edited kernel gives wrong sums: its times
 only count.
 
-  no-reduce  the reducer's per-interval warp sums (``Reducer::reduce`` in
-             ``csrc/interval_reduce.cuh``) do nothing: every kernel still
-             stages its rows, none sums them
+  no-reduce  the per-interval warp sums do nothing: K1 and E1 still
+             stage their rows in the reducer of ``csrc/interval_reduce.cuh``
+             (``Reducer::reduce`` skips them); K3 and E2 still load and form
+             their rows in the streaming core of ``csrc/interval_stream.cuh``
+             (``ECCKD_STREAM_REDUCE`` 0: no masked sums, no shuffle trees),
+             and still add and write their warps' partials
   no-scan    E1 skips the scans of its wavenumbers: it still stages its
              tiles and reduces them
 
@@ -32,31 +35,35 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 OUT = PKG.parent / "build" / "ablate"
 
-# variant: (source under csrc/, line as it is, line as edited)
+# variant: edits (source under csrc/, line as it is, line as edited)
 EDITS = {
-    "no-reduce": ("interval_reduce.cuh",
-                  "for (int p = warp; p < nrows_buf * count; p += kWarps) {",
-                  "for (int p = warp; p < 0; p += kWarps) {"),
-    "no-scan": ("sweep_lw_scan.cu",
-                "for (int c = warp; c < width; c += kWarps) {",
-                "for (int c = warp; c < 0; c += kWarps) {"),
+    "no-reduce": (
+        ("interval_reduce.cuh",
+         "for (int p = warp; p < nrows_buf * count; p += kWarps) {",
+         "for (int p = warp; p < 0; p += kWarps) {"),
+        ("interval_stream.cuh", "#define ECCKD_STREAM_REDUCE 1",
+         "#define ECCKD_STREAM_REDUCE 0")),
+    "no-scan": (
+        ("sweep_lw_scan.cu",
+         "for (int c = warp; c < width; c += kWarps) {",
+         "for (int c = warp; c < 0; c += kWarps) {"),),
 }
 
 
 def _copy(variant):
-    """The package copied under ``build/ablate/<variant>`` with its edit;
+    """The package copied under ``build/ablate/<variant>`` with its edits;
     returns the directory to put on PYTHONPATH."""
     root = OUT / variant
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(PKG, root / PKG.name,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    name, old, new = EDITS[variant]
-    src = root / PKG.name / "csrc" / name
-    text = src.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{variant}: {name} no longer has the line "
-                           f"{old!r} once")
-    src.write_text(text.replace(old, new))
+    for name, old, new in EDITS[variant]:
+        src = root / PKG.name / "csrc" / name
+        text = src.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{variant}: {name} no longer has the line "
+                               f"{old!r} once")
+        src.write_text(text.replace(old, new))
     return root
 
 

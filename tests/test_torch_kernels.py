@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from ecckd_tpu_torch.ops.average import (fit_parts_lw, fit_parts_sw,
+                                         total_trans_fit_parts)
 from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                          fused_sums_lw_intervals,
                                          fused_sums_lw_plain,
@@ -23,7 +25,13 @@ from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                          sweep_lw_scan_intervals,
                                          sweep_lw_scan_plain,
                                          sweep_sw_intervals, sweep_sw_plain)
-from ecckd_tpu_torch.ops.kernels.interval_sum import _layout
+from ecckd_tpu_torch.ops.kernels.interval_stream import (CHUNK,
+                                                         MAX_ENTRIES,
+                                                         device_bounds,
+                                                         device_table,
+                                                         interval_table)
+from ecckd_tpu_torch.ops.kernels.interval_sum import (row_table,
+                                                      rows_from_table)
 from ecckd_tpu_torch.ops.segments import (fused_groups, interval_sum_fused,
                                           part_of)
 
@@ -115,22 +123,163 @@ def test_wrappers_refuse_other_devices():
         fused_interval_sum([part_of(args[1])], 300, args[6], args[7])
 
 
-def test_groups_dedup_and_tables():
-    """An operand used by several parts is staged once; the kernel's
-    tables list each part's operands and each output row's part."""
-    w = torch.ones(4, 64)
-    m = torch.ones(4, 64)
-    v = torch.ones(64)
-    meta, unique = fused_groups([part_of(m, w), part_of(w), part_of(v, w)],
-                                64)
+def test_groups_dedup_and_row_table():
+    """An operand used by several parts is deduplicated; the kernel's row
+    table gives each output row the addresses of its operand rows (a
+    broadcast operand's only row), further operands in a list."""
+    w = torch.ones(4, 64, dtype=torch.float64)
+    m = torch.ones(4, 64, dtype=torch.float64)
+    v = torch.ones(64, dtype=torch.float64)
+    meta, unique = fused_groups([part_of(m, w), part_of(w), part_of(v, w),
+                                 part_of(m, w, v)], 64)
     assert len(unique) == 3
-    assert meta == (((0, 1), 4), ((1,), 4), ((2, 1), 4))
-    part_off, part_ops, row_part, row_j = _layout(meta)
-    assert part_off == [0, 2, 3, 5]
-    assert part_ops == [0, 1, 1, 2, 1]
-    assert row_part == [0] * 4 + [1] * 4 + [2] * 4
-    assert row_j == list(range(4)) * 3
+    assert meta == (((0, 1), 4), ((1,), 4), ((2, 1), 4), ((0, 1, 2), 4))
+    t = row_table(meta, unique, 64)
+    assert t.desc.shape == (16, 3)
+    row = lambda a, j: a.data_ptr() + 8 * 64 * j
+    for j in range(4):
+        assert tuple(t.desc[j]) == (row(m, j), row(w, j), 0)
+        assert tuple(t.desc[4 + j]) == (row(w, j), 0, 0)
+        assert tuple(t.desc[8 + j]) == (v.data_ptr(), row(w, j), 0)
+        assert tuple(t.desc[12 + j]) == (row(m, j), row(w, j),
+                                         j | (1 << 32))
+    assert t.extra.tolist() == [v.data_ptr()] * 4
     assert fused_groups([lambda s, n: None], 64) is None
+
+
+def _table_parts(kind, n, rng):
+    """Parts of the candidate costs' K3 launches (LW transmission and
+    logarithmic fits with the truth rows, SW linear and
+    total-transmission fits with two truth sets, as ops/average.py and
+    partition/cost_kernel.py build them), a 3-operand part and a part of
+    (n,) operands only, from seeded data."""
+    nlay = 5
+    f = lambda *shape: torch.from_numpy(rng.uniform(0.5, 2.0, shape))
+    planck, metric, hr = f(nlay + 1, n), f(nlay, n), f(nlay, n)
+    ssi, fd, fu = f(n), f(n), f(n)
+    metric[:, ::7] = 0.0        # zeros for the logarithmic fit's mask
+    if kind in ("lw_transmission", "lw_logarithmic"):
+        return fit_parts_lw(kind[3:], planck, metric)[0] + [
+            part_of(hr), part_of(fd), part_of(fu)]
+    if kind == "sw_linear":
+        return fit_parts_sw("linear", ssi, metric)[0]
+    if kind == "sw_total_transmission":
+        truth = [p for _ in range(2) for p in (part_of(f(nlay, n)),
+                                               part_of(f(n)), part_of(f(n)))]
+        return total_trans_fit_parts(ssi, f(nlay, n), metric)[0] + truth
+    if kind == "three_operands":
+        return [part_of(metric, hr, ssi), part_of(ssi, metric, planck[1:])]
+    return [part_of(ssi, fd), part_of(fd, fu, ssi), part_of(fu)]
+
+
+@pytest.mark.parametrize("kind", ["lw_transmission", "lw_logarithmic",
+                                  "sw_linear", "sw_total_transmission",
+                                  "three_operands", "vectors_only"])
+def test_row_table_rebuilds_the_rows(kind):
+    """The rows the kernel reads through its row table are exactly those
+    interval_sum_fused forms from the parts."""
+    n = 301
+    parts = _table_parts(kind, n, np.random.default_rng(len(kind)))
+    meta, unique = fused_groups(parts, n)
+    want = torch.cat([p(0, n) for p in parts])
+    got = rows_from_table(row_table(meta, unique, n), unique, n)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_row_table_cache():
+    """The same operands forming the same parts give the same table
+    object; a new tensor, or the same shape at another address, a new
+    one."""
+    a = torch.ones(3, 100, dtype=torch.float64)
+    b = torch.ones(100, dtype=torch.float64)
+    first = row_table(*fused_groups([part_of(a, b), part_of(b)], 100), 100)
+    again = row_table(*fused_groups([part_of(a, b), part_of(b)], 100), 100)
+    assert again is first
+    c = a.clone()
+    other = row_table(*fused_groups([part_of(c, b), part_of(b)], 100), 100)
+    assert other is not first
+    assert other.desc[0, 0] == c.data_ptr() != first.desc[0, 0]
+    moved = torch.ones(2, 3, 100, dtype=torch.float64)[1]
+    assert row_table(*fused_groups([part_of(moved, b), part_of(b)], 100),
+                     100) is not first
+    assert row_table(*fused_groups([part_of(b), part_of(a, b)], 100),
+                     100) is not first
+
+
+def _sums_from_table(rows, tab, n, nseg):
+    """Plain reading of an interval table: per entry, the row sums over the
+    entry's interval within its chunk into its slot; per column, its slots
+    added in order."""
+    nchunks = -(-n // CHUNK)
+    t = tab.table
+    chunk_ptr = t[:nchunks + 1]
+    entry = t[nchunks + 1:nchunks + 1 + 3 * tab.nentries].reshape(-1, 3)
+    col = t[nchunks + 1 + 3 * tab.nentries:].reshape(-1, 2)
+    assert len(col) == nseg and chunk_ptr[-1] == tab.nentries
+    slots = torch.full((tab.nslots, rows.shape[0]), float("nan"),
+                       dtype=rows.dtype)
+    for c in range(nchunks):
+        for lo, hi, slot in entry[chunk_ptr[c]:chunk_ptr[c + 1]]:
+            a, b = max(lo, c * CHUNK), min(hi, (c + 1) * CHUNK - 1)
+            assert a <= b
+            slots[slot] = rows[:, a:b + 1].sum(dim=1)
+    out = torch.zeros((rows.shape[0], nseg), dtype=rows.dtype)
+    for j, (first, count) in enumerate(col):
+        for k in range(first, first + count):
+            out[:, j] += slots[k]
+    return out
+
+
+@pytest.mark.parametrize("i1,i2", [
+    # front-padded [0, 0] bucket columns, a shared boundary index
+    ([0, 0, 0, 0, 100, 2047, 5000], [0, 0, 0, 99, 2047, 4999, 9999]),
+    # repeats out of order, overlaps, an empty and a reversed interval
+    ([5000, 0, 5000, 3, 700, 9000], [6000, 9999, 6000, 2, 699, 9100]),
+    # bounds outside [0, n - 1], clamped; one interval over every chunk
+    ([-40, 9990, 0, -7], [10, 20000, 9999, -1]),
+    # more intervals in one chunk than a block takes per pass
+    (list(range(0, 80)), list(range(0, 80))),
+])
+def test_interval_table_layout(i1, i2):
+    """The interval table (each distinct clamped interval once, a slot
+    per interval and chunk, a column gather) gives every column its own
+    interval's sums, in the original order, for pads, repeats, shared
+    boundary indices, empty and clamped intervals."""
+    n = 10000
+    rows = torch.from_numpy(np.random.default_rng(4).integers(
+        -50, 50, (3, n)).astype(np.float64))
+    tab = interval_table(i1, i2, n)
+    lo = np.maximum(np.asarray(i1), 0)
+    hi = np.minimum(np.asarray(i2), n - 1)
+    distinct = {(a, b) for a, b in zip(lo, hi) if a <= b}
+    assert tab.nslots == sum(b // CHUNK - a // CHUNK + 1
+                             for a, b in distinct)
+    got = _sums_from_table(rows, tab, n, len(i1))
+    want = interval_sum_fused([part_of(rows)], n,
+                              torch.tensor(i1, dtype=torch.int32),
+                              torch.tensor(i2, dtype=torch.int32))
+    assert torch.equal(got, want)    # integer-valued: exact in any order
+    assert 1 <= tab.cmax <= MAX_ENTRIES
+
+
+def test_interval_table_kept_per_bounds():
+    """Bounds uploaded with their host copy, or read back once, keep their
+    table while unchanged; a write to them, or other tensors with the
+    same values, give a table built anew from the values."""
+    i1, i2 = device_bounds([0, 0, 5, 4000], [0, 4, 3999, 9999], "cpu")
+    first = device_table(i1, i2, 10000, i1.device)
+    assert device_table(i1, i2, 10000, i1.device) is first
+    want = interval_table([0, 0, 5, 4000], [0, 4, 3999, 9999], 10000)
+    assert np.array_equal(first[1].table, want.table)
+    assert torch.equal(first[0], torch.from_numpy(want.table))
+    other = device_table(i1.clone(), i2.clone(), 10000, i1.device)
+    assert other is not first
+    assert np.array_equal(other[1].table, want.table)
+    i2[3] = 5000                                    # a write: read again
+    changed = device_table(i1, i2, 10000, i1.device)
+    assert np.array_equal(changed[1].table, interval_table(
+        [0, 0, 5, 4000], [0, 4, 3999, 5000], 10000).table)
 
 
 # Interval layouts of the main path: front-padded [0, 0] bucket columns,
@@ -174,6 +323,112 @@ def test_kernels_match_plain(cuda, case, dtype):
     assert fused_interval_sum.launches == 1
     w = interval_sum_fused(parts, n, args[6], args[7])
     assert _row_err(g, w) <= RTOL[dtype]
+
+
+def _cube_bounds(n, nreal=58, npad=6):
+    """Front-padded [0, 0] bucket columns, then intervals whose lengths
+    grow as the cube of their index, one pair sharing a boundary index
+    (chip_smoke.py's phase-3 layout)."""
+    edges = np.round(np.linspace(0.0, 1.0, nreal + 1) ** 3 * n)
+    lo, hi = edges[:-1].astype(np.int64), edges[1:].astype(np.int64) - 1
+    hi[nreal // 2] = lo[nreal // 2 + 1]
+    return np.r_[np.zeros(npad, np.int64), lo], np.r_[np.zeros(npad,
+                                                                np.int64), hi]
+
+
+def _sum_layout(name, n):
+    """(i1, i2) of the interval-sum card cases."""
+    if name == "nseg_1":
+        return [0], [n - 1]
+    if name == "nseg_64":
+        return _cube_bounds(n)
+    if name == "nseg_256":
+        edges = np.linspace(0, n, 257).astype(np.int64)
+        return edges[:-1], edges[1:] - 1
+    if name == "long":         # longer than ten chunks, overlapping
+        return [0, 100, 5000], [n - 1, 100 + 12 * CHUNK, 5000 + 11 * CHUNK]
+    # outside [0, n - 1]: clamped, or empty
+    return [-100, n - 10, -5, n + 3, 7], [500, n + 1000, -1, n + 7, 7]
+
+
+def _misaligned(a):
+    """A copy of ``a`` whose first element is not 16-byte aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _sum_parts(kind, args):
+    """K3 parts on the sweep operands: the LW transmission fit and truth
+    rows (E2's five parts, optionally from misaligned copies) or the SW
+    total-transmission launch (2*nlay+1 levels, od*ssi, two truth sets)."""
+    planck, bg_od, _, _, emis, surfp, _, _ = args
+    if kind == "sw_total_transmission":
+        nlay = bg_od.shape[0]
+        truth = [p for s in (0.5, 2.5) for p in (
+            part_of(bg_od * s), part_of(emis * s), part_of(planck[0] * s))]
+        parts = total_trans_fit_parts(surfp, bg_od, bg_od)[0] + truth
+        assert sum(p(0, 1).shape[0] for p in parts) == 5 * nlay + 5
+        return parts
+    metric, p, hr, fd, fu, _, _ = _sum_args(args, seed=1)
+    if kind == "lw_misaligned":
+        metric, p, hr, fd, fu = map(_misaligned, (metric, p, hr, fd, fu))
+    return [part_of(metric, p[1:]), part_of(p[1:]), part_of(hr),
+            part_of(fd), part_of(fu)]
+
+
+_SUM_LAYOUTS = ["nseg_1", "nseg_64", "nseg_256", "long", "outside"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", ["lw", "lw_misaligned",
+                                  "sw_total_transmission"])
+@pytest.mark.parametrize("layout", _SUM_LAYOUTS)
+def test_interval_sums_match_plain(cuda, layout, kind, dtype):
+    """K3 (and E2 on the LW rows) against the plain version at odd n,
+    for 1, 64 and 256 intervals, intervals over more than ten chunks and
+    bounds outside [0, n - 1]; E2's sums equal K3's bit for bit."""
+    n = 70001
+    i1, i2 = _sum_layout(layout, n)
+    args = _to(_inputs(12, n, i1, i2, seed=21), cuda, dtype)
+    parts = _sum_parts(kind, args)
+    reset_launch_counts()
+    got = fused_interval_sum(parts, n, args[6], args[7])
+    assert fused_interval_sum.launches == 1
+    want = interval_sum_fused(parts, n, args[6], args[7])
+    assert got.shape == want.shape
+    assert _row_err(got, want) <= RTOL[dtype]
+    if kind != "sw_total_transmission":
+        m, w_num = parts[0].arrays
+        e2 = fused_sums_lw_intervals(
+            m, torch.cat([w_num[:1], w_num]), parts[2].arrays[0],
+            parts[3].arrays[0], parts[4].arrays[0], args[6], args[7])
+        assert torch.equal(e2, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_interval_sums_batch_independent(cuda, dtype):
+    """An interval's K3 sums are the same bits launched with the others,
+    alone, and in a launch with the intervals reversed and the pads
+    removed; two launches are bit-identical."""
+    n = 300001
+    i1, i2 = _cube_bounds(n)
+    args = _to(_inputs(12, n, i1, i2, seed=5), cuda, dtype)
+    parts = _sum_parts("lw", args)
+    whole = fused_interval_sum(parts, n, args[6], args[7])
+    assert torch.equal(whole, fused_interval_sum(parts, n, args[6],
+                                                 args[7]))
+    rev = torch.arange(len(i1) - 1, 5, -1, device=cuda)   # without pads
+    flipped = fused_interval_sum(parts, n, args[6][rev], args[7][rev])
+    assert torch.equal(flipped, whole[:, rev])
+    for j in range(0, len(i1), 7):
+        alone = fused_interval_sum(parts, n, args[6][j:j + 1],
+                                   args[7][j:j + 1])
+        assert torch.equal(alone, whole[:, j:j + 1])
 
 
 def _sum_args(args, seed):
@@ -443,3 +698,14 @@ def test_chain_core_float32_on_card(cuda):
                                device=cuda, dtype=f32)
     k = model.single_gas_data[0].molar_abs
     assert np.all(np.isfinite(k)) and np.all(k > 0)
+
+
+@pytest.mark.parametrize("variant", ["no-reduce", "no-scan"])
+def test_ablation_edits_apply(variant):
+    """Every line the ablation script edits is in its source exactly
+    once, so each variant switches off what it names."""
+    from ecckd_tpu_torch.ops.kernels._build import CSRC
+    from ecckd_tpu_torch.scripts.ablate_kernels import EDITS
+    for name, old, new in EDITS[variant]:
+        text = (CSRC / name).read_text()
+        assert text.count(old) == 1 and new not in text
