@@ -7,27 +7,32 @@ use.
 
 Phases (every failed check raises; nothing is caught):
   1. the card's name and power limit;
-  2. the kernel build;
+  2. the kernel build, with each kernel's registers and spills (none in
+     the sweeps K1 and K2);
   3. kernels K1 (LW sweep), K2 (SW sweep, with and without the reflected
      beam) and K3 (fused interval sum, on the LW fit and truth rows and on
      the 255 rows of the SW total-transmission launch) against their plain
      PyTorch versions at pipeline shapes (2^20 wavenumbers, 50 layers, 64
      intervals), float64 and float32, with CUDA-event times; K3's sums of
      each interval bit-identical launched alone, in a launch with the
-     intervals reversed and the pads removed, and in a repeat;
+     intervals reversed and the pads removed, and in a repeat; K1's and
+     K2's sums bit-identical in a repeat and, permuted, in a launch with
+     the intervals permuted;
   4. the small test rigs (1024 wavenumbers, 15 layers; LW, and SW over two
      bands) through the array cores of reorder -> find_g_points ->
      create_lut on the CPU (plain versions) and twice on the card
      (kernels): identical g-point ranks, bit-identical repeats;
   5. the LW main path at full size: a CKDMIP-shaped synthetic LW spectrum
      of 2^20 wavenumbers x 50 layers (5 temperature profiles) through the
-     same cores, with the checks of tests/test_find_g_points.py;
+     same cores, with the checks of tests/test_find_g_points.py and the
+     host time of the interval tables (K3's and the sweeps');
   6. the SW main path at full size: a synthetic SW spectrum of 2^20
      wavenumbers x 50 layers over 250-50000 cm-1 (5 profiles) and a solar
      spectrum, two bands (the lower reflects the direct beam), the
      total-transmission search and a transmission-averaged LUT;
   7. each main path once more under ``torch.profiler``: wall and device
-     seconds, and the device time of the costliest kernels and copies;
+     seconds, the device time of the costliest kernels and copies and the
+     host time of the costliest operators;
   8. the experiment path of ``scripts/exp_kernels.py`` as ported
      (``ecckd_tpu_torch.scripts.exp_kernels.main``, all three variants, at
      2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
@@ -38,12 +43,14 @@ Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
 lists each kernel with its launches on the main paths, error, times and
-the bound of its work on the card.
+the bound of its work on the card (K2 twice: ``sweep_sw`` with the
+reflected beam, ``sweep_sw_noup`` without, each with its own launches).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,9 +75,12 @@ BARS = {torch.float64: 1e-10, torch.float32: 1e-5}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # Operations per layer and wavenumber of the LW sweep (od, emissivity and
-# factor with their clamps, two sources, two recurrences) and of the SW
-# sweep with its reflected beam (two running sums, two exps and products).
+# factor with their clamps, two sources, two recurrences), of the SW
+# direct beam (od, running sum, product by the secant, exp, product) and
+# of the SW sweep with its reflected beam (two running sums, two exps and
+# products).
 LW_LAYER_OPS = 21
+SW_DOWN_LAYER_OPS = 5
 SW_LAYER_OPS = 9
 
 
@@ -235,15 +245,39 @@ def phase_card():
     return smi
 
 
+def kernel_resources(build_log):
+    """(mangled name, registers, spill stores + loads in bytes) of each
+    kernel in nvcc's ``-Xptxas -v`` report."""
+    out = []
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        name = line.split("'")[1]
+        regs = spill = None
+        for nxt in lines[i + 1:i + 5]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          nxt)
+            if m:
+                spill = int(m[1]) + int(m[2])
+            m = re.search(r"Used (\d+) registers", nxt)
+            if m:
+                regs = int(m[1])
+        out.append((name, regs, spill))
+    return out
+
+
 def phase_build():
     from ecckd_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc "
         f"{_build.build_seconds:.2f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    for name, regs, spill in kernel_resources(_build.build_log):
+        log(f"[build]   {name[:72]}: {regs} registers, {spill} bytes "
+            "spilled")
+        if "sweep_lw_kernel" in name or "sweep_sw_kernel" in name:
+            check(spill == 0, f"no spills in {name}")
 
 
 def sw_total_trans_parts(ssi, bg_od, od, h, fd, up):
@@ -277,6 +311,51 @@ def check_batch_independent(parts, n, i1, i2, npad, tag):
               f"interval_sum {tag}: interval {j} alone bit-identical")
     log(f"[kernels] interval_sum {tag}: each of {len(i1)} intervals "
         "bit-identical alone, reversed without pads and repeated")
+
+
+def permute_intervals(od_fit, seg, i1, i2, perm):
+    """The intervals in the order ``perm``: the bounds and od_fit's
+    columns permuted, seg remapped to the new columns (ranks outside every
+    fit stay outside)."""
+    nseg = len(perm)
+    perm = torch.as_tensor(perm, device=i1.device)
+    new_of = torch.empty_like(perm)
+    new_of[perm] = torch.arange(nseg, device=i1.device)
+    inside = (seg >= 0) & (seg < nseg)
+    seg = torch.where(inside, new_of[seg.long().clamp(0, nseg - 1)]
+                      .to(torch.int32), seg)
+    return (od_fit[:, perm].contiguous(), seg, i1[perm].contiguous(),
+            i2[perm].contiguous())
+
+
+def check_sweeps_batch_independent(sweep_args, sw_args, tag):
+    """K1's and K2's sums of every interval do not depend on the other
+    intervals of the launch: a repeat gives the same bits, and a launch
+    with the intervals permuted the same bits permuted."""
+    from ecckd_tpu_torch.ops.kernels import (sweep_lw_intervals,
+                                             sweep_sw_intervals)
+    perm = np.random.default_rng(3).permutation(len(sweep_args[6]))
+    lw = list(sweep_args)
+    lw[2], lw[3], lw[6], lw[7] = permute_intervals(
+        sweep_args[2], sweep_args[3], sweep_args[6], sweep_args[7], perm)
+    sw = list(sw_args)
+    sw[2], sw[3], sw[4], sw[5] = permute_intervals(*sw_args[2:6], perm)
+    for name, run, moved, args in (
+            ("sweep_lw", lambda a: sweep_lw_intervals(*a), lw, sweep_args),
+            ("sweep_sw_up", lambda a: sweep_sw_intervals(*a, True), sw,
+             sw_args),
+            ("sweep_sw_noup", lambda a: sweep_sw_intervals(*a, False), sw,
+             sw_args)):
+        first = run(args)
+        check(all(torch.equal(a, b) for a, b in zip(first, run(args))),
+              f"{name} {tag}: repeats bit-identical")
+        check(all(torch.equal(a[:, perm], b)
+                  for a, b in zip(first, run(moved))),
+              f"{name} {tag}: permuted launch gives the permuted sums "
+              "bit for bit")
+    log(f"[kernels] sweep_lw, sweep_sw_up, sweep_sw_noup {tag}: repeats "
+        f"and a launch with the {len(perm)} intervals permuted "
+        "bit-identical")
 
 
 def phase_kernels(dev):
@@ -367,16 +446,23 @@ def phase_kernels(dev):
         del rows
         check_batch_independent(parts, n, sweep_args[6], sweep_args[7], 6,
                                 f"LW rows {tag}")
+        check_sweeps_batch_independent(sweep_args, sw_args, tag)
         nseg = len(i1)
-        # K2: ssi, bg_od, od_fit, albedo and the two flux rows per level
-        sw_bytes = (torch.finfo(dtype).bits // 8
-                    * (2 * n + nlay * n + nlay * nseg + 2 * (nlay + 1) * nseg)
-                    + 4 * (n + 2 * nseg))
+        es = torch.finfo(dtype).bits // 8
+        # K2 with the reflected beam: ssi, bg_od, od_fit, albedo and the two
+        # flux rows per level; without: ssi, bg_od, od_fit and one row
+        sw_bytes = (es * (2 * n + nlay * n + nlay * nseg
+                          + 2 * (nlay + 1) * nseg) + 4 * (n + 2 * nseg))
+        sw_down_bytes = (es * (n + nlay * n + nlay * nseg + (nlay + 1) * nseg)
+                         + 4 * (n + 2 * nseg))
         for name, (b, by) in (
                 ("sweep_lw", lw_sweep_bound(sweep_args)),
                 ("sweep_sw_up", bound(
                     sw_bytes, SW_LAYER_OPS * nlay * n
                     + 2 * (nlay + 1) * memberships(i1, i2, n), dtype)),
+                ("sweep_sw_noup", bound(
+                    sw_down_bytes, SW_DOWN_LAYER_OPS * nlay * n
+                    + (nlay + 1) * memberships(i1, i2, n), dtype)),
                 ("interval_sum", row_sums_bound(3 * nlay + 2, n, nlay, i1,
                                                 i2, dtype)),
                 ("interval_sum_sw", row_sums_bound(5 * nlay + 6, n, nlay, i1,
@@ -503,14 +589,59 @@ def chain_checks(what, gp, model, nwav, ncol, nlay, hr_tol):
     return g
 
 
+def timing_tables():
+    """Wrap ``device_table`` where the kernels' wrappers call it, and the
+    ``interval_table`` it builds with, so that their calls and host
+    seconds add up by chunk (K3's 2048-wavenumber chunks, the sweeps'
+    strips); returns (stats, undo)."""
+    from ecckd_tpu_torch.ops.kernels import (fused_sums_lw, interval_stream,
+                                             interval_sum)
+    stats = {}
+    real_table = interval_stream.device_table
+    real_build = interval_stream.interval_table
+
+    def add(chunk, key, t0):
+        s = stats.setdefault(chunk, {"table": [0, 0.0], "build": [0, 0.0]})
+        s[key][0] += 1
+        s[key][1] += time.perf_counter() - t0
+
+    def table(i1, i2, n, dev, chunk=interval_stream.CHUNK):
+        t0 = time.perf_counter()
+        out = real_table(i1, i2, n, dev, chunk)
+        add(chunk, "table", t0)
+        return out
+
+    def build(i1, i2, n, chunk=interval_stream.CHUNK):
+        t0 = time.perf_counter()
+        out = real_build(i1, i2, n, chunk)
+        add(chunk, "build", t0)
+        return out
+
+    mods = (interval_stream, interval_sum, fused_sums_lw)
+    for m in mods:
+        m.device_table = table
+    interval_stream.interval_table = build
+
+    def undo():
+        for m in mods:
+            m.device_table = real_table
+        interval_stream.interval_table = real_build
+    return stats, undo
+
+
 def drive(what, profiles, hr_tol, ssi=None, bands=(None, None)):
     """One main path with the launch counts set to 0 just before it and
-    read just after; returns (g-points, model, seconds, launches)."""
+    read just after, and the host time of its interval tables; returns
+    (g-points, model, seconds, launches)."""
     from ecckd_tpu_torch.ops.kernels import (KERNELS, reset_launch_counts,
                                              sweep_sw_intervals)
+    stats, undo = timing_tables()
     reset_launch_counts()
-    _, gp, model, secs = run_chain(profiles, "cuda", hr_tol, ssi=ssi,
-                                   bands=bands)
+    try:
+        _, gp, model, secs = run_chain(profiles, "cuda", hr_tol, ssi=ssi,
+                                       bands=bands)
+    finally:
+        undo()
     launches = {k.__name__: k.launches for k in KERNELS}
     launches["sweep_sw_with_upwelling"] = \
         sweep_sw_intervals.upwelling_launches
@@ -518,6 +649,13 @@ def drive(what, profiles, hr_tol, ssi=None, bands=(None, None)):
         f"{secs['find_g_points']:.2f}, create_lut {secs['create_lut']:.2f}, "
         f"total {sum(secs.values()):.2f}")
     log(f"[{what}] launches {launches}")
+    for chunk, s in sorted(stats.items()):
+        (calls, secs_all), (builds, secs_build) = s["table"], s["build"]
+        log(f"[{what}] interval tables of chunk {chunk} (host clock): "
+            f"{calls} calls, {builds} built; {1e3 * secs_all:.2f} ms in "
+            f"all, {1e3 * secs_build:.2f} ms of it building; "
+            f"{100 * secs_all / secs['find_g_points']:.2f}% of "
+            "find_g_points")
     return gp, model, secs, launches
 
 
@@ -568,7 +706,8 @@ def phase_sw_main_path():
 
 def phase_profile(lw_profiles, sw_profiles, ssi):
     """Each main path once more under torch.profiler: wall and device
-    seconds, and the device time of the costliest kernels and copies."""
+    seconds, the device time of the costliest kernels and copies, and the
+    host time of the costliest operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for what, args in (("LW", (lw_profiles, "cuda", HR_TOL)),
@@ -588,6 +727,12 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
             f"{device_us / 1e6:.3f} s")
         for e in rows[:12]:
             log(f"[profile {what}]   {e.self_device_time_total / 1e3:9.3f} "
+                f"ms {e.count:6d} x  {e.key[:90]}")
+        host = sorted((e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+        for e in host[:8]:
+            log(f"[profile {what}]   host {e.self_cpu_time_total / 1e3:9.3f} "
                 f"ms {e.count:6d} x  {e.key[:90]}")
 
 
@@ -712,7 +857,13 @@ def main() -> int:
                      lw_launches["sweep_lw_intervals"], f64["sweep_lw"]),
         kernel_entry("sweep_sw", "ecckd_tpu_torch/csrc/sweep_sw.cu",
                      "ecckd_tpu/ops/pallas/sweep_sw.py:159",
-                     sw_launches["sweep_sw_intervals"], f64["sweep_sw_up"]),
+                     sw_launches["sweep_sw_with_upwelling"],
+                     f64["sweep_sw_up"]),
+        kernel_entry("sweep_sw_noup", "ecckd_tpu_torch/csrc/sweep_sw.cu",
+                     "ecckd_tpu/ops/pallas/sweep_sw.py:159",
+                     sw_launches["sweep_sw_intervals"]
+                     - sw_launches["sweep_sw_with_upwelling"],
+                     f64["sweep_sw_noup"]),
         kernel_entry("interval_sum", "ecckd_tpu_torch/csrc/interval_sum.cu",
                      "ecckd_tpu/ops/segments.py:123",
                      lw_launches["fused_interval_sum"]

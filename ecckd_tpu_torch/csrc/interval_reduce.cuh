@@ -1,8 +1,8 @@
-// Deterministic per-interval reduction shared by the hand-written Hopper
-// kernels (sweep_lw.cu, sweep_sw.cu, interval_sum.cu, sweep_lw_scan.cu,
-// fused_sums_lw.cu).
+// Deterministic per-interval reduction of kernel E1 (sweep_lw_scan.cu), the
+// round-5 experiment's LW sweep.  The other kernels sum on the streaming
+// core of interval_stream.cuh.
 //
-// Every kernel here produces, per wavenumber w, a set of rows v[r](w) and
+// A kernel here produces, per wavenumber w, a set of rows v[r](w) and
 // needs S[r][j] = sum of v[r](w) over w in the inclusive interval
 // [i1[j], i2[j]].  Intervals may overlap (a shared boundary index belongs to
 // both), repeat (the front-padded [0, 0] bucket columns) and differ in length
@@ -12,12 +12,10 @@
 //  * The wavenumber axis is cut into fixed chunks of kChunk = kThreads *
 //    kTilesPerBlock wavenumbers, one block per chunk, independent of the
 //    interval layout, so a long interval spreads over many blocks.
-//  * A block walks its chunk in tiles of kThreads wavenumbers, one per
-//    thread.  Rows are staged in shared memory kStageRows at a time; each
-//    warp then takes (row, interval) pairs and sums the interval's part of
-//    the tile with a fixed lane-strided loop and a fixed shuffle tree.
-//    A kernel that lays its rows out in shared memory itself (a block of
-//    rows over a narrower tile of wavenumbers) hands them to reduce().
+//  * The kernel lays a tile's rows out in shared memory (rows over a tile
+//    of wavenumbers) and hands them to reduce(): each warp takes (row,
+//    interval) pairs and sums the interval's part of the tile with a fixed
+//    lane-strided loop and a fixed shuffle tree.
 //  * Tile sums go into the block's own slice of a partial buffer
 //    (read-modify-write by one lane, ordered by the tile loop), and a second
 //    kernel adds the slices of the blocks an interval meets in block order.
@@ -33,15 +31,7 @@ namespace ecckd {
 constexpr int kThreads = 256;
 constexpr int kTilesPerBlock = 16;
 constexpr int kChunk = kThreads * kTilesPerBlock;
-constexpr int kStageRows = 8;
 constexpr int kWarps = kThreads / 32;
-
-// Dynamic shared memory a reducing block needs for ``nseg`` intervals.
-template <typename T>
-inline size_t reducer_smem_bytes(int nseg) {
-  return sizeof(T) * kStageRows * kThreads + sizeof(int) * kStageRows
-         + sizeof(int) * (size_t)nseg;
-}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -52,8 +42,6 @@ __device__ __forceinline__ T warp_sum(T v) {
 
 template <typename T>
 struct Reducer {
-  T* stage;        // [kStageRows][kThreads]
-  int* stage_row;  // [kStageRows] output row of each staged slot
   int* list;       // intervals that meet this block's chunk
   int count;       // entries of list
   const int* i1;
@@ -62,21 +50,10 @@ struct Reducer {
   int n;
   int nseg;
   int w0;          // first wavenumber of the current tile
-  int nstaged;     // staged slots (the same in every thread)
 
   // Every thread of the block calls this first.  ``s_count`` is a
-  // __shared__ int of the caller; ``smem`` holds reducer_smem_bytes().
-  __device__ void init(unsigned char* smem, int* s_count, const int* i1_,
-                       const int* i2_, T* partial_all, int nrows, int n_,
-                       int nseg_) {
-    stage = reinterpret_cast<T*>(smem);
-    stage_row = reinterpret_cast<int*>(stage + kStageRows * kThreads);
-    init_list(stage_row + kStageRows, s_count, i1_, i2_, partial_all, nrows,
-              n_, nseg_);
-  }
-
-  // init() for a kernel that stages no rows here and calls reduce() on its
-  // own buffer; ``list_`` is shared memory for ``nseg_`` ints.
+  // __shared__ int of the caller; ``list_`` is shared memory for ``nseg_``
+  // ints.
   __device__ void init_list(int* list_, int* s_count, const int* i1_,
                             const int* i2_, T* partial_all, int nrows,
                             int n_, int nseg_) {
@@ -85,7 +62,6 @@ struct Reducer {
     i2 = i2_;
     n = n_;
     nseg = nseg_;
-    nstaged = 0;
     partial = partial_all + (size_t)blockIdx.x * nrows * nseg;
     const int c0 = blockIdx.x * kChunk;
     const int c1 = min(c0 + kChunk, n) - 1;
@@ -124,24 +100,6 @@ struct Reducer {
       s = warp_sum(s);
       if (lane == 0) partial[(size_t)row_of(g) * nseg + j] += s;
     }
-  }
-
-  // Reduce the staged rows of the current tile into the partial slice.
-  __device__ void flush() {
-    if (nstaged == 0) return;
-    __syncthreads();
-    const int* rows = stage_row;
-    reduce(stage, nstaged, kThreads, kThreads,
-           [rows](int g) { return rows[g]; });
-    __syncthreads();
-    nstaged = 0;
-  }
-
-  // Stage this thread's value of output row ``row`` for the current tile.
-  __device__ void put(T v, int row) {
-    stage[nstaged * kThreads + threadIdx.x] = v;
-    if (threadIdx.x == 0) stage_row[nstaged] = row;
-    if (++nstaged == kStageRows) flush();
   }
 };
 
@@ -188,15 +146,6 @@ inline int launch_reduced_smem(Kernel kernel, size_t smem, T* partial, T* out,
         partial, out, i1, i2, nrows, nseg, n);
   }
   return (int)cudaGetLastError();
-}
-
-// launch_reduced_smem() for a kernel that stages its rows in the Reducer.
-template <typename T, typename Kernel, typename... Args>
-inline int launch_reduced(Kernel kernel, T* partial, T* out, const int* i1,
-                          const int* i2, int nrows, int n, int nseg,
-                          cudaStream_t stream, Args... args) {
-  return launch_reduced_smem<T>(kernel, reducer_smem_bytes<T>(nseg), partial,
-                                out, i1, i2, nrows, n, nseg, stream, args...);
 }
 
 }  // namespace ecckd

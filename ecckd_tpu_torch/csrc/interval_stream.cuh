@@ -1,5 +1,6 @@
 // Streaming interval-sum core of kernels K3 (interval_sum.cu) and E2
-// (fused_sums_lw.cu).
+// (fused_sums_lw.cu), and the per-strip sums of the sweeps K1 (sweep_lw.cu)
+// and K2 (sweep_sw.cu), at the end of this file.
 //
 // Serves the ports of the Pallas TPU kernels ecckd_tpu/ops/segments.py
 // (_interval_sum_fused_pallas) and scripts/exp_kernels.py
@@ -17,10 +18,11 @@
 //    block and group of rows.  The group index runs fastest, so the blocks
 //    that read one chunk of an operand shared by two rows run together and
 //    the second read comes from L2.
-//  * Each lane loads kIters 16-byte vectors of each row of an item (two or
-//    three rows) before it sums any, with no block barrier in the streaming
-//    loop.  A row whose base is not 16-byte aligned is read as scalars
-//    into the same lanes and slots, so its sums are the same bits.
+//  * Each lane loads its kPer values of each row of an item (two or three
+//    rows) in 16-byte vectors before it sums any, with no block barrier in
+//    the streaming loop.  A row whose base is not 16-byte aligned is read
+//    as scalars into the same lanes and slots, so its sums are the same
+//    bits.
 //  * The host resolves the intervals once per launch
 //    (ops/kernels/interval_stream.py): identical clamped intervals are
 //    reduced once, each chunk gets the list of the (few) intervals that
@@ -30,7 +32,10 @@
 //    shuffle tree, so its work per strip does not grow with the intervals
 //    of the chunk.  The block adds its warps' strip sums in warp order
 //    (one barrier after the streaming loop) and writes one value per
-//    (slot, row).  sum_slots adds an interval's slots in chunk order.
+//    (row, slot).  sum_slots adds the slots of each interval, one warp per
+//    (row, column): lane l adds slots l, l + 32, ... in order, then the
+//    shuffle tree.  The sweeps K1 and K2 use the same table, partials and
+//    sum_slots at strip granularity (the last section).
 // So the sum of interval j depends only on the data, on the clamped
 // (i1[j], i2[j]) and on the fixed grid, never on the other intervals of
 // the launch, and there are no floating-point atomics: repeats are
@@ -63,8 +68,6 @@ template <> struct Vec<float> { using type = float4; };
 template <typename T>
 constexpr int kVec = 16 / sizeof(T);            // values per 16-byte load
 template <typename T>
-constexpr int kIters = kStrip / (32 * kVec<T>); // loads per lane and row
-template <typename T>
 constexpr int kPer = kStrip / 32;               // values per lane and row
 
 __device__ __forceinline__ double mul(double a, double b) {
@@ -88,19 +91,20 @@ __device__ __forceinline__ int slot_offset(int k, int lane) {
   return (k / kVec<T>) * 32 * kVec<T> + lane * kVec<T> + (k % kVec<T>);
 }
 
-// This lane's kPer values of ``row`` in the strip starting at ``s0``
-// (zero past ``n``).
-template <typename T>
+// This lane's P values of ``row`` in the strip of 32 * P wavenumbers
+// starting at ``s0`` (zero past ``n``).
+template <typename T, int P = kPer<T>>
 __device__ __forceinline__ void load_strip(const T* __restrict__ row, int s0,
-                                           int n, T (&v)[kPer<T>]) {
+                                           int n, T (&v)[P]) {
   const int lane = threadIdx.x & 31;
   constexpr int V = kVec<T>;
-  if (s0 + kStrip <= n) {
+  static_assert(P % V == 0, "a lane's values fill whole 16-byte loads");
+  if (s0 + 32 * P <= n) {
     const T* p = row + s0 + lane * V;
     if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
       using VT = typename Vec<T>::type;
 #pragma unroll
-      for (int it = 0; it < kIters<T>; ++it) {
+      for (int it = 0; it < P / V; ++it) {
         const VT x = __ldg(reinterpret_cast<const VT*>(p + it * 32 * V));
         const T* xs = reinterpret_cast<const T*>(&x);
 #pragma unroll
@@ -108,13 +112,13 @@ __device__ __forceinline__ void load_strip(const T* __restrict__ row, int s0,
       }
     } else {
 #pragma unroll
-      for (int it = 0; it < kIters<T>; ++it)
+      for (int it = 0; it < P / V; ++it)
 #pragma unroll
         for (int e = 0; e < V; ++e) v[it * V + e] = __ldg(p + it * 32 * V + e);
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < kPer<T>; ++k) {
+    for (int k = 0; k < P; ++k) {
       const int w = s0 + slot_offset<T>(k, lane);
       v[k] = w < n ? __ldg(row + w) : T(0);
     }
@@ -123,14 +127,14 @@ __device__ __forceinline__ void load_strip(const T* __restrict__ row, int s0,
 
 // Sum over the interval [lo, hi] (absolute, clamped) of this warp's strip
 // values ``v``, in lane 0: masked lane sums in slot order, then the tree.
-template <typename T>
-__device__ __forceinline__ T strip_sum(const T (&v)[kPer<T>], int s0, int lo,
+template <typename T, int P = kPer<T>>
+__device__ __forceinline__ T strip_sum(const T (&v)[P], int s0, int lo,
                                        int hi) {
   const int lane = threadIdx.x & 31;
   const int a = lo - s0, b = hi - s0;
   T s = T(0);
 #pragma unroll
-  for (int k = 0; k < kPer<T>; ++k) {
+  for (int k = 0; k < P; ++k) {
     const int o = slot_offset<T>(k, lane);
     s += (o >= a && o <= b) ? v[k] : T(0);
   }
@@ -141,6 +145,7 @@ __device__ __forceinline__ T strip_sum(const T (&v)[kPer<T>], int s0, int lo,
 //   chunk_ptr[nchunks + 1]      entries of chunk c: chunk_ptr[c] .. [c+1]
 //   entry[3 * nentries]         (lo, hi, slot) per entry, by chunk
 //   col[2 * nseg]               (first slot, slot count) per output column
+// Each entry has a slot of its own, so the partials are [nrows][nentries].
 struct Table {
   const int* chunk_ptr;
   const int* entry;
@@ -172,7 +177,7 @@ inline size_t smem_bytes(int rows_per_block, int cmax, size_t extra) {
 template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
 stream_kernel(Src src, const int* __restrict__ table, int nentries,
-              T* __restrict__ partial, int nrows, int n, int cmax) {
+              T* __restrict__ partial, int n, int cmax) {
   constexpr int R = Src::kRows;
   constexpr int RPB = Src::kRows * Src::kItems;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -228,7 +233,7 @@ stream_kernel(Src src, const int* __restrict__ table, int nentries,
       }
     }
     __syncthreads();
-    // Warp sums in warp order, one value per (slot, row)
+    // Warp sums in warp order, one value per (row, slot)
     for (int k = threadIdx.x; k < RPB * np; k += kThreads) {
       const int rr = k / np, e = k - rr * np;
       const int r = src.row(item0 + rr / R, rr % R);
@@ -236,24 +241,44 @@ stream_kernel(Src src, const int* __restrict__ table, int nentries,
       T s = T(0);
       for (int w = 0; w < kStripWarps; ++w)
         if ((s_mask[w] >> e) & 1u) s += s_sum[((size_t)w * RPB + rr) * cmax + e];
-      partial[(size_t)s_ent[3 * e + 2] * nrows + r] = s;
+      partial[(size_t)r * nentries + s_ent[3 * e + 2]] = s;
     }
     __syncthreads();
   }
 }
 
-// out[r][j] = the slots of column j added in chunk order (0 if empty).
+// out[r][j] = the slots of column j added (0 if none), one warp per (r, j):
+// lane l adds slots l, l + 32, ... in order, then the shuffle tree.
 template <typename T>
-__global__ void sum_slots(const T* __restrict__ partial, T* __restrict__ out,
-                          const int* __restrict__ col, int nrows, int nseg) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nrows * nseg) return;
-  const int j = idx / nrows, r = idx - j * nrows;
+__global__ void __launch_bounds__(256)
+sum_slots(const T* __restrict__ partial, T* __restrict__ out,
+          const int* __restrict__ col, int nrows, int nslots, int nseg) {
+  const long long pair = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (pair >= (long long)nrows * nseg) return;
+  const int lane = threadIdx.x & 31;
+  const int r = (int)(pair / nseg), j = (int)(pair - (long long)r * nseg);
   const int first = col[2 * j], count = col[2 * j + 1];
+  const T* p = partial + (size_t)r * nslots + first;
   T s = T(0);
-#pragma unroll 8
-  for (int k = 0; k < count; ++k) s += partial[(size_t)(first + k) * nrows + r];
-  out[(size_t)r * nseg + j] = s;
+  for (int k = lane; k < count; k += 32) s += p[k];
+  s = warp_sum(s);
+  if (lane == 0) out[pair] = s;
+}
+
+// sum_slots of the (nrows, nseg) output of a launch with ``nentries``
+// entries, after the kernel that wrote its partials.
+template <typename T>
+inline int launch_sum_slots(const T* partial, T* out, const int* table,
+                            int nentries, int nrows, int n, int nseg,
+                            int chunk, cudaStream_t stream) {
+  const long long pairs = (long long)nrows * nseg;
+  if (pairs > 0) {
+    const int nchunks = (n + chunk - 1) / chunk;
+    sum_slots<T><<<(unsigned)((pairs + 7) / 8), 256, 0, stream>>>(
+        partial, out, table + nchunks + 1 + 3 * nentries, nrows, nentries,
+        nseg);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Launch the streaming kernel over (row groups, chunks), then sum_slots.
@@ -274,16 +299,174 @@ inline int launch(const Src& src, int ngroups, const int* table, int nentries,
   }
   if (nentries > 0 && ngroups > 0) {
     stream_kernel<T, Src><<<dim3(ngroups, nchunks), kThreads, smem, stream>>>(
-        src, table, nentries, partial, nrows, n, cmax);
+        src, table, nentries, partial, n, cmax);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const int total = nrows * nseg;
-  if (total > 0) {
-    sum_slots<T><<<(total + 255) / 256, 256, 0, stream>>>(
-        partial, out, table_of(table, n, nentries).col, nrows, nseg);
+  return launch_sum_slots<T>(partial, out, table, nentries, nrows, n, nseg,
+                             kChunk, stream);
+}
+
+// ---------------------------------------------------------------- sweeps
+//
+// K1 and K2 run a recurrence across the layers of each wavenumber and need
+// every level of it summed over the intervals.  One warp takes a strip of
+// kSweepStrip<T> wavenumbers, each lane kSweepPer<T> slots of it in the
+// layout of slot_offset (two 16-byte loads a row: 4 doubles, 8 floats), so
+// a lane runs kSweepPer<T> independent recurrences in registers:
+// instruction-level parallelism where one chain would wait.  The interval
+// table is built at strip granularity (interval_stream.py with chunk =
+// kSweepStrip<T>): per strip the entries (lo, hi, slot) that meet it,
+// any number of them, and one partial slot per (interval, strip).  At each
+// level the warp takes the masked strip sum of every entry of its strip and
+// lane 0 writes it to the entry's slot, so no warp waits for another and
+// there is no block barrier at all; a strip that no interval meets is not
+// swept.  sum_slots then adds the slots of each interval in strip order,
+// as for K3.  An interval's sums depend only on the data, on its clamped
+// bounds and on the fixed strips, never on the other intervals of the
+// launch, and there are no floating-point atomics.
+
+// Wavenumbers per lane, and blocks of kSweepThreads an SM must hold (so
+// at most 65536 / (kSweepThreads * blocks) registers a thread: 128 for
+// f64, 170 for f32), both fixed by measurement on the H100 (PERF.md).
+template <typename T> constexpr int kSweepPer = 8;
+template <> constexpr int kSweepPer<double> = 4;
+template <typename T> constexpr int kSweepMinBlocks = 3;
+template <> constexpr int kSweepMinBlocks<double> = 4;
+template <typename T>
+constexpr int kSweepStrip = 32 * kSweepPer<T>;   // wavenumbers per warp
+constexpr int kSweepWarps = 4;                   // warps per block
+constexpr int kSweepThreads = 32 * kSweepWarps;
+
+// The fitted-od columns of this lane's slots in the strip at ``s0``: per
+// slot (-1 where seg is outside [0, nseg) or the slot is past ``n``), and
+// the one column of all of them where they agree (else -2), as they do
+// away from the intervals' ends.
+template <typename T>
+struct FitColumns {
+  int col[kSweepPer<T>];
+  int common;
+};
+
+template <typename T>
+__device__ __forceinline__ FitColumns<T> fit_columns(
+    const int* __restrict__ seg, int s0, int n, int nseg) {
+  const int lane = threadIdx.x & 31;
+  FitColumns<T> f;
+#pragma unroll
+  for (int k = 0; k < kSweepPer<T>; ++k) {
+    const int w = s0 + slot_offset<T>(k, lane);
+    const int s = w < n ? __ldg(seg + w) : -1;
+    f.col[k] = (s >= 0 && s < nseg) ? s : -1;
   }
-  return (int)cudaGetLastError();
+  f.common = f.col[0];
+#pragma unroll
+  for (int k = 1; k < kSweepPer<T>; ++k)
+    if (f.col[k] != f.col[0]) f.common = -2;
+  return f;
+}
+
+// A layer's od: the background ``od`` plus the fitted od of each slot's
+// column in ``fit_row`` (od_fit's row of the layer, read through L1), one
+// load for the lane where its slots share a column.
+template <typename T>
+__device__ __forceinline__ void add_fit(T (&od)[kSweepPer<T>],
+                                        const T* __restrict__ fit_row,
+                                        const FitColumns<T>& f) {
+  if (f.common >= 0) {
+    const T x = __ldg(fit_row + f.common);
+#pragma unroll
+    for (int k = 0; k < kSweepPer<T>; ++k) od[k] += x;
+  } else if (f.common == -2) {
+#pragma unroll
+    for (int k = 0; k < kSweepPer<T>; ++k)
+      if (f.col[k] >= 0) od[k] += __ldg(fit_row + f.col[k]);
+  }
+}
+
+// The interval table of a sweep launch is the table of a K3 launch with
+// strips of kSweepStrip<T> in place of chunks (interval_stream.py, chunk =
+// kSweepStrip<T>); partials are [nrows][nentries] as for K3.
+template <typename T>
+struct StripSums {
+  const int* entry;
+  T* partial;
+  int nentries;
+  int e0, e1;          // this strip's entries
+  int s0;              // the strip's first wavenumber
+  int lo, hi, slot;    // entry e0 + lane, for lane < e1 - e0
+
+  // Bind this warp to its strip; false, in every lane, when the strip is
+  // past n or no interval meets it.
+  __device__ bool init(const int* __restrict__ table, int n, T* partial_,
+                       int nentries_) {
+    const int nstrips = (n + kSweepStrip<T> - 1) / kSweepStrip<T>;
+    const int strip = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+    if (strip >= nstrips) return false;
+    e0 = __ldg(table + strip);
+    e1 = __ldg(table + strip + 1);
+    if (e0 == e1) return false;
+    entry = table + nstrips + 1;
+    partial = partial_;
+    nentries = nentries_;
+    s0 = strip * kSweepStrip<T>;
+    lo = hi = slot = 0;
+    fetch(e0, lo, hi, slot);
+    return true;
+  }
+
+  // This lane's entry of the group of 32 starting at ``g0``.
+  __device__ void fetch(int g0, int& a, int& b, int& k) const {
+    const int e = g0 + (threadIdx.x & 31);
+    if (e < e1) {
+      a = __ldg(entry + 3 * e);
+      b = __ldg(entry + 3 * e + 1);
+      k = __ldg(entry + 3 * e + 2);
+    }
+  }
+
+  // Level ``r`` of the strip, this lane's values ``v``: its sum over each
+  // entry into the entry's slot.  Every lane of the warp calls it.
+  __device__ void put(const T (&v)[kSweepPer<T>], int r) const {
+    T* row = partial + (size_t)r * nentries;
+    for (int g0 = e0; g0 < e1; g0 += 32) {
+      int a = lo, b = hi, k = slot;
+      if (g0 != e0) fetch(g0, a, b, k);
+      const int count = min(32, e1 - g0);
+      for (int q = 0; q < count; ++q) {
+        const int qa = __shfl_sync(0xffffffffu, a, q);
+        const int qb = __shfl_sync(0xffffffffu, b, q);
+        const int qk = __shfl_sync(0xffffffffu, k, q);
+#if ECCKD_STREAM_REDUCE
+        const T s = strip_sum<T, kSweepPer<T>>(v, s0, qa, qb);
+        if ((threadIdx.x & 31) == 0) row[qk] = s;
+#else
+        T s = T(0);
+#pragma unroll
+        for (int j = 0; j < kSweepPer<T>; ++j) s += v[j];
+        if (s == T(1.2345e-30)) row[qk] = s;
+#endif
+      }
+    }
+  }
+};
+
+// Launch a sweep kernel, kernel<<<...>>>(args..., table, partial,
+// nentries, n), over the strips, then sum_slots into ``out`` (nrows, nseg).
+template <typename T, typename Kernel, typename... Args>
+inline int launch_sweep(Kernel kernel, const int* table, int nentries,
+                        T* partial, T* out, int nrows, int n, int nseg,
+                        cudaStream_t stream, Args... args) {
+  const int nstrips = (n + kSweepStrip<T> - 1) / kSweepStrip<T>;
+  const int nblocks = (nstrips + kSweepWarps - 1) / kSweepWarps;
+  if (nentries > 0 && nblocks > 0) {
+    kernel<<<nblocks, kSweepThreads, 0, stream>>>(args..., table, partial,
+                                                  nentries, n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_sum_slots<T>(partial, out, table, nentries, nrows, n, nseg,
+                             kSweepStrip<T>, stream);
 }
 
 }  // namespace stream

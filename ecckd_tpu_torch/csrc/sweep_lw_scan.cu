@@ -220,10 +220,14 @@ extern "C" {
 
 int ecckd_scan_max_layers() { return ecckd::kMaxLayers; }
 
-// Arguments and outputs as ecckd_sweep_lw_f64 (sweep_lw.cu): ``out`` is
-// (2*(nlay+1), nseg), flux_dn rows then flux_up rows; ``partial`` is scratch
-// of ceil(n / ecckd_chunk_size()) * 2*(nlay+1) * nseg values; 1 <= nlay <=
-// ecckd_scan_max_layers().  Returns the CUDA error code of the launches.
+// Wavenumbers per chunk of the reducer of interval_reduce.cuh.
+int ecckd_chunk_size() { return ecckd::kChunk; }
+
+// Inputs as ecckd_sweep_lw_f64 (sweep_lw.cu), with the bounds ``i1``, ``i2``
+// in place of its table: ``out`` is (2*(nlay+1), nseg), flux_dn rows then
+// flux_up rows; ``partial`` is scratch of ceil(n / ecckd_chunk_size()) *
+// 2*(nlay+1) * nseg values; 1 <= nlay <= ecckd_scan_max_layers().  Returns
+// the CUDA error code of the launches.
 int ecckd_sweep_lw_scan_f64(const void* planck, const void* bg_od,
                             const void* od_fit, const void* seg,
                             const void* emis, const void* surf_planck,

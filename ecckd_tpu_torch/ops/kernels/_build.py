@@ -35,15 +35,16 @@ _I = ctypes.c_int
 # argtypes of every entry point: pointers and the stream as c_void_p, so
 # ctypes never truncates a 64-bit address to an int
 _SIGNATURES = {
-    "ecckd_chunk_size": (),
-    "ecckd_sweep_lw_f64": (_P,) * 10 + (_I, _I, _I, _P),
-    "ecckd_sweep_lw_f32": (_P,) * 10 + (_I, _I, _I, _P),
-    "ecckd_sweep_sw_f64": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
-    "ecckd_sweep_sw_f32": (_P,) * 9 + (_I, _I, _I, ctypes.c_double, _I, _P),
+    "ecckd_sweep_strip_size": (_I,),
+    "ecckd_sweep_lw_f64": (_P,) * 9 + (_I,) * 4 + (_P,),
+    "ecckd_sweep_lw_f32": (_P,) * 9 + (_I,) * 4 + (_P,),
+    "ecckd_sweep_sw_f64": (_P,) * 8 + (_I,) * 4 + (ctypes.c_double, _I, _P),
+    "ecckd_sweep_sw_f32": (_P,) * 8 + (_I,) * 4 + (ctypes.c_double, _I, _P),
     "ecckd_stream_chunk_size": (),
     "ecckd_interval_sum_f64": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ecckd_interval_sum_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
     "ecckd_scan_max_layers": (),
+    "ecckd_chunk_size": (),
     "ecckd_sweep_lw_scan_f64": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_sweep_lw_scan_f32": (_P,) * 10 + (_I, _I, _I, _P),
     "ecckd_fused_sums_lw_f64": (_P,) * 8 + (_I,) * 5 + (_P,),

@@ -14,8 +14,7 @@ import torch
 
 from ..segments import interval_sum_fused
 from . import _build
-from .interval_stream import check_library, device_table
-from .sweep_lw import _check
+from .interval_stream import check_library, check_tensor, device_table
 
 
 def fused_sums_lw_plain(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
@@ -63,7 +62,7 @@ def fused_sums_lw_intervals(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
             ("fu_toa", fu_toa, dtype, (n,)),
             ("i1", i1, torch.int32, (nseg,)),
             ("i2", i2, torch.int32, (nseg,))):
-        _check("fused_sums_lw", name, t, want_dtype, shape, dev)
+        check_tensor("fused_sums_lw", name, t, want_dtype, shape, dev)
     lib = _build.library()
     check_library(lib)
     nrows = 3 * nlay + 2
@@ -72,7 +71,7 @@ def fused_sums_lw_intervals(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
     with torch.cuda.device(dev):
         table_d, tab = device_table(i1, i2, n, dev)
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-        partial = torch.empty(max(1, tab.nslots * nrows), dtype=dtype,
+        partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
                               device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(metric.data_ptr(), planck_hl.data_ptr(), hr.data_ptr(),

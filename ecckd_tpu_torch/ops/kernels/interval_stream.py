@@ -1,15 +1,19 @@
-"""Host side of the streaming interval-sum core of kernels K3 and E2.
+"""Host side of the streaming interval-sum core of kernels K3, E2, K1, K2.
 
-``csrc/interval_stream.cuh`` cuts the wavenumber axis into fixed chunks
-of :data:`CHUNK` wavenumbers.  Per launch, :func:`interval_table` resolves
-the intervals into the int32 table the core reads: each distinct clamped
-interval once (repeated columns such as the front-padded ``[0, 0]`` bucket
-columns share its sums), the list of intervals that meet each chunk, one
+``csrc/interval_stream.cuh`` cuts the wavenumber axis into fixed chunks:
+:data:`CHUNK` wavenumbers for the sums K3 and E2, a strip of
+``ecckd_sweep_strip_size(bytes)`` wavenumbers (one warp's) for the sweeps
+K1 and K2.  Per launch, :func:`interval_table` resolves the intervals into
+the int32 table the core reads: each distinct clamped interval once
+(repeated columns such as the front-padded ``[0, 0]`` bucket columns share
+its sums), the list of intervals that meet each chunk, one entry and one
 partial slot per (interval, chunk) pair, and per output column its first
-slot and slot count (none for an empty interval).  The table of a pair of
-bound tensors is kept while they are unchanged, and
-:func:`device_bounds` uploads host bounds with their host copy, so a
-launch reads no bounds back from the card.
+slot and slot count (none for an empty interval).  The tables of a pair of
+bound tensors are kept, by wavenumber count and chunk, while the tensors
+are unchanged, and :func:`device_bounds` uploads host bounds with their
+host copy, so a launch reads no bounds back from the card: ``costs()``
+hands K3 and the sweep the same tensors, and each builds its table once
+per probe.  :func:`launch_sweep` is the host launcher of both sweeps.
 """
 
 from __future__ import annotations
@@ -20,49 +24,54 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import _build
+
 #: Wavenumbers per chunk (``ecckd_stream_chunk_size()`` of the library).
 CHUNK = 2048
 #: Interval entries a block reduces per pass, one per lane of a warp
 #: (``kMaxEntries`` of the core).
 MAX_ENTRIES = 32
-#: Chunks a launch may have (the grid's second dimension).
+#: Chunks of :data:`CHUNK` a launch may have (K3's grid's second
+#: dimension); every table-driven launch takes at most ``MAX_CHUNKS *
+#: CHUNK`` wavenumbers.
 MAX_CHUNKS = 65535
 
 
 class IntervalTable(NamedTuple):
     """``table`` is ``chunk_ptr (nchunks + 1)``, then ``(lo, hi, slot)`` per
-    entry, by chunk, then ``(first slot, slot count)`` per column."""
+    entry, by chunk, then ``(first slot, slot count)`` per column; each
+    entry has a slot of its own, ``nentries`` in all."""
     table: np.ndarray
     nentries: int
     cmax: int
-    nslots: int
 
 
-def interval_table(i1, i2, n: int) -> IntervalTable:
+def interval_table(i1, i2, n: int, chunk: int = CHUNK) -> IntervalTable:
     """The interval table of inclusive bounds ``i1``, ``i2`` over ``n``
-    wavenumbers, clamped to ``[0, n - 1]``."""
+    wavenumbers, clamped to ``[0, n - 1]``, in chunks of ``chunk``."""
     i1 = np.asarray(i1, np.int64).reshape(-1)
     i2 = np.asarray(i2, np.int64).reshape(-1)
     nseg = len(i1)
-    nchunks = -(-n // CHUNK)
-    if nchunks > MAX_CHUNKS:
+    if n > MAX_CHUNKS * CHUNK:
         raise ValueError(f"interval sums: {n} wavenumbers exceed the "
                          f"{MAX_CHUNKS * CHUNK} one launch takes")
+    nchunks = -(-n // chunk)
     lo = np.maximum(i1, 0)
     hi = np.minimum(i2, n - 1)
     full = lo <= hi
-    uniq, inv = np.unique(np.stack([lo[full], hi[full]], axis=1), axis=0,
-                          return_inverse=True)
+    # Distinct intervals in (lo, hi) order, each packed into one key
+    key, inv = np.unique(lo[full] * n + hi[full], return_inverse=True)
     inv = inv.reshape(-1)
-    ulo, uhi = uniq[:, 0], uniq[:, 1]
-    c_lo = ulo // CHUNK
-    nch = uhi // CHUNK - c_lo + 1
+    ulo, uhi = key // n, key % n
+    c_lo = ulo // chunk
+    nch = uhi // chunk - c_lo + 1
     first = np.cumsum(nch) - nch
     nslots = int(nch.sum())
-    # One entry per (interval, chunk) pair, slots numbered by interval
-    u_of = np.repeat(np.arange(len(uniq)), nch)
+    # One entry per (interval, chunk) pair, slots numbered by interval;
+    # by chunk, then interval (a stable sort of the interval-ordered slots)
+    u_of = np.repeat(np.arange(len(key)), nch)
     chunk = np.repeat(c_lo - first, nch) + np.arange(nslots)
-    order = np.lexsort((u_of, chunk))
+    order = np.argsort(chunk, kind="stable")
     counts = np.bincount(chunk, minlength=nchunks)
     chunk_ptr = np.concatenate([[0], np.cumsum(counts)])
     entry = np.stack([ulo[u_of], uhi[u_of], np.arange(nslots)],
@@ -72,13 +81,13 @@ def interval_table(i1, i2, n: int) -> IntervalTable:
     col[full, 1] = nch[inv]
     table = np.concatenate([chunk_ptr, entry.reshape(-1), col.reshape(-1)])
     cmax = int(min(MAX_ENTRIES, max(1, counts.max(initial=0))))
-    return IntervalTable(table.astype(np.int32), len(entry), cmax, nslots)
+    return IntervalTable(table.astype(np.int32), len(entry), cmax)
 
 
 class _Bounds:
     """Device bounds, the version counts they were seen at, their host
-    copy and their tables by ``n``; holding the tensors keeps their ids
-    and addresses from being reused while the entry lives."""
+    copy and their tables by ``(n, chunk)``; holding the tensors keeps
+    their ids and addresses from being reused while the entry lives."""
 
     def __init__(self, i1, i2, host):
         self.i1, self.i2, self.host = i1, i2, host
@@ -110,22 +119,24 @@ def device_bounds(i1, i2, device):
     return t1, t2
 
 
-def device_table(i1, i2, n: int, dev):
+def device_table(i1, i2, n: int, dev, chunk: int = CHUNK):
     """``(table on dev, IntervalTable)`` of the device bounds ``i1``,
-    ``i2``: from the entry of these very tensors while neither was
-    written to since, else built from their values read back once."""
+    ``i2`` in chunks of ``chunk``: from the entry of these very tensors
+    while neither was written to since, else built from their values read
+    back once."""
     entry = _BOUNDS.get(id(i1))
     if (entry is None or entry.i1 is not i1 or entry.i2 is not i2
             or entry.versions != (i1._version, i2._version)):
         entry = _remember(i1, i2, None)
     else:
         _BOUNDS.move_to_end(id(i1))
-    if n not in entry.tables:
+    key = (n, chunk)
+    if key not in entry.tables:
         if entry.host is None:
             entry.host = (i1.cpu().numpy(), i2.cpu().numpy())
-        tab = interval_table(*entry.host, n)
-        entry.tables[n] = (torch.from_numpy(tab.table).to(dev), tab)
-    return entry.tables[n]
+        tab = interval_table(*entry.host, n, chunk)
+        entry.tables[key] = (torch.from_numpy(tab.table).to(dev), tab)
+    return entry.tables[key]
 
 
 def check_library(lib):
@@ -133,4 +144,47 @@ def check_library(lib):
     if lib.ecckd_stream_chunk_size() != CHUNK:
         raise RuntimeError("interval sums: the library's chunk differs "
                            "from interval_stream.py's")
+
+
+def check_tensor(kernel, name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and
+    ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected "
+                        f"{dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def launch_sweep(kernel, entry, operands, i1, i2, nrows, nlay, extra=()):
+    """Launch the sweep K1 or K2, entry point ``entry`` + ``_f64`` or
+    ``_f32``, on the current stream: the tensors ``operands`` (checked by
+    the caller), the interval table of ``i1``, ``i2`` at the library's
+    strip (``ecckd_sweep_strip_size``: 128 wavenumbers in float64, 256 in
+    float32), the partials and the (nrows, nseg) output, the counts, then
+    ``extra``.  The first operand's last axis is the wavenumbers'.
+    Returns the output."""
+    first = operands[0]
+    dtype, dev = first.dtype, first.device
+    n, nseg = first.shape[-1], i1.shape[0]
+    lib = _build.library()
+    fn = getattr(lib, entry + ("_f64" if dtype == torch.float64 else "_f32"))
+    with torch.cuda.device(dev):
+        table_d, tab = device_table(
+            i1, i2, n, dev, lib.ecckd_sweep_strip_size(first.element_size()))
+        out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
+        partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
+                              device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in operands), table_d.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), nlay, n, nseg,
+                 tab.nentries, *extra, stream)
+    _build.check(err, kernel)
+    return out
 

@@ -146,7 +146,7 @@ def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
     with torch.cuda.device(dev):
         table_d, tab = device_table(i1, i2, n, dev)
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-        partial = torch.empty(max(1, tab.nslots * nrows), dtype=dtype,
+        partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
                               device=dev)
         fn = (lib.ecckd_interval_sum_f64 if dtype == torch.float64
               else lib.ecckd_interval_sum_f32)

@@ -3,7 +3,8 @@
 Wrapper of ``csrc/sweep_lw.cu`` (CUDA C++ for sm_90a), which replaces the
 Pallas TPU kernel ``ecckd_tpu/ops/pallas/sweep_lw.py``.  For tensors on the
 CPU the wrapper runs the plain version :func:`sweep_lw_plain`; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel (:func:`.interval_stream.launch_sweep`) or
+raises.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..rt_lw import rt_lw_bb_intervals
-from . import _build
+from .interval_stream import check_tensor, launch_sweep
 
 
 def sweep_lw_plain(planck_hl, bg_od, od_fit, seg_of_wav, surf_emissivity,
@@ -28,20 +29,32 @@ def sweep_lw_plain(planck_hl, bg_od, od_fit, seg_of_wav, surf_emissivity,
                               surf_planck, i1, i2)
 
 
-def _check(kernel, name, t, dtype, shape, device):
-    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and
-    ``shape`` on ``device``."""
-    if t.device != device:
-        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
-                         f"{device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected "
-                        f"{dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
-                         f"expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
+def check_lw(kernel, planck_hl, bg_od, od_fit, seg_of_wav, surf_emissivity,
+             surf_planck, i1, i2):
+    """Raise unless the arguments are what a LW sweep kernel (K1, E1)
+    takes; return (nlay, n, nseg)."""
+    if planck_hl.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {planck_hl.device}")
+    dtype = planck_hl.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel}: unsupported dtype {dtype}")
+    nlev1, n = planck_hl.shape
+    nlay = nlev1 - 1
+    if nlay < 1:
+        raise ValueError(f"{kernel}: {nlay} layers; the kernel takes 1 or "
+                         "more")
+    nseg = i1.shape[0]
+    dev = planck_hl.device
+    check_tensor(kernel, "planck_hl", planck_hl, dtype, (nlev1, n), dev)
+    check_tensor(kernel, "bg_od", bg_od, dtype, (nlay, n), dev)
+    check_tensor(kernel, "od_fit", od_fit, dtype, (nlay, nseg), dev)
+    check_tensor(kernel, "seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
+    check_tensor(kernel, "surf_emissivity", surf_emissivity, dtype, (n,),
+                 dev)
+    check_tensor(kernel, "surf_planck", surf_planck, dtype, (n,), dev)
+    check_tensor(kernel, "i1", i1, torch.int32, (nseg,), dev)
+    check_tensor(kernel, "i2", i2, torch.int32, (nseg,), dev)
+    return nlay, n, nseg
 
 
 def sweep_lw_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
@@ -63,48 +76,14 @@ def sweep_lw_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
     if planck_hl.device.type == "cpu":
         return sweep_lw_plain(planck_hl, bg_od, od_fit, seg_of_wav,
                               surf_emissivity, surf_planck, i1, i2)
-    out = launch_lw("sweep_lw", "ecckd_sweep_lw", planck_hl, bg_od, od_fit,
-                    seg_of_wav, surf_emissivity, surf_planck, i1, i2)
+    nlay, _, _ = check_lw("sweep_lw", planck_hl, bg_od, od_fit, seg_of_wav,
+                          surf_emissivity, surf_planck, i1, i2)
+    out = launch_sweep("sweep_lw", "ecckd_sweep_lw",
+                       (planck_hl, bg_od, od_fit, seg_of_wav,
+                        surf_emissivity, surf_planck), i1, i2,
+                       2 * (nlay + 1), nlay)
     sweep_lw_intervals.launches += 1
-    return out
-
-
-def launch_lw(kernel, entry, planck_hl, bg_od, od_fit, seg_of_wav,
-              surf_emissivity, surf_planck, i1, i2):
-    """Check the arguments of a LW sweep kernel (K1, E1), launch the entry
-    point ``entry`` + ``_f64`` or ``_f32`` on the current stream and return
-    (flux_dn, flux_up)."""
-    if planck_hl.device.type != "cuda":
-        raise ValueError(f"{kernel}: no kernel for device {planck_hl.device}")
-    dtype = planck_hl.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{kernel}: unsupported dtype {dtype}")
-    nlev1, n = planck_hl.shape
-    nlay = nlev1 - 1
-    nseg = i1.shape[0]
-    dev = planck_hl.device
-    _check(kernel, "planck_hl", planck_hl, dtype, (nlev1, n), dev)
-    _check(kernel, "bg_od", bg_od, dtype, (nlay, n), dev)
-    _check(kernel, "od_fit", od_fit, dtype, (nlay, nseg), dev)
-    _check(kernel, "seg_of_wav", seg_of_wav, torch.int32, (n,), dev)
-    _check(kernel, "surf_emissivity", surf_emissivity, dtype, (n,), dev)
-    _check(kernel, "surf_planck", surf_planck, dtype, (n,), dev)
-    _check(kernel, "i1", i1, torch.int32, (nseg,), dev)
-    _check(kernel, "i2", i2, torch.int32, (nseg,), dev)
-    lib = _build.library()
-    nblocks = -(-n // lib.ecckd_chunk_size())
-    out = torch.empty((2 * nlev1, nseg), dtype=dtype, device=dev)
-    partial = torch.empty(max(1, nblocks * 2 * nlev1 * nseg), dtype=dtype,
-                          device=dev)
-    fn = getattr(lib, entry + ("_f64" if dtype == torch.float64 else "_f32"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planck_hl.data_ptr(), bg_od.data_ptr(), od_fit.data_ptr(),
-                 seg_of_wav.data_ptr(), surf_emissivity.data_ptr(),
-                 surf_planck.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), nlay, n, nseg, stream)
-    _build.check(err, kernel)
-    return out[:nlev1], out[nlev1:]
+    return out[:nlay + 1], out[nlay + 1:]
 
 
 sweep_lw_intervals.launches = 0

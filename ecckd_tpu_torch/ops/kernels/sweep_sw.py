@@ -3,7 +3,8 @@
 Wrapper of ``csrc/sweep_sw.cu`` (CUDA C++ for sm_90a), which replaces the
 Pallas TPU kernel ``ecckd_tpu/ops/pallas/sweep_sw.py``.  For tensors on the
 CPU the wrapper runs the plain version :func:`sweep_sw_plain`; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the kernel (:func:`.interval_stream.launch_sweep`) or
+raises.
 """
 
 from __future__ import annotations
@@ -11,8 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..rt_sw import rt_sw_bb_intervals
-from . import _build
-from .sweep_lw import _check
+from .interval_stream import check_tensor, launch_sweep
 
 
 def sweep_sw_plain(ssi, bg_od, od_fit, seg_of_wav, i1, i2, cos_sza, albedo,
@@ -56,6 +56,9 @@ def sweep_sw_intervals(ssi, bg_od, od_fit, seg_of_wav, i1, i2, cos_sza,
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sweep_sw: unsupported dtype {dtype}")
     nlay, n = bg_od.shape
+    if nlay < 1:
+        raise ValueError(f"sweep_sw: {nlay} layers; the kernel takes 1 or "
+                         "more")
     nlev1 = nlay + 1
     nseg = i1.shape[0]
     dev = ssi.device
@@ -67,22 +70,11 @@ def sweep_sw_intervals(ssi, bg_od, od_fit, seg_of_wav, i1, i2, cos_sza,
             ("seg_of_wav", seg_of_wav, torch.int32, (n,)),
             ("i1", i1, torch.int32, (nseg,)), ("i2", i2, torch.int32, (nseg,)),
             ("albedo", albedo, dtype, (n,))):
-        _check("sweep_sw", name, t, want_dtype, shape, dev)
-    lib = _build.library()
-    nblocks = -(-n // lib.ecckd_chunk_size())
-    nrows = (2 if with_upwelling else 1) * nlev1
-    out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-    partial = torch.empty(max(1, nblocks * nrows * nseg), dtype=dtype,
-                          device=dev)
-    fn = (lib.ecckd_sweep_sw_f64 if dtype == torch.float64
-          else lib.ecckd_sweep_sw_f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ssi.data_ptr(), bg_od.data_ptr(), od_fit.data_ptr(),
-                 seg_of_wav.data_ptr(), albedo.data_ptr(), i1.data_ptr(),
-                 i2.data_ptr(), partial.data_ptr(), out.data_ptr(), nlay, n,
-                 nseg, float(cos_sza), int(bool(with_upwelling)), stream)
-    _build.check(err, "sweep_sw")
+        check_tensor("sweep_sw", name, t, want_dtype, shape, dev)
+    out = launch_sweep("sweep_sw", "ecckd_sweep_sw",
+                       (ssi, bg_od, od_fit, seg_of_wav, albedo), i1, i2,
+                       (2 if with_upwelling else 1) * nlev1, nlay,
+                       (float(cos_sza), int(bool(with_upwelling))))
     sweep_sw_intervals.launches += 1
     sweep_sw_intervals.upwelling_launches += bool(with_upwelling)
     if not with_upwelling:

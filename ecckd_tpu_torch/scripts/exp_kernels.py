@@ -41,6 +41,7 @@ from ..ops.kernels import (fused_interval_sum, fused_sums_lw_intervals,
                            sweep_lw_intervals, sweep_lw_scan_intervals)
 from ..ops.planck import planck_function
 from ..ops.segments import part_of
+from ..tools.common import resolve_device
 
 VARIANTS = ("sweep-v0", "sweep-scan", "isum-pallas")
 NLAY = 50
@@ -115,10 +116,7 @@ def main(variants=VARIANTS, device="cuda", dtype=torch.float32,
          nwav=1 << 20, iters=20, out=print):
     """Run the variants and print one line each; return the inputs and,
     per variant, its outputs, its reference's, the error and the times."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device=cuda requested but no CUDA device is "
-                           "available (pass device=cpu to run on the CPU)")
+    device = resolve_device(device)
     unknown = set(variants) - set(VARIANTS)
     if unknown:
         raise ValueError(f"unknown variants {sorted(unknown)}; choose from "

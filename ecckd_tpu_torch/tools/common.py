@@ -70,6 +70,18 @@ def read_string_list(cfg: Config, key: str) -> List[str]:
     return out
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a :class:`torch.device`.  The tools and their array
+    cores compute on the card unless asked for the CPU: asking for CUDA
+    without a card raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} requested but no CUDA "
+                           "device is available (pass device=\"cpu\" to run "
+                           "on the CPU)")
+    return dev
+
+
 def setup(cfg: Optional[Config] = None) -> Tuple[torch.device, torch.dtype]:
     """(device, dtype) of a tool run, from the ``device`` key (default
     ``cuda``) and the ``precision`` key (``float64`` by default, as the
@@ -88,10 +100,7 @@ def setup(cfg: Optional[Config] = None) -> Tuple[torch.device, torch.dtype]:
     if precision not in _DTYPES:
         raise ValueError(f"precision={precision!r} not understood; choose "
                          f"from {sorted(_DTYPES)}")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device=cuda requested but no CUDA device is "
-                           "available (pass device=cpu to run on the CPU)")
+    dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev, _DTYPES[precision]

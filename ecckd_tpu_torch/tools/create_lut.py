@@ -30,7 +30,8 @@ from ..models import CkdModel, ConcDependence, GasData
 from ..ops.average import average_od_to_gpoints, od_to_molar_abs
 from ..ops.planck import planck_function
 from ..ops.segments import gpoint_onehot
-from .common import find_file, read_string_list, setup, tool_prologue
+from .common import (find_file, read_string_list, resolve_device, setup,
+                     tool_prologue)
 
 _CONC_DEPENDENCE = {
     "none": ConcDependence.NONE,
@@ -207,7 +208,7 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
                     gases: Sequence[LutGas],
                     averaging_method="transmission", temperature_stride=1,
                     base_wavenumber_boundary=(), wavenumber_hr=None,
-                    device="cpu", dtype=torch.float64, history="",
+                    device="cuda", dtype=torch.float64, history="",
                     config="", solar: Optional[SolarSpectrum] = None,
                     solar_irradiance=None) -> CkdModel:
     """Array-level create_lut: the CkdModel of the given g-points.
@@ -217,7 +218,9 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
     (the g-point file's wavenumbers) is needed only for a base split.
     With ``solar`` the averages are SSI-weighted on a 50 cm-1 interval
     grid; with ``solar_irradiance`` too (per g-point, from a SW g-point
-    file) the model is shortwave."""
+    file) the model is shortwave.  The averages run on ``device``, the
+    card unless ``device="cpu"`` (raises without one)."""
+    device = resolve_device(device)
     g_point = np.asarray(g_point, np.int64)
     band_wn1 = np.asarray(band_wn1, np.float64)
     band_wn2 = np.asarray(band_wn2, np.float64)

@@ -37,7 +37,8 @@ from ..ops.rt_lw import rt_lw
 from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
-from .common import find_file, read_string_list, setup, tool_prologue
+from .common import (find_file, read_string_list, resolve_device, setup,
+                     tool_prologue)
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
@@ -545,7 +546,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
 def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
                        tolerance_tolerance=0.02, max_iterations=60,
                        averaging_method="linear", flux_weight=0.02,
-                       min_pressure=0.0, block_wav=1 << 20, device="cpu",
+                       min_pressure=0.0, block_wav=1 << 20, device="cuda",
                        dtype=torch.float64, ssi=None,
                        cloud: Optional[CloudInput] = None,
                        max_no_rayleigh_wavenumber=10000.0,
@@ -557,7 +558,9 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
     order, the search is shortwave: costs of the direct beam (reflected
     below ``max_no_rayleigh_wavenumber``), SSI weights, the cloud
     pseudo-gas if ``cloud`` is given, and the solar irradiance of each
-    merged g-point in the result."""
+    merged g-point in the result.  The candidate costs run on ``device``,
+    the card unless ``device="cpu"`` (raises without one)."""
+    device = resolve_device(device)
     hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
     sw = None
     if ssi is not None:

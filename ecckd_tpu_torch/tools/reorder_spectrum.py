@@ -27,7 +27,7 @@ from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from .common import find_file, setup, tool_prologue
+from .common import find_file, resolve_device, setup, tool_prologue
 
 
 def _sorting_kernel(pressure_hl, wavenumber, d_wavenumber, od,
@@ -92,14 +92,16 @@ def _sw_sorting_kernel(pressure_hl, od, threshold_optical_depth=0.5):
 
 def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
                              optical_depth, threshold_optical_depth=0.5,
-                             block_wav=1 << 20, device="cpu",
+                             block_wav=1 << 20, device="cuda",
                              dtype=torch.float64, do_sw=False):
     """LW (or, with ``do_sw``, SW) sorting variable per wavenumber,
-    computed blockwise on ``device``.
+    computed blockwise on ``device`` (the card unless ``device="cpu"``;
+    raises without one).
 
     ``optical_depth`` is a dense (nlay, nwav) array or anything with
     ``iter_blocks(block_wav)`` (the JAX package's ProfileBlocks).  Returns
     (sorting_variable, column_optical_depth) as float64 numpy arrays."""
+    device = resolve_device(device)
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                      device=device)
     p_hl = as_t(pressure_hl)
@@ -131,15 +133,18 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
 
 def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
                  band1=None, band2=None, threshold_optical_depth=0.5,
-                 block_wav=1 << 20, device="cpu", dtype=torch.float64,
+                 block_wav=1 << 20, device="cuda", dtype=torch.float64,
                  do_sw=False):
-    """Array-level reorder_spectrum: the order-file fields as a dict.
+    """Array-level reorder_spectrum: the order-file fields as a dict,
+    computed on ``device`` (the card unless ``device="cpu"``; raises
+    without one).
 
     ``do_sw`` selects the shortwave sorting variable.  ``band1``/``band2``
     are the band wavenumber bounds; None treats the whole spectrum as one
     band.  Returns ``wavenumber1_band``,
     ``wavenumber2_band`` (clamped to the spectrum), ``band_number``,
     ``rank``, ``column_optical_depth`` and ``sorting_variable``."""
+    device = resolve_device(device)
     wavenumber = np.asarray(wavenumber)
     d_wavenumber = np.asarray(d_wavenumber)
     nwav = len(wavenumber)

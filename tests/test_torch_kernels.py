@@ -1,6 +1,6 @@
 """Kernels K1 (LW sweep), K2 (SW sweep), K3 (fused interval sum), E1 (LW
 sweep by scans across layers) and E2 (fused LW fit and truth sums) of
-ecckd_tpu_torch.
+ecckd_tpu_torch, and the device default of the array cores.
 
 This file imports no jax, so its card tests run on a machine without it:
 ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
@@ -207,21 +207,21 @@ def test_row_table_cache():
                      100) is not first
 
 
-def _sums_from_table(rows, tab, n, nseg):
+def _sums_from_table(rows, tab, n, nseg, chunk=CHUNK):
     """Plain reading of an interval table: per entry, the row sums over the
     entry's interval within its chunk into its slot; per column, its slots
     added in order."""
-    nchunks = -(-n // CHUNK)
+    nchunks = -(-n // chunk)
     t = tab.table
     chunk_ptr = t[:nchunks + 1]
     entry = t[nchunks + 1:nchunks + 1 + 3 * tab.nentries].reshape(-1, 3)
     col = t[nchunks + 1 + 3 * tab.nentries:].reshape(-1, 2)
     assert len(col) == nseg and chunk_ptr[-1] == tab.nentries
-    slots = torch.full((tab.nslots, rows.shape[0]), float("nan"),
+    slots = torch.full((tab.nentries, rows.shape[0]), float("nan"),
                        dtype=rows.dtype)
     for c in range(nchunks):
         for lo, hi, slot in entry[chunk_ptr[c]:chunk_ptr[c + 1]]:
-            a, b = max(lo, c * CHUNK), min(hi, (c + 1) * CHUNK - 1)
+            a, b = max(lo, c * chunk), min(hi, (c + 1) * chunk - 1)
             assert a <= b
             slots[slot] = rows[:, a:b + 1].sum(dim=1)
     out = torch.zeros((rows.shape[0], nseg), dtype=rows.dtype)
@@ -231,7 +231,7 @@ def _sums_from_table(rows, tab, n, nseg):
     return out
 
 
-@pytest.mark.parametrize("i1,i2", [
+_TABLE_LAYOUTS = [
     # front-padded [0, 0] bucket columns, a shared boundary index
     ([0, 0, 0, 0, 100, 2047, 5000], [0, 0, 0, 99, 2047, 4999, 9999]),
     # repeats out of order, overlaps, an empty and a reversed interval
@@ -240,7 +240,10 @@ def _sums_from_table(rows, tab, n, nseg):
     ([-40, 9990, 0, -7], [10, 20000, 9999, -1]),
     # more intervals in one chunk than a block takes per pass
     (list(range(0, 80)), list(range(0, 80))),
-])
+]
+
+
+@pytest.mark.parametrize("i1,i2", _TABLE_LAYOUTS)
 def test_interval_table_layout(i1, i2):
     """The interval table (each distinct clamped interval once, a slot
     per interval and chunk, a column gather) gives every column its own
@@ -253,7 +256,7 @@ def test_interval_table_layout(i1, i2):
     lo = np.maximum(np.asarray(i1), 0)
     hi = np.minimum(np.asarray(i2), n - 1)
     distinct = {(a, b) for a, b in zip(lo, hi) if a <= b}
-    assert tab.nslots == sum(b // CHUNK - a // CHUNK + 1
+    assert tab.nentries == sum(b // CHUNK - a // CHUNK + 1
                              for a, b in distinct)
     got = _sums_from_table(rows, tab, n, len(i1))
     want = interval_sum_fused([part_of(rows)], n,
@@ -261,6 +264,44 @@ def test_interval_table_layout(i1, i2):
                               torch.tensor(i2, dtype=torch.int32))
     assert torch.equal(got, want)    # integer-valued: exact in any order
     assert 1 <= tab.cmax <= MAX_ENTRIES
+
+
+# The sweeps' strips in float64 and float32 (ecckd_sweep_strip_size(8)
+# and (4) of the library)
+STRIPS = (128, 256)
+STRIP = 256
+
+
+@pytest.mark.parametrize("i1,i2", _TABLE_LAYOUTS + [
+    # single-wavenumber intervals, 40 of them in one strip, beside a long
+    # one over every strip
+    (list(range(300, 340)) + [0], list(range(300, 340)) + [9999]),
+    # the main path's equipartition-like layout (built in the test)
+    ("cube", "cube"),
+])
+@pytest.mark.parametrize("strip", STRIPS)
+def test_strip_table_layout(i1, i2, strip):
+    """The sweeps' interval table, at strip granularity: every column gets
+    its own interval's sums in the original order, with any number of
+    entries in one strip and one slot per (interval, strip)."""
+    n = 10000
+    if i1 == "cube":
+        i1, i2 = (b.tolist() for b in _cube_bounds(n))
+    rows = torch.from_numpy(np.random.default_rng(6).integers(
+        -50, 50, (4, n)).astype(np.float64))
+    tab = interval_table(i1, i2, n, strip)
+    lo = np.maximum(np.asarray(i1), 0)
+    hi = np.minimum(np.asarray(i2), n - 1)
+    distinct = {(a, b) for a, b in zip(lo, hi) if a <= b}
+    assert tab.nentries == sum(b // strip - a // strip + 1
+                             for a, b in distinct)
+    nstrips = -(-n // strip)
+    assert len(tab.table) == nstrips + 1 + 3 * tab.nentries + 2 * len(i1)
+    got = _sums_from_table(rows, tab, n, len(i1), strip)
+    want = interval_sum_fused([part_of(rows)], n,
+                              torch.tensor(i1, dtype=torch.int32),
+                              torch.tensor(i2, dtype=torch.int32))
+    assert torch.equal(got, want)    # integer-valued: exact in any order
 
 
 def test_interval_table_kept_per_bounds():
@@ -280,6 +321,27 @@ def test_interval_table_kept_per_bounds():
     changed = device_table(i1, i2, 10000, i1.device)
     assert np.array_equal(changed[1].table, interval_table(
         [0, 0, 5, 4000], [0, 4, 3999, 5000], 10000).table)
+
+
+def test_interval_table_kept_per_n_and_chunk():
+    """One pair of bound tensors keeps a table per (n, chunk): K3's chunks
+    and the sweeps' strips side by side, each built once and equal to the
+    table built from the values."""
+    i1, i2 = device_bounds([0, 0, 5, 4000], [0, 4, 3999, 9999], "cpu")
+    sums = device_table(i1, i2, 10000, i1.device)
+    strips = device_table(i1, i2, 10000, i1.device, STRIP)
+    assert strips is not sums
+    assert device_table(i1, i2, 10000, i1.device, STRIP) is strips
+    assert device_table(i1, i2, 10000, i1.device, CHUNK) is sums
+    for (table_d, tab), chunk in ((sums, CHUNK), (strips, STRIP)):
+        want = interval_table([0, 0, 5, 4000], [0, 4, 3999, 9999], 10000,
+                              chunk)
+        assert np.array_equal(tab.table, want.table)
+        assert torch.equal(table_d, torch.from_numpy(want.table))
+    other_n = device_table(i1, i2, 9000, i1.device, STRIP)
+    assert other_n is not strips
+    assert np.array_equal(other_n[1].table, interval_table(
+        [0, 0, 5, 4000], [0, 4, 3999, 9999], 9000, STRIP).table)
 
 
 # Interval layouts of the main path: front-padded [0, 0] bucket columns,
@@ -431,6 +493,89 @@ def test_interval_sums_batch_independent(cuda, dtype):
         assert torch.equal(alone, whole[:, j:j + 1])
 
 
+def _sweep_layout(name, n):
+    """(i1, i2) of the sweep card cases: the interval-sum layouts, and
+    single-wavenumber intervals (more than 32 entries in one strip) beside
+    one interval over the whole axis."""
+    if name == "single":
+        return list(range(300, 340)) + [0], list(range(300, 340)) + [n - 1]
+    return _sum_layout(name, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("layout,n", [(lay, 70001) for lay in _SUM_LAYOUTS]
+                         + [("nseg_256", 3001), ("single", 70001)])
+def test_sweeps_match_plain(cuda, layout, n, misaligned, dtype):
+    """K1 and K2 (with and without the reflected beam) against their plain
+    versions: 1, 64 and 256 intervals (256 on a small n: many entries a
+    strip), intervals over more than ten chunks, bounds outside [0, n - 1],
+    more than 32 intervals in one strip; a ragged last strip, ranks outside
+    every fit and, optionally, operands whose rows are not 16-byte
+    aligned."""
+    i1, i2 = _sweep_layout(layout, n)
+    args = list(_to(_inputs(12, n, i1, i2, seed=31, seg_outside=77), cuda,
+                    dtype))
+    if misaligned:
+        for k in (0, 1, 4, 5):
+            args[k] = _misaligned(args[k])
+    reset_launch_counts()
+    got = sweep_lw_intervals(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, sweep_lw_plain(*args)):
+        assert g.shape == w.shape
+        assert _row_err(g, w) <= RTOL[dtype]
+    for with_up in (True, False):
+        sw = _sw_args(args, with_up)
+        got = sweep_sw_intervals(*sw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, sweep_sw_plain(*sw)):
+            assert g.shape == w.shape
+            assert _row_err(g, w) <= RTOL[dtype]
+    assert sweep_lw_intervals.launches == 1
+    assert sweep_sw_intervals.launches == 2
+    assert sweep_sw_intervals.upwelling_launches == 1
+
+
+def _permuted(args, perm):
+    """The sweep operands with the intervals in the order ``perm``: the
+    bounds and od_fit's columns permuted, seg remapped to the new columns
+    (ranks outside every fit stay outside)."""
+    planck, bg_od, od_fit, seg, emis, surfp, i1, i2 = args
+    perm = torch.as_tensor(perm, device=i1.device)
+    new_of = torch.empty_like(perm)
+    new_of[perm] = torch.arange(len(perm), device=i1.device)
+    inside = (seg >= 0) & (seg < len(perm))
+    seg = torch.where(inside, new_of[seg.long().clamp(0, len(perm) - 1)]
+                      .to(torch.int32), seg)
+    return (planck, bg_od, od_fit[:, perm].contiguous(), seg, emis, surfp,
+            i1[perm].contiguous(), i2[perm].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sweeps_repeat_and_permute(cuda, dtype):
+    """K1's and K2's sums of an interval do not depend on the other
+    intervals of the launch: a repeat gives the same bits, and a launch
+    with the intervals permuted (od_fit's columns with them, seg
+    remapped) the same bits permuted."""
+    n = 300001
+    i1, i2 = _cube_bounds(n)
+    args = _to(_inputs(12, n, i1, i2, seed=8, seg_outside=31), cuda, dtype)
+    perm = np.random.default_rng(2).permutation(len(i1))
+    moved = _permuted(args, perm)
+    runs = [lambda a: sweep_lw_intervals(*a)] + [
+        lambda a, up=up: sweep_sw_intervals(*_sw_args(a, up))
+        for up in (True, False)]
+    for run in runs:
+        first = run(args)
+        for a, b in zip(first, run(args)):
+            assert torch.equal(a, b)
+        for a, b in zip(first, run(moved)):
+            assert torch.equal(a[:, perm], b)
+
+
 def _sum_args(args, seed):
     """E2's arguments beside the sweep operands of :func:`_inputs`."""
     planck, bg_od, _, _, emis, surfp, i1, i2 = args
@@ -529,6 +674,30 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
         bad[k] = bad_arg
         with pytest.raises(err):
             sweep_sw_intervals(*bad)
+
+
+@pytest.mark.parametrize("core", ["reorder_spectrum.reorder_core",
+                                  "reorder_spectrum.compute_sorting_variable",
+                                  "find_g_points.find_g_points_core",
+                                  "create_lut.create_lut_core"])
+def test_cores_default_to_the_card(core):
+    """The array cores, like the file tools, compute on the card unless
+    asked for the CPU; without a card they raise, naming device="cpu",
+    and never fall back."""
+    import importlib
+    import inspect
+    module, name = core.split(".")
+    fn = getattr(importlib.import_module(f"ecckd_tpu_torch.tools.{module}"),
+                 name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        from ecckd_tpu_torch.tools.common import resolve_device
+        assert resolve_device() == torch.device("cuda")
+    else:
+        nargs = sum(p.default is inspect.Parameter.empty
+                    for p in inspect.signature(fn).parameters.values())
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            fn(*([None] * nargs))
 
 
 def test_setup_device_and_dtype():
@@ -700,7 +869,8 @@ def test_chain_core_float32_on_card(cuda):
     assert np.all(np.isfinite(k)) and np.all(k > 0)
 
 
-@pytest.mark.parametrize("variant", ["no-reduce", "no-scan"])
+@pytest.mark.parametrize("variant", ["no-reduce", "no-scan", "no-fit",
+                                     "no-common", "lanes-swap"])
 def test_ablation_edits_apply(variant):
     """Every line the ablation script edits is in its source exactly
     once, so each variant switches off what it names."""

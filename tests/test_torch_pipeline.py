@@ -265,15 +265,17 @@ wav = np.linspace(1.0, 2000.0, nwav)
 dwav = np.gradient(wav)
 k = 1e-4 + 50.0 / (1.0 + ((wav - 700.0) / 40.0) ** 2)
 od = np.diff(p)[:, None] * 1e-5 * k[None, :]
-o = reorder_core(p, wav, dwav, od)
+o = reorder_core(p, wav, dwav, od, device="cpu")
 g = find_g_points_core([GasInput("h2o", o["rank"], o["band_number"],
     o["wavenumber1_band"], o["wavenumber2_band"], o["sorting_variable"],
-    p, t, wav, dwav, od)], 1.0, averaging_method="transmission")
+    p, t, wav, dwav, od)], 1.0, averaging_method="transmission",
+    device="cpu")
 sp = SimpleNamespace(pressure_hl=p, temperature_hl=t, wavenumber=wav,
                      d_wavenumber=dwav, optical_depth=od, ncol=1)
 m = create_lut_core(g.g_point, g.wavenumber1_band, g.wavenumber2_band,
                        g.band_number, [LutGas("h2o", ConcDependence.LINEAR,
-                                              [lambda i: (sp, 0.01)])])
+                                              [lambda i: (sp, 0.01)])],
+                       device="cpu")
 assert np.all(np.isfinite(m.single_gas_data[0].molar_abs))
 print("jax" in sys.modules)
 """

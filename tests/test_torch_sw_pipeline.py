@@ -321,18 +321,18 @@ od = np.diff(p)[:, None] * 1e-5 * k[None, :]
 ssi = np.exp(-((wav - 20000.0) / 15000.0) ** 2)
 ssi *= 1361.0 / ssi.sum()
 o = reorder_core(p, wav, dwav, od, [250.0, 10000.0], [10000.0, 50000.0],
-                 do_sw=True)
+                 do_sw=True, device="cpu")
 g = find_g_points_core([GasInput("h2o", o["rank"], o["band_number"],
     o["wavenumber1_band"], o["wavenumber2_band"], o["sorting_variable"],
     p, t, wav, dwav, od)], 0.5, averaging_method="total-transmission",
-    ssi=ssi)
+    ssi=ssi, device="cpu")
 sp = SimpleNamespace(pressure_hl=p, temperature_hl=t, wavenumber=wav,
                      d_wavenumber=dwav, optical_depth=od, ncol=1)
 m = create_lut_core(g.g_point, g.wavenumber1_band, g.wavenumber2_band,
                     g.band_number, [LutGas("h2o", ConcDependence.LINEAR,
                                            [lambda i: (sp, 0.01)])],
                     solar=SolarSpectrum(ssi, 1361.0, wav),
-                    solar_irradiance=g.solar_irradiance)
+                    solar_irradiance=g.solar_irradiance, device="cpu")
 assert m.is_sw() and np.all(np.isfinite(m.rayleigh_molar_scat))
 assert np.all(np.isfinite(m.single_gas_data[0].molar_abs))
 print("jax" in sys.modules)
