@@ -7,21 +7,26 @@ use.
 
 Phases (every failed check raises; nothing is caught):
   1. the card's name and power limit;
-  2. the kernel build, with each kernel's registers and spills (none in
-     the sweeps K1 and K2);
+  2. the kernel build, the normal library and the checked one (index
+     checks that trap, ``_build.checked()``) from one parallel nvcc run,
+     with each kernel's registers and spills (none in the sweeps K1, K2
+     and E1 of the normal build);
   3. kernels K1 (LW sweep), K2 (SW sweep, with and without the reflected
      beam) and K3 (fused interval sum, on the LW fit and truth rows and on
      the 255 rows of the SW total-transmission launch) against their plain
      PyTorch versions at pipeline shapes (2^20 wavenumbers, 50 layers, 64
      intervals), float64 and float32, with CUDA-event times; K3's sums of
      each interval bit-identical launched alone, in a launch with the
-     intervals reversed and the pads removed, and in a repeat; K1's and
-     K2's sums bit-identical in a repeat and, permuted, in a launch with
-     the intervals permuted;
+     intervals reversed and the pads removed, and in a repeat; K1's,
+     K2's and E1's sums bit-identical in a repeat and, permuted, in a
+     launch with the intervals permuted;
   4. the small test rigs (1024 wavenumbers, 15 layers; LW, and SW over two
      bands) through the array cores of reorder -> find_g_points ->
      create_lut on the CPU (plain versions) and twice on the card
-     (kernels): identical g-point ranks, bit-identical repeats;
+     (kernels): identical g-point ranks, bit-identical repeats; and the
+     card's float32 chain held against its float64 chain
+     (``ecckd_tpu_torch.scripts.precision``, as tests/test_torch_precision.py
+     does on the CPU);
   5. the LW main path at full size: a CKDMIP-shaped synthetic LW spectrum
      of 2^20 wavenumbers x 50 layers (5 temperature profiles) through the
      same cores, with the checks of tests/test_find_g_points.py and the
@@ -38,7 +43,10 @@ Phases (every failed check raises; nothing is caught):
      2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
      layers) against K1, E2 (fused LW fit and truth sums) bit-identical
      to K3, both against their plain versions, with kernel, plain,
-     yardstick and library times.
+     yardstick and library times;
+  9. phases 3, 4 and 8 again on the checked build: any index outside its
+     range traps and fails the run; the kernel times beside the normal
+     build's.
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -270,14 +278,18 @@ def kernel_resources(build_log):
 def phase_build():
     from ecckd_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
-    log(f"[build] {time.perf_counter() - t0:.2f} s (nvcc "
-        f"{_build.build_seconds:.2f} s)")
-    for name, regs, spill in kernel_resources(_build.build_log):
-        log(f"[build]   {name[:72]}: {regs} registers, {spill} bytes "
-            "spilled")
-        if "sweep_lw_kernel" in name or "sweep_sw_kernel" in name:
-            check(spill == 0, f"no spills in {name}")
+    _build.prebuild()
+    log(f"[build] normal and checked libraries {time.perf_counter() - t0:.2f}"
+        f" s (nvcc {_build.build_seconds:.2f} s)")
+    for tag, build_log in (("", _build.build_log),
+                           ("checked ", _build.checked_build_log)):
+        for name, regs, spill in kernel_resources(build_log):
+            log(f"[build]   {tag}{name[:72]}: {regs} registers, {spill} "
+                "bytes spilled")
+            if not tag and any(k in name for k in (
+                    "sweep_lw_kernel", "sweep_sw_kernel",
+                    "sweep_lw_scan_kernel")):
+                check(spill == 0, f"no spills in {name}")
 
 
 def sw_total_trans_parts(ssi, bg_od, od, h, fd, up):
@@ -329,10 +341,11 @@ def permute_intervals(od_fit, seg, i1, i2, perm):
 
 
 def check_sweeps_batch_independent(sweep_args, sw_args, tag):
-    """K1's and K2's sums of every interval do not depend on the other
-    intervals of the launch: a repeat gives the same bits, and a launch
-    with the intervals permuted the same bits permuted."""
+    """K1's, K2's and E1's sums of every interval do not depend on the
+    other intervals of the launch: a repeat gives the same bits, and a
+    launch with the intervals permuted the same bits permuted."""
     from ecckd_tpu_torch.ops.kernels import (sweep_lw_intervals,
+                                             sweep_lw_scan_intervals,
                                              sweep_sw_intervals)
     perm = np.random.default_rng(3).permutation(len(sweep_args[6]))
     lw = list(sweep_args)
@@ -342,6 +355,8 @@ def check_sweeps_batch_independent(sweep_args, sw_args, tag):
     sw[2], sw[3], sw[4], sw[5] = permute_intervals(*sw_args[2:6], perm)
     for name, run, moved, args in (
             ("sweep_lw", lambda a: sweep_lw_intervals(*a), lw, sweep_args),
+            ("sweep_lw_scan", lambda a: sweep_lw_scan_intervals(*a), lw,
+             sweep_args),
             ("sweep_sw_up", lambda a: sweep_sw_intervals(*a, True), sw,
              sw_args),
             ("sweep_sw_noup", lambda a: sweep_sw_intervals(*a, False), sw,
@@ -353,14 +368,16 @@ def check_sweeps_batch_independent(sweep_args, sw_args, tag):
                   for a, b in zip(first, run(moved))),
               f"{name} {tag}: permuted launch gives the permuted sums "
               "bit for bit")
-    log(f"[kernels] sweep_lw, sweep_sw_up, sweep_sw_noup {tag}: repeats "
+    log(f"[kernels] sweep_lw, sweep_lw_scan, sweep_sw_up, sweep_sw_noup "
+        f"{tag}: repeats "
         f"and a launch with the {len(perm)} intervals permuted "
         "bit-identical")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, checked=False):
     """K1, K2 (both variants) and K3 (LW and SW rows) against their plain
-    versions at pipeline shapes."""
+    versions at pipeline shapes; ``checked``: on the checked build, with
+    the kernels' times only."""
     from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                              sweep_lw_intervals,
                                              sweep_lw_plain,
@@ -427,14 +444,20 @@ def phase_kernels(dev):
             rel = max(e[0] for e in errs)
             absolute = max(e[1] for e in errs)
             ms = cuda_ms(kern, 10)
-            plain_ms = cuda_ms(plain, 3)
+            plain_ms = None if checked else cuda_ms(plain, 3)
             log(f"[kernels] {name} {tag}: max rel err (normwise per row) "
                 f"{rel:.3e} (bar {BARS[dtype]:.0e}), max abs err "
-                f"{absolute:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                f"{absolute:.3e}; kernel {ms:.3f} ms, plain {plain_ms} "
                 f"ms (CUDA events)")
             check(rel <= BARS[dtype], f"{name} {tag} within {BARS[dtype]}")
             res[name] = dict(max_abs_err=absolute, max_rel_err=rel, ms=ms,
                              plain_ms=plain_ms, library_ms=None)
+        check_batch_independent(parts, n, sweep_args[6], sweep_args[7], 6,
+                                f"LW rows {tag}")
+        check_sweeps_batch_independent(sweep_args, sw_args, tag)
+        out[tag] = res
+        if checked:
+            continue
         rows = torch.cat([m * w_num, w_num, h, fdt[None], sweep_args[4][None]])
         res["interval_sum"]["library_ms"] = membership_matmul_ms(
             rows, sweep_args[6], sweep_args[7])
@@ -444,9 +467,6 @@ def phase_kernels(dev):
         res["interval_sum_sw"]["library_ms"] = membership_matmul_ms(
             rows, sweep_args[6], sweep_args[7])
         del rows
-        check_batch_independent(parts, n, sweep_args[6], sweep_args[7], 6,
-                                f"LW rows {tag}")
-        check_sweeps_batch_independent(sweep_args, sw_args, tag)
         nseg = len(i1)
         es = torch.finfo(dtype).bits // 8
         # K2 with the reflected beam: ssi, bg_od, od_fit, albedo and the two
@@ -471,7 +491,6 @@ def phase_kernels(dev):
             log(f"[kernels] {name} {tag}: bound {b:.4f} ms ({by}), kernel "
                 f"{res[name]['ms'] / b:.1f}x the bound; library "
                 f"{res[name]['library_ms']}")
-        out[tag] = res
         del sw_parts
     return out
 
@@ -554,7 +573,9 @@ def check_same_runs(cpu, gpu, gpu2, what):
 def phase_small_rig():
     """The 1024 x 15 h2o rigs of tests/synth.py on the CPU and the card:
     LW as tests/test_torch_pipeline.py, SW over two bands as
-    tests/test_torch_sw_pipeline.py."""
+    tests/test_torch_sw_pipeline.py; then the card's float32 chain against
+    its float64 chain on both."""
+    from ecckd_tpu_torch.scripts import precision
     profiles = lw_spectrum(1024, 15, 5, seed=3, nlines=60, width=(2, 30),
                            wav_max=2000.0)
     check_same_runs(*(run_chain(profiles, dev, 0.4)
@@ -563,6 +584,12 @@ def phase_small_rig():
     check_same_runs(*(run_chain(profiles, dev, 0.5, ssi=ssi,
                                 bands=SW_BANDS)
                       for dev in ("cpu", "cuda", "cuda")), "SW two bands")
+    for kind in ("lw", "sw"):
+        lev, fail = precision.compare(kind, "cuda")
+        log(f"[small rig] float32 against float64 on the card, {kind}: "
+            f"{json.dumps(lev)}")
+        check(not fail, f"float32 chain within PARITY.md's bounds ({kind}):"
+              f" {fail}")
 
 
 def chain_checks(what, gp, model, nwav, ncol, nlay, hr_tol):
@@ -736,12 +763,14 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
                 f"ms {e.count:6d} x  {e.key[:90]}")
 
 
-def phase_experiment():
+def phase_experiment(checked=False):
     """The experiment path: ``exp_kernels.main`` with all three variants
     in float32 (the script's type) and float64, counts set to 0 just
     before and read just after; then E1 against K1 on the same inputs,
-    E1 and E2 against their plain versions, and their yardsticks."""
-    from ecckd_tpu_torch.ops.kernels import (KERNELS, fused_sums_lw_plain,
+    E1 and E2 against their plain versions, and their yardsticks
+    (``checked``: not the plain versions' and library times)."""
+    from ecckd_tpu_torch.ops.kernels import (KERNELS, _build,
+                                             fused_sums_lw_plain,
                                              reset_launch_counts,
                                              sweep_lw_scan_plain)
     from ecckd_tpu_torch.scripts import exp_kernels
@@ -752,6 +781,11 @@ def phase_experiment():
                                  iters=20, out=say) for dt in dtypes}
     launches = {k.__name__: k.launches for k in KERNELS}
     say(f"launches {launches}")
+    lib = _build.library()
+    say(f"E1 warps resident on one SM at {exp_kernels.NLAY} layers "
+        "(occupancy calculator): f64 "
+        f"{lib.ecckd_scan_resident_warps(exp_kernels.NLAY, 8)}, f32 "
+        f"{lib.ecckd_scan_resident_warps(exp_kernels.NLAY, 4)}")
     for name in ("sweep_lw_scan_intervals", "fused_sums_lw_intervals"):
         check(launches[name] > 0, f"{name} launched on the experiment path")
     out = {}
@@ -791,8 +825,15 @@ def phase_experiment():
                              max_abs_err=max(e[1] for e in errs),
                              ms=(scan if name == "sweep_lw_scan"
                                  else isum)["ms"],
-                             plain_ms=cuda_ms(lambda: plain(*args), 3),
+                             plain_ms=(None if checked else
+                                       cuda_ms(lambda: plain(*args), 3)),
                              yardstick_ms=yard, library_ms=None)
+            if checked:
+                say(f"{name} {tag} on the checked build: max rel err vs "
+                    f"plain {rel:.3e}, kernel {res[name]['ms']:.4f} ms")
+        out[tag] = res
+        if checked:
+            continue
         n, nlay = NWAV_FULL, exp_kernels.NLAY
         w_num = d["planck_hl"][1:]
         rows = torch.cat([d["metric"] * w_num, w_num, d["hr"],
@@ -813,9 +854,30 @@ def phase_experiment():
                 f"{'K1' if name == 'sweep_lw_scan' else 'K3'} "
                 f"{r['yardstick_ms']:.4f} ms, library {r['library_ms']} ms, "
                 f"bound {b:.4f} ms ({by}) (CUDA events)")
-        out[tag] = res
         del run, d, sweep_args, sums_args, scan, isum
     return out, launches
+
+
+def phase_checked(dev, times, exp):
+    """Phases 3, 4 and 8 again with the wrappers on the checked build: an
+    index outside its range traps, which fails the run at the next
+    synchronisation, and a host check that fails raises.  Logs each
+    kernel's time beside the normal build's."""
+    from ecckd_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    with _build.checked():
+        checked_times = phase_kernels(dev, checked=True)
+        phase_small_rig()
+        checked_exp = phase_experiment(checked=True)[0]
+        torch.cuda.synchronize()
+    for tag in ("f64", "f32"):
+        for normal, checked in ((times, checked_times), (exp, checked_exp)):
+            for name, res in checked[tag].items():
+                log(f"[checked] {name} {tag}: {res['ms']:.4f} ms on the "
+                    f"checked build, {normal[tag][name]['ms']:.4f} ms on the "
+                    f"normal one ({res['ms'] / normal[tag][name]['ms']:.2f}x)")
+    log(f"[checked] phases 3, 4 and 8 passed on the checked build in "
+        f"{time.perf_counter() - t0:.1f} s: no index out of range")
 
 
 def kernel_entry(name, source, replaces, launches, res):
@@ -848,6 +910,7 @@ def main() -> int:
     phase_profile(lw_profiles, sw_profiles, ssi)
     del lw_profiles, sw_profiles
     exp, exp_launches = phase_experiment()
+    phase_checked(dev, times, exp)
     check(not jax_modules(), f"no module of jax or ecckd_tpu imported "
           f"(found {jax_modules()[:5]})")
     f64 = times["f64"]

@@ -1,6 +1,6 @@
 // Streaming interval-sum core of kernels K3 (interval_sum.cu) and E2
-// (fused_sums_lw.cu), and the per-strip sums of the sweeps K1 (sweep_lw.cu)
-// and K2 (sweep_sw.cu), at the end of this file.
+// (fused_sums_lw.cu), and the per-strip sums of the sweeps K1 (sweep_lw.cu),
+// K2 (sweep_sw.cu) and E1 (sweep_lw_scan.cu), at the end of this file.
 //
 // Serves the ports of the Pallas TPU kernels ecckd_tpu/ops/segments.py
 // (_interval_sum_fused_pallas) and scripts/exp_kernels.py
@@ -34,8 +34,8 @@
 //    (one barrier after the streaming loop) and writes one value per
 //    (row, slot).  sum_slots adds the slots of each interval, one warp per
 //    (row, column): lane l adds slots l, l + 32, ... in order, then the
-//    shuffle tree.  The sweeps K1 and K2 use the same table, partials and
-//    sum_slots at strip granularity (the last section).
+//    shuffle tree.  The sweeps K1, K2 and E1 use the same table, partials
+//    and sum_slots at strip granularity (the last section).
 // So the sum of interval j depends only on the data, on the clamped
 // (i1[j], i2[j]) and on the fixed grid, never on the other intervals of
 // the launch, and there are no floating-point atomics: repeats are
@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "checked.cuh"
 
 // 0 in the ablation's copy: the masked sums and shuffle trees are skipped
 // and the loaded values only kept alive (scripts/ablate_kernels.py).
@@ -152,6 +154,21 @@ struct Table {
   const int* col;
 };
 
+// The checked build's checks of a chunk's (or strip's) entry range
+// [e0, e1) and of entry e's (lo, hi, slot).
+__device__ __forceinline__ void check_entries(const char* kernel, int e0,
+                                              int e1, int nentries) {
+  ECCKD_CHECK_RANGE(kernel, "first entry of the chunk", e0, 0, nentries);
+  ECCKD_CHECK_RANGE(kernel, "end of the chunk's entries", e1, e0, nentries);
+}
+
+__device__ __forceinline__ void check_entry(const char* kernel, int lo, int hi,
+                                            int slot, int n, int nentries) {
+  ECCKD_CHECK_RANGE(kernel, "entry lo", lo, 0, n - 1);
+  ECCKD_CHECK_RANGE(kernel, "entry hi", hi, lo, n - 1);
+  ECCKD_CHECK_INDEX(kernel, "entry slot", slot, nentries);
+}
+
 __host__ __device__ inline Table table_of(const int* t, int n, int nentries) {
   const int nchunks = (n + kChunk - 1) / kChunk;
   return Table{t, t + nchunks + 1, t + nchunks + 1 + 3 * nentries};
@@ -177,13 +194,14 @@ inline size_t smem_bytes(int rows_per_block, int cmax, size_t extra) {
 template <typename T, typename Src>
 __global__ void __launch_bounds__(kThreads)
 stream_kernel(Src src, const int* __restrict__ table, int nentries,
-              T* __restrict__ partial, int n, int cmax) {
+              T* __restrict__ partial, int nrows, int n, int cmax) {
   constexpr int R = Src::kRows;
   constexpr int RPB = Src::kRows * Src::kItems;
   extern __shared__ __align__(16) unsigned char smem[];
   const Table tab = table_of(table, n, nentries);
   const int g = blockIdx.x, c = blockIdx.y;
   const int e0 = tab.chunk_ptr[c], e1 = tab.chunk_ptr[c + 1];
+  check_entries("stream_kernel", e0, e1, nentries);
   if (e0 == e1) return;  // the same in every thread of the block
   int* s_ent = reinterpret_cast<int*>(smem);          // [cmax][3]
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_ent + 3 * cmax);
@@ -202,6 +220,11 @@ stream_kernel(Src src, const int* __restrict__ table, int nentries,
     for (int k = threadIdx.x; k < 3 * np; k += kThreads)
       s_ent[k] = tab.entry[3 * p0 + k];
     __syncthreads();
+#if defined(ECCKD_CHECKED) && ECCKD_CHECKED
+    for (int e = threadIdx.x; e < np; e += kThreads)
+      check_entry("stream_kernel", s_ent[3 * e], s_ent[3 * e + 1],
+                  s_ent[3 * e + 2], n, nentries);
+#endif
     // The entries that meet this warp's strip
     const bool meets = lane < np && s_ent[3 * lane] <= s0 + kStrip - 1
                        && s_ent[3 * lane + 1] >= s0;
@@ -219,6 +242,7 @@ stream_kernel(Src src, const int* __restrict__ table, int nentries,
 #if ECCKD_STREAM_REDUCE
           for (unsigned m = mask; m; m &= m - 1) {
             const int e = __ffs(m) - 1;
+            ECCKD_CHECK_INDEX("stream_kernel", "s_ent entry", e, cmax);
             const T s = strip_sum<T>(v[q], s0, s_ent[3 * e],
                                      s_ent[3 * e + 1]);
             if (lane == 0) out[e] = s;
@@ -238,6 +262,7 @@ stream_kernel(Src src, const int* __restrict__ table, int nentries,
       const int rr = k / np, e = k - rr * np;
       const int r = src.row(item0 + rr / R, rr % R);
       if (r < 0) continue;
+      ECCKD_CHECK_INDEX("stream_kernel", "partial row", r, nrows);
       T s = T(0);
       for (int w = 0; w < kStripWarps; ++w)
         if ((s_mask[w] >> e) & 1u) s += s_sum[((size_t)w * RPB + rr) * cmax + e];
@@ -258,6 +283,10 @@ sum_slots(const T* __restrict__ partial, T* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const int r = (int)(pair / nseg), j = (int)(pair - (long long)r * nseg);
   const int first = col[2 * j], count = col[2 * j + 1];
+  ECCKD_CHECK_RANGE("sum_slots", "first slot of a column", first, 0, nslots);
+  ECCKD_CHECK_RANGE("sum_slots", "last slot of a column", first + count,
+                    first, nslots);
+  ECCKD_CHECK_INDEX("sum_slots", "output row", r, nrows);
   const T* p = partial + (size_t)r * nslots + first;
   T s = T(0);
   for (int k = lane; k < count; k += 32) s += p[k];
@@ -299,7 +328,7 @@ inline int launch(const Src& src, int ngroups, const int* table, int nentries,
   }
   if (nentries > 0 && ngroups > 0) {
     stream_kernel<T, Src><<<dim3(ngroups, nchunks), kThreads, smem, stream>>>(
-        src, table, nentries, partial, n, cmax);
+        src, table, nentries, partial, nrows, n, cmax);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -309,22 +338,24 @@ inline int launch(const Src& src, int ngroups, const int* table, int nentries,
 
 // ---------------------------------------------------------------- sweeps
 //
-// K1 and K2 run a recurrence across the layers of each wavenumber and need
-// every level of it summed over the intervals.  One warp takes a strip of
-// kSweepStrip<T> wavenumbers, each lane kSweepPer<T> slots of it in the
-// layout of slot_offset (two 16-byte loads a row: 4 doubles, 8 floats), so
-// a lane runs kSweepPer<T> independent recurrences in registers:
-// instruction-level parallelism where one chain would wait.  The interval
-// table is built at strip granularity (interval_stream.py with chunk =
-// kSweepStrip<T>): per strip the entries (lo, hi, slot) that meet it,
-// any number of them, and one partial slot per (interval, strip).  At each
-// level the warp takes the masked strip sum of every entry of its strip and
-// lane 0 writes it to the entry's slot, so no warp waits for another and
-// there is no block barrier at all; a strip that no interval meets is not
-// swept.  sum_slots then adds the slots of each interval in strip order,
-// as for K3.  An interval's sums depend only on the data, on its clamped
-// bounds and on the fixed strips, never on the other intervals of the
-// launch, and there are no floating-point atomics.
+// K1, K2 and E1 run a recurrence across the layers of each wavenumber and
+// need every level of it summed over the intervals.  One warp takes a
+// strip of wavenumbers: for K1 and K2 kSweepStrip<T>, each lane
+// kSweepPer<T> slots of it in the layout of slot_offset (two 16-byte loads
+// a row: 4 doubles, 8 floats), so a lane runs kSweepPer<T> independent
+// recurrences in registers: instruction-level parallelism where one chain
+// would wait.  The interval table is built at strip granularity
+// (interval_stream.py with chunk = the strip): per strip the entries (lo,
+// hi, slot) that meet it, any number of them, and one partial slot per
+// (interval, strip).  At each level the warp takes the masked strip sum of
+// every entry of its strip and lane 0 writes it to the entry's slot
+// (StripSums::put); E1 sums the levels of its strip from shared memory
+// instead (StripSums::put_rows).  No warp waits for another and there is
+// no block barrier at all; a strip that no interval meets is not swept.
+// sum_slots then adds the slots of each interval in strip order, as for
+// K3.  An interval's sums depend only on the data, on its clamped bounds
+// and on the fixed strips, never on the other intervals of the launch, and
+// there are no floating-point atomics.
 
 // Wavenumbers per lane, and blocks of kSweepThreads an SM must hold (so
 // at most 65536 / (kSweepThreads * blocks) registers a thread: 128 for
@@ -346,6 +377,7 @@ template <typename T>
 struct FitColumns {
   int col[kSweepPer<T>];
   int common;
+  int nseg;
 };
 
 template <typename T>
@@ -353,6 +385,7 @@ __device__ __forceinline__ FitColumns<T> fit_columns(
     const int* __restrict__ seg, int s0, int n, int nseg) {
   const int lane = threadIdx.x & 31;
   FitColumns<T> f;
+  f.nseg = nseg;
 #pragma unroll
   for (int k = 0; k < kSweepPer<T>; ++k) {
     const int w = s0 + slot_offset<T>(k, lane);
@@ -374,42 +407,51 @@ __device__ __forceinline__ void add_fit(T (&od)[kSweepPer<T>],
                                         const T* __restrict__ fit_row,
                                         const FitColumns<T>& f) {
   if (f.common >= 0) {
+    ECCKD_CHECK_INDEX("sweep", "seg column", f.common, f.nseg);
     const T x = __ldg(fit_row + f.common);
 #pragma unroll
     for (int k = 0; k < kSweepPer<T>; ++k) od[k] += x;
   } else if (f.common == -2) {
 #pragma unroll
-    for (int k = 0; k < kSweepPer<T>; ++k)
+    for (int k = 0; k < kSweepPer<T>; ++k) {
+      ECCKD_CHECK_RANGE("sweep", "seg column", f.col[k], -1, f.nseg - 1);
       if (f.col[k] >= 0) od[k] += __ldg(fit_row + f.col[k]);
+    }
   }
 }
 
 // The interval table of a sweep launch is the table of a K3 launch with
-// strips of kSweepStrip<T> in place of chunks (interval_stream.py, chunk =
-// kSweepStrip<T>); partials are [nrows][nentries] as for K3.
-template <typename T>
+// strips of ``Strip`` wavenumbers in place of chunks (interval_stream.py,
+// chunk = Strip); partials are [nrows][nentries] as for K3.  Warp w of
+// block b takes strip b * (warps per block) + w.
+template <typename T, int Strip = kSweepStrip<T>>
 struct StripSums {
   const int* entry;
   T* partial;
   int nentries;
+  int nrows;
+  int n;
   int e0, e1;          // this strip's entries
   int s0;              // the strip's first wavenumber
   int lo, hi, slot;    // entry e0 + lane, for lane < e1 - e0
 
   // Bind this warp to its strip; false, in every lane, when the strip is
   // past n or no interval meets it.
-  __device__ bool init(const int* __restrict__ table, int n, T* partial_,
-                       int nentries_) {
-    const int nstrips = (n + kSweepStrip<T> - 1) / kSweepStrip<T>;
-    const int strip = blockIdx.x * kSweepWarps + (threadIdx.x >> 5);
+  __device__ bool init(const int* __restrict__ table, int n_, T* partial_,
+                       int nentries_, int nrows_) {
+    const int nstrips = (n_ + Strip - 1) / Strip;
+    const int strip = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
     if (strip >= nstrips) return false;
     e0 = __ldg(table + strip);
     e1 = __ldg(table + strip + 1);
+    check_entries("sweep strips", e0, e1, nentries_);
     if (e0 == e1) return false;
     entry = table + nstrips + 1;
     partial = partial_;
     nentries = nentries_;
-    s0 = strip * kSweepStrip<T>;
+    nrows = nrows_;
+    n = n_;
+    s0 = strip * Strip;
     lo = hi = slot = 0;
     fetch(e0, lo, hi, slot);
     return true;
@@ -422,12 +464,16 @@ struct StripSums {
       a = __ldg(entry + 3 * e);
       b = __ldg(entry + 3 * e + 1);
       k = __ldg(entry + 3 * e + 2);
+      check_entry("sweep strips", a, b, k, n, nentries);
     }
   }
 
-  // Level ``r`` of the strip, this lane's values ``v``: its sum over each
-  // entry into the entry's slot.  Every lane of the warp calls it.
+  // Level ``r`` of the strip, this lane's values ``v`` in the layout of
+  // slot_offset (K1, K2): its sum over each entry into the entry's slot.
+  // Every lane of the warp calls it.
   __device__ void put(const T (&v)[kSweepPer<T>], int r) const {
+    static_assert(Strip == kSweepStrip<T>, "a lane's slots fill the strip");
+    ECCKD_CHECK_INDEX("sweep strips", "partial row", r, nrows);
     T* row = partial + (size_t)r * nentries;
     for (int g0 = e0; g0 < e1; g0 += 32) {
       int a = lo, b = hi, k = slot;
@@ -449,24 +495,73 @@ struct StripSums {
       }
     }
   }
+
+  // Every level of the strip from ``buf`` (level r's value at wavenumber
+  // s0 + c at buf[r * ld + c], c < Strip), summed over each entry into the
+  // entry's slot (E1): lane l takes the levels l, l + 32, ..., each summed
+  // in wavenumber order.  Every lane of the warp calls it, after the
+  // warp's writes to ``buf``.
+  __device__ void put_rows(const T* buf, int ld) const {
+    const int lane = threadIdx.x & 31;
+    for (int g0 = e0; g0 < e1; g0 += 32) {
+      int a = lo, b = hi, k = slot;
+      if (g0 != e0) fetch(g0, a, b, k);
+      const int count = min(32, e1 - g0);
+      for (int q = 0; q < count; ++q) {
+        const int qa = max(__shfl_sync(0xffffffffu, a, q) - s0, 0);
+        const int qb = min(__shfl_sync(0xffffffffu, b, q) - s0, Strip - 1);
+        const int qk = __shfl_sync(0xffffffffu, k, q);
+        for (int r = lane; r < nrows; r += 32) {
+#if ECCKD_STREAM_REDUCE
+          T s = T(0);
+          for (int c = qa; c <= qb; ++c) s += buf[r * ld + c];
+          partial[(size_t)r * nentries + qk] = s;
+#else
+          const T s = buf[r * ld + qa];
+          if (s == T(1.2345e-30)) partial[(size_t)r * nentries + qk] = s;
+#endif
+        }
+      }
+    }
+  }
 };
 
 // Launch a sweep kernel, kernel<<<...>>>(args..., table, partial,
-// nentries, n), over the strips, then sum_slots into ``out`` (nrows, nseg).
+// nentries, nrows, n), over the strips of ``Strip`` wavenumbers, a warp
+// each, ``warps`` warps and ``smem`` bytes of dynamic shared memory a
+// block, then sum_slots into ``out`` (nrows, nseg).
+template <typename T, int Strip, typename Kernel, typename... Args>
+inline int launch_strips(Kernel kernel, int warps, size_t smem,
+                         const int* table, int nentries, T* partial, T* out,
+                         int nrows, int n, int nseg, cudaStream_t stream,
+                         Args... args) {
+  const int nstrips = (n + Strip - 1) / Strip;
+  const int nblocks = (nstrips + warps - 1) / warps;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (nentries > 0 && nblocks > 0) {
+    kernel<<<nblocks, 32 * warps, smem, stream>>>(args..., table, partial,
+                                                  nentries, nrows, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_sum_slots<T>(partial, out, table, nentries, nrows, n, nseg,
+                             Strip, stream);
+}
+
+// K1 and K2: strips of kSweepStrip<T>, kSweepWarps warps a block.
 template <typename T, typename Kernel, typename... Args>
 inline int launch_sweep(Kernel kernel, const int* table, int nentries,
                         T* partial, T* out, int nrows, int n, int nseg,
                         cudaStream_t stream, Args... args) {
-  const int nstrips = (n + kSweepStrip<T> - 1) / kSweepStrip<T>;
-  const int nblocks = (nstrips + kSweepWarps - 1) / kSweepWarps;
-  if (nentries > 0 && nblocks > 0) {
-    kernel<<<nblocks, kSweepThreads, 0, stream>>>(args..., table, partial,
-                                                  nentries, n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch_sum_slots<T>(partial, out, table, nentries, nrows, n, nseg,
-                             kSweepStrip<T>, stream);
+  return launch_strips<T, kSweepStrip<T>>(kernel, kSweepWarps, 0, table,
+                                          nentries, partial, out, nrows, n,
+                                          nseg, stream, args...);
 }
 
 }  // namespace stream

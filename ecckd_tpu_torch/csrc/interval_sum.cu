@@ -46,6 +46,7 @@ struct PartRows {
   const RowDesc* desc;
   const T* const* extra;
   int nrows;
+  int nextra;          // entries of ``extra``, for the checked build
   int r0;
   RowDesc* s_desc;
 
@@ -55,8 +56,10 @@ struct PartRows {
     s_desc = reinterpret_cast<RowDesc*>(smem);
     r0 = item0 * kRows;
     for (int k = threadIdx.x; k < kRows * kItems && r0 + k < nrows;
-         k += blockDim.x)
+         k += blockDim.x) {
+      ECCKD_CHECK_INDEX("interval_sum", "descriptor", r0 + k, nrows);
       s_desc[k] = desc[r0 + k];
+    }
   }
 
   __device__ int row(int item, int q) const {
@@ -75,6 +78,8 @@ struct PartRows {
         for (int k = 0; k < P; ++k) v[q][k] = T(0);
         continue;
       }
+      ECCKD_CHECK_INDEX("interval_sum", "descriptor in shared memory",
+                        r - r0, kRows * kItems);
       const RowDesc d = s_desc[r - r0];
       stream::load_strip<T>(reinterpret_cast<const T*>(d.a), s0, n, v[q]);
       if (d.b) {
@@ -84,6 +89,8 @@ struct PartRows {
         for (int k = 0; k < P; ++k) v[q][k] = stream::mul(v[q][k], t[k]);
       }
       for (int x = 0; x < d.nextra; ++x) {
+        ECCKD_CHECK_INDEX("interval_sum", "extra operand", d.extra_at + x,
+                          nextra);
         T t[P];
         stream::load_strip<T>(extra[d.extra_at + x], s0, n, t);
 #pragma unroll
@@ -96,10 +103,10 @@ struct PartRows {
 template <typename T>
 int interval_sum(const void* desc, const void* extra, const void* table,
                  void* partial, void* out, int nrows, int n, int nseg,
-                 int nentries, int cmax, void* stream) {
+                 int nentries, int cmax, int nextra, void* stream) {
   using Src = PartRows<T>;
   Src src{static_cast<const RowDesc*>(desc),
-          static_cast<const T* const*>(extra), nrows, 0, nullptr};
+          static_cast<const T* const*>(extra), nrows, nextra, 0, nullptr};
   const int rows_per_block = Src::kRows * Src::kItems;
   const int ngroups = (nrows + rows_per_block - 1) / rows_per_block;
   return stream::launch<T>(src, ngroups, static_cast<const int*>(table),
@@ -117,25 +124,26 @@ int ecckd_stream_chunk_size() { return ecckd::stream::kChunk; }
 
 // ``desc`` is a device array of one RowDesc per output row (three 8-byte
 // words: operand row addresses a, b and extra_at | nextra << 32), ``extra``
-// a device array of further operand row addresses; ``table`` the int32
-// interval table of interval_stream.cuh with ``nentries`` entries and at
-// most ``cmax`` (1 to 32) per block pass.  ``out`` is
+// a device array of ``nextra`` further operand row addresses (its length
+// is read by the checked build only); ``table`` the int32 interval table
+// of interval_stream.cuh with ``nentries`` entries and at most ``cmax`` (1
+// to 32) per block pass.  ``out`` is
 // (nrows, nseg); ``partial`` scratch of (slots in the table) * nrows
 // values.  Returns the CUDA error code of the launches (0 on success).
 int ecckd_interval_sum_f64(const void* desc, const void* extra,
                            const void* table, void* partial, void* out,
                            int nrows, int n, int nseg, int nentries, int cmax,
-                           void* stream) {
+                           int nextra, void* stream) {
   return ecckd::interval_sum<double>(desc, extra, table, partial, out, nrows,
-                                     n, nseg, nentries, cmax, stream);
+                                     n, nseg, nentries, cmax, nextra, stream);
 }
 
 int ecckd_interval_sum_f32(const void* desc, const void* extra,
                            const void* table, void* partial, void* out,
                            int nrows, int n, int nseg, int nentries, int cmax,
-                           void* stream) {
+                           int nextra, void* stream) {
   return ecckd::interval_sum<float>(desc, extra, table, partial, out, nrows,
-                                    n, nseg, nentries, cmax, stream);
+                                    n, nseg, nentries, cmax, nextra, stream);
 }
 
 }  // extern "C"

@@ -46,11 +46,11 @@ sweep_lw_kernel(const T* __restrict__ planck, const T* __restrict__ bg_od,
                 const T* __restrict__ od_fit, const int* __restrict__ seg,
                 const T* __restrict__ emis, const T* __restrict__ surf_planck,
                 int nlay, int nseg, const int* __restrict__ table,
-                T* __restrict__ partial, int nentries, int n) {
+                T* __restrict__ partial, int nentries, int nrows, int n) {
   using namespace stream;
   constexpr int P = kSweepPer<T>;
   StripSums<T> sums;
-  if (!sums.init(table, n, partial, nentries)) return;
+  if (!sums.init(table, n, partial, nentries, nrows)) return;
   const int s0 = sums.s0;
   const int nlev = nlay + 1;
   const FitColumns<T> fit = fit_columns<T>(seg, s0, n, nseg);

@@ -47,11 +47,11 @@ sweep_sw_kernel(const T* __restrict__ ssi, const T* __restrict__ bg_od,
                 const T* __restrict__ od_fit, const int* __restrict__ seg,
                 const T* __restrict__ albedo, int nlay, int nseg, T cos_sza,
                 T minus_sec, int with_up, const int* __restrict__ table,
-                T* __restrict__ partial, int nentries, int n) {
+                T* __restrict__ partial, int nentries, int nrows, int n) {
   using namespace stream;
   constexpr int P = kSweepPer<T>;
   StripSums<T> sums;
-  if (!sums.init(table, n, partial, nentries)) return;
+  if (!sums.init(table, n, partial, nentries, nrows)) return;
   const int s0 = sums.s0;
   const int nlev = nlay + 1;
   const FitColumns<T> fit = fit_columns<T>(seg, s0, n, nseg);

@@ -14,7 +14,8 @@ import torch
 
 from ..segments import interval_sum_fused
 from . import _build
-from .interval_stream import check_library, check_tensor, device_table
+from .interval_stream import (check_buffers, check_library, check_tensor,
+                              device_table)
 
 
 def fused_sums_lw_plain(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
@@ -73,6 +74,9 @@ def fused_sums_lw_intervals(metric, planck_hl, hr, fd_surf, fu_toa, i1, i2):
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
         partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
                               device=dev)
+        if _build.checked_mode():
+            check_buffers("fused_sums_lw", table_d, tab, nseg, nrows,
+                          partial, out)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(metric.data_ptr(), planck_hl.data_ptr(), hr.data_ptr(),
                  fd_surf.data_ptr(), fu_toa.data_ptr(), table_d.data_ptr(),

@@ -1,10 +1,11 @@
-"""Host side of the streaming interval-sum core of kernels K3, E2, K1, K2.
+"""Host side of the streaming interval-sum core of kernels K3, E2, K1, K2, E1.
 
 ``csrc/interval_stream.cuh`` cuts the wavenumber axis into fixed chunks:
-:data:`CHUNK` wavenumbers for the sums K3 and E2, a strip of
-``ecckd_sweep_strip_size(bytes)`` wavenumbers (one warp's) for the sweeps
-K1 and K2.  Per launch, :func:`interval_table` resolves the intervals into
-the int32 table the core reads: each distinct clamped interval once
+:data:`CHUNK` wavenumbers for the sums K3 and E2, a strip (one warp's) of
+``ecckd_sweep_strip_size(bytes)`` wavenumbers for the sweeps K1 and K2 and
+of ``ecckd_scan_strip_size()`` for E1.  Per launch,
+:func:`interval_table` resolves the intervals into the int32 table the
+core reads: each distinct clamped interval once
 (repeated columns such as the front-padded ``[0, 0]`` bucket columns share
 its sums), the list of intervals that meet each chunk, one entry and one
 partial slot per (interval, chunk) pair, and per output column its first
@@ -13,7 +14,15 @@ bound tensors are kept, by wavenumber count and chunk, while the tensors
 are unchanged, and :func:`device_bounds` uploads host bounds with their
 host copy, so a launch reads no bounds back from the card: ``costs()``
 hands K3 and the sweep the same tensors, and each builds its table once
-per probe.  :func:`launch_sweep` is the host launcher of both sweeps.
+per probe.  :func:`launch_sweep` is the host launcher of the sweeps.
+
+A write that bypasses a tensor's version counter (through ``.data``, a
+numpy or DLPack alias, or a raw pointer) is not seen, and the table of the
+old values is kept: its sums are those of the old intervals, but every
+index in it stays within the buffers a launch allocates from it, since the
+kept table is taken only for tensors of its own storage and length.  Inside
+``_build.checked()`` each kept table is held to the bounds' current values,
+read back, and every table and launch buffer is validated before use.
 """
 
 from __future__ import annotations
@@ -84,6 +93,45 @@ def interval_table(i1, i2, n: int, chunk: int = CHUNK) -> IntervalTable:
     return IntervalTable(table.astype(np.int32), len(entry), cmax)
 
 
+def invalid(what):
+    """The error of a failed host check of the checked build."""
+    return RuntimeError(f"checked build: {what}")
+
+
+def validate_table(tab: IntervalTable, n: int, chunk: int, nseg: int):
+    """Raise unless ``tab`` is a well-formed interval table of ``nseg``
+    columns over ``n`` wavenumbers in chunks of ``chunk``: chunk pointers
+    from 0, non-decreasing, to ``nentries``; each entry's lo <= hi within
+    [0, n - 1], meeting its chunk, its slot < nentries; each column's slots
+    within [0, nentries]; the length of all of it."""
+    t = np.asarray(tab.table, np.int64)
+    nchunks = -(-n // chunk)
+    ne = tab.nentries
+    if len(t) != nchunks + 1 + 3 * ne + 2 * nseg:
+        raise invalid(f"table of {len(t)} ints; {nchunks} chunks, {ne} "
+                       f"entries and {nseg} columns need "
+                       f"{nchunks + 1 + 3 * ne + 2 * nseg}")
+    ptr = t[:nchunks + 1]
+    if ptr[0] != 0 or ptr[-1] != ne or np.any(np.diff(ptr) < 0):
+        raise invalid("chunk pointers not non-decreasing from 0 to the "
+                       f"{ne} entries")
+    entry = t[nchunks + 1:nchunks + 1 + 3 * ne].reshape(-1, 3)
+    c = np.repeat(np.arange(nchunks), np.diff(ptr))
+    lo, hi, slot = entry.T
+    bad = ((lo < 0) | (hi < lo) | (hi > n - 1) | (slot < 0) | (slot >= ne)
+           | (lo > (c + 1) * chunk - 1) | (hi < c * chunk))
+    if np.any(bad):
+        k = int(np.argmax(bad))
+        raise invalid(f"entry {k} (lo {lo[k]}, hi {hi[k]}, slot "
+                       f"{slot[k]}) of chunk {c[k]} out of range")
+    first, count = t[nchunks + 1 + 3 * ne:].reshape(-1, 2).T
+    bad = (first < 0) | (count < 0) | (first + count > ne)
+    if np.any(bad):
+        k = int(np.argmax(bad))
+        raise invalid(f"column {k}: slots {first[k]} + {count[k]} outside "
+                       f"the {ne} entries")
+
+
 class _Bounds:
     """Device bounds, the version counts they were seen at, their host
     copy and their tables by ``(n, chunk)``; holding the tensors keeps
@@ -91,8 +139,16 @@ class _Bounds:
 
     def __init__(self, i1, i2, host):
         self.i1, self.i2, self.host = i1, i2, host
-        self.versions = (i1._version, i2._version)
+        self.versions = _state(i1, i2)
         self.tables = {}
+
+
+def _state(i1, i2):
+    """What a kept table is taken for: the bounds' version counts, their
+    storage and their length (``.data`` assignment changes the last two
+    without counting a version)."""
+    return (i1._version, i2._version, i1.data_ptr(), i2.data_ptr(),
+            i1.numel(), i2.numel())
 
 
 _BOUNDS: "OrderedDict[int, _Bounds]" = OrderedDict()
@@ -126,17 +182,43 @@ def device_table(i1, i2, n: int, dev, chunk: int = CHUNK):
     back once."""
     entry = _BOUNDS.get(id(i1))
     if (entry is None or entry.i1 is not i1 or entry.i2 is not i2
-            or entry.versions != (i1._version, i2._version)):
+            or entry.versions != _state(i1, i2)):
         entry = _remember(i1, i2, None)
     else:
         _BOUNDS.move_to_end(id(i1))
+    checked = _build.checked_mode()
+    if checked and entry.host is not None:
+        now = (i1.cpu().numpy(), i2.cpu().numpy())
+        if not all(np.array_equal(a, b) for a, b in zip(now, entry.host)):
+            raise invalid("the bounds were written without counting a "
+                           "version (.data, an alias or a raw pointer) "
+                           "since their interval table was kept")
     key = (n, chunk)
     if key not in entry.tables:
         if entry.host is None:
             entry.host = (i1.cpu().numpy(), i2.cpu().numpy())
         tab = interval_table(*entry.host, n, chunk)
+        if checked:
+            validate_table(tab, n, chunk, i1.shape[0])
         entry.tables[key] = (torch.from_numpy(tab.table).to(dev), tab)
+    elif checked:
+        validate_table(entry.tables[key][1], n, chunk, i1.shape[0])
     return entry.tables[key]
+
+
+def check_buffers(kernel, table_d, tab, nseg, nrows, partial, out):
+    """The checked build's host check of a launch: the device table is
+    the validated one, the partials hold ``nrows`` rows of every entry's
+    slot and the output ``nrows`` rows of ``nseg`` columns."""
+    if table_d.numel() != len(tab.table) or table_d.dtype != torch.int32:
+        raise invalid(f"{kernel}: device table of {table_d.numel()} "
+                       f"{table_d.dtype}, host table of {len(tab.table)}")
+    if partial.numel() < nrows * tab.nentries:
+        raise invalid(f"{kernel}: {partial.numel()} partials for {nrows} "
+                       f"rows of {tab.nentries} slots")
+    if tuple(out.shape) != (nrows, nseg) or not out.is_contiguous():
+        raise invalid(f"{kernel}: output {tuple(out.shape)} for "
+                       f"({nrows}, {nseg})")
 
 
 def check_library(lib):
@@ -162,25 +244,29 @@ def check_tensor(kernel, name, t, dtype, shape, device):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def launch_sweep(kernel, entry, operands, i1, i2, nrows, nlay, extra=()):
-    """Launch the sweep K1 or K2, entry point ``entry`` + ``_f64`` or
+def launch_sweep(kernel, entry, operands, i1, i2, nrows, nlay, extra=(),
+                 strip=None):
+    """Launch the sweep K1, K2 or E1, entry point ``entry`` + ``_f64`` or
     ``_f32``, on the current stream: the tensors ``operands`` (checked by
-    the caller), the interval table of ``i1``, ``i2`` at the library's
-    strip (``ecckd_sweep_strip_size``: 128 wavenumbers in float64, 256 in
-    float32), the partials and the (nrows, nseg) output, the counts, then
-    ``extra``.  The first operand's last axis is the wavenumbers'.
+    the caller), the interval table of ``i1``, ``i2`` at ``strip``
+    wavenumbers (by default the library's ``ecckd_sweep_strip_size``: 128
+    in float64, 256 in float32), the partials and the (nrows, nseg)
+    output, the counts, then ``extra``.  The first operand's last axis is the wavenumbers'.
     Returns the output."""
     first = operands[0]
     dtype, dev = first.dtype, first.device
     n, nseg = first.shape[-1], i1.shape[0]
     lib = _build.library()
     fn = getattr(lib, entry + ("_f64" if dtype == torch.float64 else "_f32"))
+    if strip is None:
+        strip = lib.ecckd_sweep_strip_size(first.element_size())
     with torch.cuda.device(dev):
-        table_d, tab = device_table(
-            i1, i2, n, dev, lib.ecckd_sweep_strip_size(first.element_size()))
+        table_d, tab = device_table(i1, i2, n, dev, strip)
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
         partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
                               device=dev)
+        if _build.checked_mode():
+            check_buffers(kernel, table_d, tab, nseg, nrows, partial, out)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in operands), table_d.data_ptr(),
                  partial.data_ptr(), out.data_ptr(), nlay, n, nseg,

@@ -9,9 +9,12 @@ it launches the kernel or raises.
 The kernel reads one descriptor per output row (:func:`row_table`): the
 addresses of the operand rows whose product the row is.  The table depends
 only on the operands' addresses, shapes and dtype and on the parts'
-structure, so it is built and uploaded once per parts list and kept.  A
-launch adds the interval table of its bounds (:mod:`.interval_stream`),
-kept per bound tensors.
+structure, so it is built and uploaded once per parts list and kept.  The
+key holds all of that, so a kept table is right for any operands that
+match it, whatever became of those it was built for.  A launch adds the
+interval table of its bounds (:mod:`.interval_stream`), kept per bound
+tensors.  Inside ``_build.checked()`` the row table is validated against
+the operands at every launch.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 
 from ..segments import fused_groups, interval_sum_fused
 from . import _build
-from .interval_stream import check_library, device_table
+from .interval_stream import (check_buffers, check_library, device_table,
+                              invalid)
 
 
 class RowTable(NamedTuple):
@@ -78,6 +82,39 @@ def row_table(meta, unique, n: int) -> RowTable:
     while len(_ROW_TABLES) > _ROW_TABLES_KEPT:
         _ROW_TABLES.popitem(last=False)
     return table
+
+
+def validate_row_table(table: RowTable, unique, n: int, nrows: int):
+    """Raise unless ``table`` has ``nrows`` descriptors whose every operand
+    address is the start of a whole row of one of ``unique`` (the only
+    row of a broadcast operand), with its further operands inside
+    ``extra``, and the device copies are the host arrays' sizes."""
+    spans = [(a.data_ptr(), a.numel() * a.element_size(),
+              n * a.element_size()) for a in unique]
+
+    def row_ok(addr):
+        for start, size, row in spans:
+            off = int(addr) - start
+            if 0 <= off and off + row <= size and off % row == 0:
+                return True
+        return False
+
+    desc, extra = table.desc, table.extra
+    if desc.shape != (nrows, 3) or table.desc_d.numel() != 3 * nrows:
+        raise invalid(f"interval_sum: {desc.shape} descriptors for {nrows} "
+                      "rows")
+    if table.extra_d.numel() != len(extra) + 1:
+        raise invalid("interval_sum: device list of further operands of "
+                      f"{table.extra_d.numel()}, host list of {len(extra)}")
+    for r, (a, b, word) in enumerate(desc):
+        at, count = int(word) & 0xFFFFFFFF, int(word) >> 32
+        if at + count > len(extra):
+            raise invalid(f"interval_sum: row {r} takes further operands "
+                          f"{at} .. {at + count - 1} of {len(extra)}")
+        for addr in [a] + ([b] if b else []) + list(extra[at:at + count]):
+            if not row_ok(addr):
+                raise invalid(f"interval_sum: row {r} reads {int(addr):#x}, "
+                              "no row of an operand")
 
 
 def rows_from_table(table: RowTable, unique, n: int):
@@ -141,6 +178,9 @@ def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
                              f"int32 ({nseg},) tensor on {dev}")
     rows = row_table(meta, unique, n)
     nrows = rows.desc.shape[0]
+    checked = _build.checked_mode()
+    if checked:
+        validate_row_table(rows, unique, n, sum(r for _, r in meta))
     lib = _build.library()
     check_library(lib)
     with torch.cuda.device(dev):
@@ -148,12 +188,16 @@ def fused_interval_sum(parts, n: int, i1, i2, dtype=None):
         out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
         partial = torch.empty(max(1, tab.nentries * nrows), dtype=dtype,
                               device=dev)
+        if checked:
+            check_buffers("interval_sum", table_d, tab, nseg, nrows, partial,
+                          out)
         fn = (lib.ecckd_interval_sum_f64 if dtype == torch.float64
               else lib.ecckd_interval_sum_f32)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(rows.desc_d.data_ptr(), rows.extra_d.data_ptr(),
                  table_d.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                 nrows, n, nseg, tab.nentries, tab.cmax, stream)
+                 nrows, n, nseg, tab.nentries, tab.cmax, len(rows.extra),
+                 stream)
     _build.check(err, "interval_sum")
     fused_interval_sum.launches += 1
     return out

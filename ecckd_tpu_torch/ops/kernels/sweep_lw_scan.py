@@ -5,7 +5,9 @@ the Pallas TPU kernel ``scripts/exp_kernels.py:rt_lw_bb_intervals_scan``
 (body ``_sweep_scan_kernel``), the round-5 experiment that computes K1's
 function with the layer recurrences written as doubling scans.  For tensors
 on the CPU the wrapper runs the plain version :func:`sweep_lw_scan_plain`;
-for CUDA tensors it launches the kernel or raises.
+for CUDA tensors it launches the kernel (:func:`.interval_stream.
+launch_sweep`, on strips of ``ecckd_scan_strip_size()`` wavenumbers) or
+raises.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from ..rt_lw import _emissivity_factor_bb
 from ..segments import interval_sum_fused
 from . import _build
+from .interval_stream import launch_sweep
 from .sweep_lw import check_lw
 
 
@@ -95,29 +98,17 @@ def sweep_lw_scan_intervals(planck_hl, bg_od, od_fit, seg_of_wav,
     if planck_hl.device.type == "cpu":
         return sweep_lw_scan_plain(planck_hl, bg_od, od_fit, seg_of_wav,
                                    surf_emissivity, surf_planck, i1, i2)
-    nlay, n, nseg = check_lw("sweep_lw_scan", planck_hl, bg_od, od_fit,
-                             seg_of_wav, surf_emissivity, surf_planck, i1,
-                             i2)
+    nlay, _, _ = check_lw("sweep_lw_scan", planck_hl, bg_od, od_fit,
+                          seg_of_wav, surf_emissivity, surf_planck, i1, i2)
     lib = _build.library()
     most = lib.ecckd_scan_max_layers()
     if not 1 <= nlay <= most:
         raise ValueError(f"sweep_lw_scan: {nlay} layers; the kernel takes 1 "
                          f"to {most}")
-    dtype, dev = planck_hl.dtype, planck_hl.device
-    nrows = 2 * (nlay + 1)
-    nblocks = -(-n // lib.ecckd_chunk_size())
-    out = torch.empty((nrows, nseg), dtype=dtype, device=dev)
-    partial = torch.empty(max(1, nblocks * nrows * nseg), dtype=dtype,
-                          device=dev)
-    fn = (lib.ecckd_sweep_lw_scan_f64 if dtype == torch.float64
-          else lib.ecckd_sweep_lw_scan_f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(planck_hl.data_ptr(), bg_od.data_ptr(), od_fit.data_ptr(),
-                 seg_of_wav.data_ptr(), surf_emissivity.data_ptr(),
-                 surf_planck.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), nlay, n, nseg, stream)
-    _build.check(err, "sweep_lw_scan")
+    out = launch_sweep("sweep_lw_scan", "ecckd_sweep_lw_scan",
+                       (planck_hl, bg_od, od_fit, seg_of_wav, surf_emissivity,
+                        surf_planck), i1, i2, 2 * (nlay + 1), nlay,
+                       strip=lib.ecckd_scan_strip_size())
     sweep_lw_scan_intervals.launches += 1
     return out[:nlay + 1], out[nlay + 1:]
 

@@ -7,18 +7,18 @@ od scaled by 0.05, its surface Planck row as the solar irradiance and an
 albedo of 0.15) with parts of their work switched off.  Each variant is a copy of the
 package under ``build/ablate/<variant>/`` with a line of one or two CUDA
 sources edited, built and timed in a process of its own, in the order base,
-no-reduce, no-scan, no-fit, no-common, lanes-swap, base.  An edited kernel gives wrong
-sums: its times only count.
+no-reduce, no-scan, no-fit, no-common, lanes-swap, strip-32, strip-8,
+direct-loads, lpl-16, base.
+An edited kernel may give wrong sums: its times only count.
 
-  no-reduce  the per-interval warp sums do nothing: E1 still stages its
-             rows in the reducer of ``csrc/interval_reduce.cuh``
-             (``Reducer::reduce`` skips them); K3 and E2 still load and form
-             their rows, and K1 and K2 still sweep, on the streaming core of
-             ``csrc/interval_stream.cuh`` (``ECCKD_STREAM_REDUCE`` 0: no
-             masked sums, no shuffle trees; K3 and E2 still add and write
-             their warps' partials)
-  no-scan    E1 skips the scans of its wavenumbers: it still stages its
-             tiles and reduces them
+  no-reduce  the per-interval sums do nothing, on the streaming core of
+             ``csrc/interval_stream.cuh`` (``ECCKD_STREAM_REDUCE`` 0): K3
+             and E2 still load and form their rows, and K1, K2 and E1 still
+             sweep (no masked sums, no shuffle trees, no level sums of E1's
+             buffer; K3 and E2 still add and write their warps' partials)
+  no-scan    E1 composes no maps across the lanes of a wavenumber's group
+             (``kScanWidth`` 1): it still loads, forms each layer's map,
+             applies its own and sums the levels
   no-fit     K1 and K2 add no fitted od: the gather of od_fit through L1
              is gone (what staging od_fit in shared memory could save)
   no-common  K1 and K2 gather od_fit per wavenumber even where all of a
@@ -26,11 +26,24 @@ sums: its times only count.
   lanes-swap K1 and K2 sweep 8 wavenumbers a lane in float64 (up to 255
              registers a thread) and 4 in float32, in place of 4 (up to
              128 registers) and 8
+  strip-32   E1 takes strips of 32 wavenumbers, in place of 16: twice the
+             level buffer a warp, half the warps an SM holds
+  strip-8    E1 takes strips of 8 wavenumbers: half the level buffer, twice
+             the strips and their table entries
+  direct-loads
+             E1 stages nothing: each lane reads its layers of planck and
+             bg_od from device memory through L1 (a whole 32-byte sector
+             a layer row and step), the shared buffer only takes levels
+  lpl-16     E1 takes up to 16 layers a lane, in place of 8: at 50 layers
+             float32 takes 4 lanes a wavenumber (13 layers a lane, 8
+             wavenumbers a step) in place of 8 (7 layers, 4 wavenumbers)
 
-Usage: ``python -m ecckd_tpu_torch.scripts.ablate_kernels`` from the root
-of a checkout, on a machine with a CUDA card.  One JSON line per variant
-and dtype: the mean milliseconds (CUDA events, best of 3 runs of 20
-launches) of each kernel.
+Usage: ``python -m ecckd_tpu_torch.scripts.ablate_kernels [variant ...]``
+from the root of a checkout, on a machine with a CUDA card; named
+variants run between two base runs in place of all of them.  One JSON
+line per variant and dtype: the mean milliseconds (CUDA events, best of 3 runs of 20
+launches) of each kernel, and the warps of E1 one SM holds at 50 layers
+(occupancy calculator).
 """
 
 from __future__ import annotations
@@ -48,15 +61,11 @@ OUT = PKG.parent / "build" / "ablate"
 # variant: edits (source under csrc/, line as it is, line as edited)
 EDITS = {
     "no-reduce": (
-        ("interval_reduce.cuh",
-         "for (int p = warp; p < nrows_buf * count; p += kWarps) {",
-         "for (int p = warp; p < 0; p += kWarps) {"),
         ("interval_stream.cuh", "#define ECCKD_STREAM_REDUCE 1",
-         "#define ECCKD_STREAM_REDUCE 0")),
+         "#define ECCKD_STREAM_REDUCE 0"),),
     "no-scan": (
-        ("sweep_lw_scan.cu",
-         "for (int c = warp; c < width; c += kWarps) {",
-         "for (int c = warp; c < 0; c += kWarps) {"),),
+        ("sweep_lw_scan.cu", "constexpr int kScanWidth = G;",
+         "constexpr int kScanWidth = 1;"),),
     "no-fit": (
         ("interval_stream.cuh", "const T x = __ldg(fit_row + f.common);",
          "const T x = T(0);"),
@@ -78,9 +87,22 @@ EDITS = {
         ("interval_stream.cuh",
          "template <> constexpr int kSweepMinBlocks<double> = 4;",
          "template <> constexpr int kSweepMinBlocks<double> = 2;")),
+    "strip-32": (
+        ("sweep_lw_scan.cu", "constexpr int kScanStrip = 16;",
+         "constexpr int kScanStrip = 32;"),),
+    "strip-8": (
+        ("sweep_lw_scan.cu", "constexpr int kScanStrip = 16;",
+         "constexpr int kScanStrip = 8;"),),
+    "direct-loads": (
+        ("sweep_lw_scan.cu", "constexpr bool kStaged = true;",
+         "constexpr bool kStaged = false;"),),
+    "lpl-16": (
+        ("sweep_lw_scan.cu", "constexpr int kScanMaxLpl = 8;",
+         "constexpr int kScanMaxLpl = 16;"),),
 }
 VARIANTS = ("base", "no-reduce", "no-scan", "no-fit", "no-common",
-            "lanes-swap", "base")
+            "lanes-swap", "strip-32", "strip-8", "direct-loads", "lpl-16",
+            "base")
 
 
 def _copy(variant):
@@ -105,9 +127,9 @@ def time_kernels(variant):
     import torch
 
     from ..ops.average import fit_optical_depth_lw
-    from ..ops.kernels import (fused_interval_sum, fused_sums_lw_intervals,
-                               sweep_lw_intervals, sweep_lw_scan_intervals,
-                               sweep_sw_intervals)
+    from ..ops.kernels import (_build, fused_interval_sum,
+                               fused_sums_lw_intervals, sweep_lw_intervals,
+                               sweep_lw_scan_intervals, sweep_sw_intervals)
     from ..ops.segments import part_of
     from .exp_kernels import NLAY, NSEG, build_inputs, time_ms
 
@@ -135,13 +157,15 @@ def time_kernels(variant):
                                                       i2)}
         ms = {k: min(time_ms(fn, 20, dev) for _ in range(3))
               for k, fn in runs.items()}
+        warps = _build.library().ecckd_scan_resident_warps(
+            NLAY, torch.finfo(dtype).bits // 8)
         print(json.dumps({"variant": variant, "dtype": str(dtype),
                           "device": torch.cuda.get_device_name(dev),
-                          "ms": ms}), flush=True)
+                          "ms": ms, "e1_resident_warps": warps}), flush=True)
 
 
-def main():
-    for variant in VARIANTS:
+def main(variants=VARIANTS):
+    for variant in variants:
         path = PKG.parent if variant == "base" else _copy(variant)
         env = dict(os.environ, PYTHONPATH=str(path))
         subprocess.run([sys.executable, "-m", f"{PKG.name}.scripts."
@@ -153,5 +177,11 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time"]:
         time_kernels(sys.argv[2])
+    elif sys.argv[1:]:
+        unknown = set(sys.argv[1:]) - set(EDITS)
+        if unknown:
+            sys.exit(f"unknown variants {sorted(unknown)}; choose from "
+                     f"{sorted(EDITS)}")
+        sys.exit(main(("base", *sys.argv[1:], "base")))
     else:
         sys.exit(main())

@@ -17,6 +17,7 @@ import torch
 
 from ecckd_tpu_torch.ops.average import (fit_parts_lw, fit_parts_sw,
                                          total_trans_fit_parts)
+from ecckd_tpu_torch.ops.kernels import _build
 from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
                                          fused_sums_lw_intervals,
                                          fused_sums_lw_plain,
@@ -556,7 +557,7 @@ def _permuted(args, perm):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_sweeps_repeat_and_permute(cuda, dtype):
-    """K1's and K2's sums of an interval do not depend on the other
+    """K1's, K2's and E1's sums of an interval do not depend on the other
     intervals of the launch: a repeat gives the same bits, and a launch
     with the intervals permuted (od_fit's columns with them, seg
     remapped) the same bits permuted."""
@@ -565,7 +566,8 @@ def test_sweeps_repeat_and_permute(cuda, dtype):
     args = _to(_inputs(12, n, i1, i2, seed=8, seg_outside=31), cuda, dtype)
     perm = np.random.default_rng(2).permutation(len(i1))
     moved = _permuted(args, perm)
-    runs = [lambda a: sweep_lw_intervals(*a)] + [
+    runs = [lambda a: sweep_lw_intervals(*a),
+            lambda a: sweep_lw_scan_intervals(*a)] + [
         lambda a, up=up: sweep_sw_intervals(*_sw_args(a, up))
         for up in (True, False)]
     for run in runs:
@@ -587,9 +589,11 @@ def _sum_args(args, seed):
     return metric, planck, bg_od * 1e-5, surfp, emis, i1, i2
 
 
-# (nlay, nwav): from one layer a lane to four; no nwav is a multiple
-# of the 4096-wavenumber chunk or of E1's 32-wavenumber tile
-_EXP_SHAPES = [(1, 5003), (15, 9001), (50, 70001), (64, 4099), (100, 12345)]
+# (nlay, nwav): E1 from one layer a lane to eight, its groups of 4, 8 and
+# 16 lanes a wavenumber, up to its 128 layers; no nwav is a multiple of
+# E1's 16-wavenumber strip
+_EXP_SHAPES = [(1, 5003), (15, 9001), (50, 70001), (64, 4099), (100, 12345),
+               (128, 3001)]
 
 
 @pytest.mark.gpu
@@ -614,6 +618,28 @@ def test_experiment_kernels_match_plain(cuda, nlay, nwav, dtype):
     assert fused_sums_lw_intervals.launches == 1
     assert got.shape == (3 * nlay + 2, len(i1))
     assert _row_err(got, fused_sums_lw_plain(*sums)) <= RTOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_checked_build(cuda, dtype):
+    """The card checks of K1, K2, K3, E1 and E2 against their plain
+    versions, and of the sweeps' repeats and permuted launches, run again
+    on the checked build: an index outside its range traps, and a failed
+    host check raises."""
+    with _build.checked():
+        for case in sorted(_CASES):
+            test_kernels_match_plain(cuda, case, dtype)
+        for layout in ("outside", "single"):
+            test_sweeps_match_plain(cuda, layout, 70001, True, dtype)
+        test_interval_sums_match_plain(cuda, "outside", "lw", dtype)
+        test_interval_sums_match_plain(cuda, "nseg_64",
+                                       "sw_total_transmission", dtype)
+        test_sweeps_repeat_and_permute(cuda, dtype)
+        for nlay, nwav in _EXP_SHAPES:
+            test_experiment_kernels_match_plain(cuda, nlay, nwav, dtype)
+        torch.cuda.synchronize()
+    assert not _build.checked_mode()
 
 
 @pytest.mark.gpu
@@ -870,7 +896,8 @@ def test_chain_core_float32_on_card(cuda):
 
 
 @pytest.mark.parametrize("variant", ["no-reduce", "no-scan", "no-fit",
-                                     "no-common", "lanes-swap"])
+                                     "no-common", "lanes-swap", "strip-32",
+                                     "strip-8", "direct-loads", "lpl-16"])
 def test_ablation_edits_apply(variant):
     """Every line the ablation script edits is in its source exactly
     once, so each variant switches off what it names."""
