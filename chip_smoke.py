@@ -769,8 +769,7 @@ def phase_experiment(checked=False):
     before and read just after; then E1 against K1 on the same inputs,
     E1 and E2 against their plain versions, and their yardsticks
     (``checked``: not the plain versions' and library times)."""
-    from ecckd_tpu_torch.ops.kernels import (KERNELS, _build,
-                                             fused_sums_lw_plain,
+    from ecckd_tpu_torch.ops.kernels import (KERNELS, fused_sums_lw_plain,
                                              reset_launch_counts,
                                              sweep_lw_scan_plain)
     from ecckd_tpu_torch.scripts import exp_kernels
@@ -781,11 +780,6 @@ def phase_experiment(checked=False):
                                  iters=20, out=say) for dt in dtypes}
     launches = {k.__name__: k.launches for k in KERNELS}
     say(f"launches {launches}")
-    lib = _build.library()
-    say(f"E1 warps resident on one SM at {exp_kernels.NLAY} layers "
-        "(occupancy calculator): f64 "
-        f"{lib.ecckd_scan_resident_warps(exp_kernels.NLAY, 8)}, f32 "
-        f"{lib.ecckd_scan_resident_warps(exp_kernels.NLAY, 4)}")
     for name in ("sweep_lw_scan_intervals", "fused_sums_lw_intervals"):
         check(launches[name] > 0, f"{name} launched on the experiment path")
     out = {}

@@ -377,7 +377,6 @@ template <typename T>
 struct FitColumns {
   int col[kSweepPer<T>];
   int common;
-  int nseg;
 };
 
 template <typename T>
@@ -385,7 +384,6 @@ __device__ __forceinline__ FitColumns<T> fit_columns(
     const int* __restrict__ seg, int s0, int n, int nseg) {
   const int lane = threadIdx.x & 31;
   FitColumns<T> f;
-  f.nseg = nseg;
 #pragma unroll
   for (int k = 0; k < kSweepPer<T>; ++k) {
     const int w = s0 + slot_offset<T>(k, lane);
@@ -407,16 +405,13 @@ __device__ __forceinline__ void add_fit(T (&od)[kSweepPer<T>],
                                         const T* __restrict__ fit_row,
                                         const FitColumns<T>& f) {
   if (f.common >= 0) {
-    ECCKD_CHECK_INDEX("sweep", "seg column", f.common, f.nseg);
     const T x = __ldg(fit_row + f.common);
 #pragma unroll
     for (int k = 0; k < kSweepPer<T>; ++k) od[k] += x;
   } else if (f.common == -2) {
 #pragma unroll
-    for (int k = 0; k < kSweepPer<T>; ++k) {
-      ECCKD_CHECK_RANGE("sweep", "seg column", f.col[k], -1, f.nseg - 1);
+    for (int k = 0; k < kSweepPer<T>; ++k)
       if (f.col[k] >= 0) od[k] += __ldg(fit_row + f.col[k]);
-    }
   }
 }
 

@@ -38,8 +38,7 @@
 //    no registers held), and the steps read their columns from there.
 //    Other warps of the SM compute while one waits; there is no block
 //    barrier.  Each lane reading its layers from device memory instead
-//    (kStaged false; every 32-byte sector still used whole) ran 1.3x
-//    slower (PERF.md);
+//    (every 32-byte sector still used whole) ran 1.3x slower (PERF.md);
 //  * each layer's coefficients are computed once and kept in registers for
 //    both passes;
 //  * a step writes its flux levels into the columns it has read, in the
@@ -124,10 +123,6 @@ sweep_lw_scan_kernel(const T* __restrict__ planck, const T* __restrict__ bg_od,
   // Lanes of a group whose partial maps a scan step combines: G, or 1 in
   // the ablation's copy (scripts/ablate_kernels.py: no scans)
   constexpr int kScanWidth = G;
-  // Whether the steps read their inputs from the warp's staged copy, or
-  // (false in the ablation's copy: direct loads) each lane its layers
-  // from device memory through L1
-  constexpr bool kStaged = true;
   static_assert(kScanStrip % W == 0, "whole steps in a strip");
   extern __shared__ __align__(16) unsigned char smem[];
   StripSums<T, kScanStrip> sums;
@@ -138,7 +133,7 @@ sweep_lw_scan_kernel(const T* __restrict__ planck, const T* __restrict__ bg_od,
   const int lay0 = m * LPL;
   T* buf = reinterpret_cast<T*>(smem)
            + (size_t)(threadIdx.x >> 5) * nrows * kScanLd;
-  if (kStaged) stage_strip<T>(buf, planck, bg_od, nlay, n, sums.s0);
+  stage_strip<T>(buf, planck, bg_od, nlay, n, sums.s0);
 
   for (int step = 0; step < kSteps; ++step) {
     const int c = step * W + g;             // this lane's column of the strip
@@ -152,16 +147,12 @@ sweep_lw_scan_kernel(const T* __restrict__ planck, const T* __restrict__ bg_od,
 #pragma unroll
     for (int k = 0; k <= LPL; ++k) {
       const int l = lay0 + k;
-      p[k] = l > nlay ? T(0)
-             : kStaged ? buf[l * kScanLd + c]
-             : w < n ? __ldg(planck + (size_t)l * n + w) : T(0);
+      p[k] = l > nlay ? T(0) : buf[l * kScanLd + c];
     }
 #pragma unroll
     for (int k = 0; k < LPL; ++k) {
       const int l = lay0 + k;
-      od[k] = l >= nlay ? T(0)
-              : kStaged ? buf[(nlev + l) * kScanLd + c]
-              : w < n ? __ldg(bg_od + (size_t)l * n + w) : T(0);
+      od[k] = l >= nlay ? T(0) : buf[(nlev + l) * kScanLd + c];
     }
     __syncwarp();
 
@@ -176,10 +167,7 @@ sweep_lw_scan_kernel(const T* __restrict__ planck, const T* __restrict__ bg_od,
       const int lay = lay0 + k;
       if (lay < nlay) {
         T od_k = od[k];
-        if (has_fit) {
-          ECCKD_CHECK_INDEX("sweep_lw_scan", "seg column", sg, nseg);
-          od_k += __ldg(od_fit + (size_t)lay * nseg + sg);
-        }
+        if (has_fit) od_k += __ldg(od_fit + (size_t)lay * nseg + sg);
         T coeff_top, factor;
         lw_coeffs(od_k, a[k], coeff_top, factor);
         b_dn[k] = p[k] * coeff_top + p[k + 1] * factor;
@@ -303,26 +291,6 @@ int sweep_lw_scan(const void* planck, const void* bg_od, const void* od_fit,
   });
 }
 
-// Warps of the kernel for ``nlay`` layers that one SM holds at once, by
-// the occupancy calculator, or minus a CUDA error code.
-template <typename T>
-int resident_warps(int nlay) {
-  return visit_shape<T>(nlay, [&](auto shape) {
-    using S = decltype(shape);
-    const auto kernel = sweep_lw_scan_kernel<T, S::kGroup, S::kLpl>;
-    const size_t smem = scan_smem_bytes<T>(2 * (nlay + 1));
-    cudaError_t err = cudaSuccess;
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    int blocks = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, 32 * kScanWarps, smem);
-    return err == cudaSuccess ? blocks * kScanWarps : -(int)err;
-  });
-}
-
 }  // namespace ecckd
 
 extern "C" {
@@ -331,14 +299,6 @@ int ecckd_scan_max_layers() { return ecckd::kMaxLayers; }
 
 // Wavenumbers per strip of E1 (the chunk of its interval table).
 int ecckd_scan_strip_size() { return ecckd::kScanStrip; }
-
-// Warps of E1 that one SM holds at once for ``nlay`` layers of values of
-// ``bytes`` bytes (8 or 4), by the occupancy calculator; negative on an
-// error.
-int ecckd_scan_resident_warps(int nlay, int bytes) {
-  return bytes == 8 ? ecckd::resident_warps<double>(nlay)
-                    : ecckd::resident_warps<float>(nlay);
-}
 
 // Inputs and outputs as ecckd_sweep_lw_f64 (sweep_lw.cu), with ``table``
 // the int32 interval table of the launch at E1's strip

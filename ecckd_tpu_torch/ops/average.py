@@ -41,19 +41,23 @@ def _trans_clamp(dtype):
     return 1.0 - 1.0e-6
 
 
-def _trans_od(mean, scale):
-    """Fitted od from a mean transmission-like quantity, clamped below 1."""
-    mean = torch.clamp(mean, max=_trans_clamp(mean.dtype))
+def _trans_od(mean, scale, limits=None):
+    """Fitted od from a mean transmission-like quantity, clamped below 1
+    (the clamp of ``limits``, by default of the mean's dtype)."""
+    mean = torch.clamp(mean, max=_trans_clamp(limits or mean.dtype))
     return torch.abs(-torch.log1p(-mean) / (LW_DIFFUSIVITY * scale))
 
 
-def fit_parts_lw(averaging_method, planck_hl, metric):
+def fit_parts_lw(averaging_method, planck_hl, metric, limits=None):
     """Decomposed LW interval fit: ``(parts, rows, finish)``.
 
     ``parts`` are :func:`~ecckd_tpu_torch.ops.segments.part_of` products
     covering ``rows`` output rows, so kernel K3 can reduce them together
     with the truth rows in one pass; ``finish(sums, i1, i2)`` maps the
-    (rows, nseg) sums to the fitted od (nlay, nseg)."""
+    (rows, nseg) sums to the fitted od (nlay, nseg).  ``limits`` is the
+    float dtype whose transmission clamp the fit takes, by default the
+    metric's (a float64 fit given float32's shows what the clamp alone
+    does to a float32 fit)."""
     w_num = planck_hl[1:]   # weights at layer base (ref :61-63)
     nlay = metric.shape[0]
 
@@ -67,7 +71,7 @@ def fit_parts_lw(averaging_method, planck_hl, metric):
                 return mean
             if averaging_method == "square-root":
                 return mean * mean
-            return _trans_od(mean, _METHOD_SCALE[averaging_method])
+            return _trans_od(mean, _METHOD_SCALE[averaging_method], limits)
 
         return parts, 2 * nlay, finish
 
@@ -115,7 +119,7 @@ def fit_optical_depth_lw(averaging_method, planck_hl, metric, i1, i2):
     return finish(sums, i1, i2)
 
 
-def fit_parts_sw(averaging_method, ssi, metric):
+def fit_parts_sw(averaging_method, ssi, metric, limits=None):
     """Decomposed SW interval fit with solar-irradiance weights (ref
     find_g_points.cpp:113-168); see :func:`fit_parts_lw`."""
     nlay = metric.shape[0]
@@ -132,7 +136,8 @@ def fit_parts_sw(averaging_method, ssi, metric):
                 fit = wsum_m * norm
                 return fit * fit
             # The clamp goes before the normalisation, as in the reference
-            mean = torch.clamp(wsum_m, max=_trans_clamp(metric.dtype)) * norm
+            mean = torch.clamp(
+                wsum_m, max=_trans_clamp(limits or metric.dtype)) * norm
             return torch.abs(-torch.log1p(-mean) / (
                 LW_DIFFUSIVITY * _METHOD_SCALE[averaging_method]))
 
@@ -152,7 +157,14 @@ def fit_optical_depth_sw(averaging_method, ssi, metric, i1, i2):
     return finish(sums, i1, i2)
 
 
-def total_trans_fit_parts(ssi, bg_od, od):
+def total_trans_fallback(sums, nlay):
+    """Per interval, from the (rows, nseg) sums of
+    :func:`total_trans_fit_parts`' parts, whether the fit falls back to the
+    linear fit: some level flux of the interval is not positive."""
+    return torch.any(~(sums[1:2 * nlay + 1] > 0.0), dim=0)
+
+
+def total_trans_fit_parts(ssi, bg_od, od, limits=None):
     """Decomposed total-transmission fit (ref find_g_points.cpp:173-204):
     ``(parts, rows, finish)`` as :func:`fit_parts_lw`.
 
@@ -162,13 +174,17 @@ def total_trans_fit_parts(ssi, bg_od, od):
     materialised once (ssi, then the background-only fluxes, then the
     fluxes with the gas) and every probe reduces them as plain
     :func:`part_of` rows that kernel K3 takes, together with the linear
-    fallback numerator ``od * ssi``."""
+    fallback numerator ``od * ssi``.  With ``limits``, a float dtype, a
+    level flux below its smallest normal number is zero, as it underflows
+    in that dtype."""
     sec = 2.0
     nlay = od.shape[0]
     levels = torch.cat([ssi[None, :],
                         ssi * torch.exp(-sec * torch.cumsum(bg_od, dim=0)),
                         ssi * torch.exp(-sec * torch.cumsum(bg_od + od,
                                                             dim=0))])
+    if limits is not None:
+        levels = torch.where(levels < torch.finfo(limits).tiny, 0.0, levels)
 
     def finish(sums, i1, i2):
         top = sums[0]
@@ -187,8 +203,8 @@ def total_trans_fit_parts(ssi, bg_od, od):
         linear = sums[2 * nlay + 1:] / top
         # A profile with any empty flux falls back to the linear fit
         # whole, as the reference overwrites the whole vector
-        any_bad = torch.any(~ok, dim=0)
-        return torch.where(any_bad[None, :], linear, fit)
+        return torch.where(total_trans_fallback(sums, nlay)[None, :],
+                           linear, fit)
 
     return [part_of(levels), part_of(od, ssi)], 3 * nlay + 1, finish
 

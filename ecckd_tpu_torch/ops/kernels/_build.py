@@ -54,7 +54,6 @@ _SIGNATURES = {
     "ecckd_interval_sum_f32": (_P,) * 5 + (_I,) * 6 + (_P,),
     "ecckd_scan_max_layers": (),
     "ecckd_scan_strip_size": (),
-    "ecckd_scan_resident_warps": (_I, _I),
     "ecckd_sweep_lw_scan_f64": (_P,) * 9 + (_I,) * 4 + (_P,),
     "ecckd_sweep_lw_scan_f32": (_P,) * 9 + (_I,) * 4 + (_P,),
     "ecckd_fused_sums_lw_f64": (_P,) * 8 + (_I,) * 5 + (_P,),

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..constants import HR_WEIGHT
-from ..ops.average import fit_parts_lw, fit_parts_sw, total_trans_fit_parts
+from ..ops.average import (fit_parts_lw, fit_parts_sw, total_trans_fallback,
+                           total_trans_fit_parts)
 from ..ops.heating_rate import heating_rate
 from ..ops.kernels.interval_stream import device_bounds
 from ..ops.kernels.interval_sum import fused_interval_sum
@@ -36,30 +37,46 @@ def _pad_to_bucket(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _cost_terms(layer_weight, flux_weight, hr_err, dn_err, up_err):
+    """The two squared terms of the candidate cost per interval (ref
+    calc_cost_function_lw.cpp:104-110): the layer-weighted squared
+    heating-rate error (K/day), and the flux-weighted squared boundary-flux
+    errors; the cost is the square root of their sum."""
+    return (HR_WEIGHT * HR_WEIGHT
+            * torch.sum(layer_weight[:, None] * hr_err * hr_err, dim=0),
+            flux_weight * (dn_err * dn_err + up_err * up_err))
+
+
 def _candidate_cost_from_fluxes(pressure_hl, layer_weight, flux_weight,
                                 flux_dn, flux_up, hr_true,
                                 fd_surf_true, fu_toa_true):
-    """Scalar candidate cost per interval from broadband flux profiles
-    (ref calc_cost_function_lw.cpp:104-110): sqrt of the layer-weighted
-    squared heating-rate error (K/day) plus the flux-weighted squared
-    boundary-flux errors."""
+    """Scalar candidate cost per interval from broadband flux profiles."""
     hr_fit = heating_rate(pressure_hl, flux_dn, flux_up)
-    hr_err = hr_fit - hr_true
-    dn_err = flux_dn[-1] - fd_surf_true
-    up_err = flux_up[0] - fu_toa_true
-    return torch.sqrt(
-        HR_WEIGHT * HR_WEIGHT
-        * torch.sum(layer_weight[:, None] * hr_err * hr_err, dim=0)
-        + flux_weight * (dn_err * dn_err + up_err * up_err))
+    hr2, flux2 = _cost_terms(layer_weight, flux_weight, hr_fit - hr_true,
+                             flux_dn[-1] - fd_surf_true,
+                             flux_up[0] - fu_toa_true)
+    return torch.sqrt(hr2 + flux2)
 
 
 def _truth_parts(hr, flux_dn_surf, flux_up_toa):
     return [part_of(hr), part_of(flux_dn_surf), part_of(flux_up_toa)]
 
 
+def _as_bounds(i1, i2, device):
+    return (torch.as_tensor(np.asarray(i1, np.int32), device=device),
+            torch.as_tensor(np.asarray(i2, np.int32), device=device))
+
+
 class _CandidateCostBase:
     """Binding checks, the partition map and the bucket contract shared by
-    the LW and SW kernels; a subclass defines ``_kernel(i1, i2)``."""
+    the LW and SW kernels; a subclass defines ``_kernel(i1, i2)`` and
+    ``_truth_sets(i1, i2)``.
+
+    Both kernels take two keywords besides their arrays: ``fit_limits``, a
+    float dtype whose transmission clamp and range the interval fit takes
+    in place of its own (:func:`~ecckd_tpu_torch.ops.average.fit_parts_lw`),
+    and ``probe_log``, a list to which :meth:`costs` appends each call as
+    (kernel, i1, i2, costs)."""
 
     def _bind(self, arrays, like):
         """Check that every array is a tensor of ``like``'s device and
@@ -104,7 +121,21 @@ class _CandidateCostBase:
         i2p = np.zeros(nb, np.int32)
         i2p[pad:] = i2
         out = self._kernel(*device_bounds(i1p, i2p, self.device))
-        return out.cpu().numpy()[pad:].astype(np.float64)
+        out = out.cpu().numpy()[pad:].astype(np.float64)
+        if self.probe_log is not None:
+            self.probe_log.append((self, np.array(i1), np.array(i2), out))
+        return out
+
+    def zero_fit_costs(self, i1: np.ndarray, i2: np.ndarray) -> np.ndarray:
+        """Per interval, the cost (float64 numpy) of a fit whose fluxes
+        are all zero: the scale of the fluxes whose differences make up
+        :meth:`costs`, averaged over the same runs."""
+        sets = self._truth_sets(*_as_bounds(i1, i2, self.device))
+        cost = 0.0
+        for hr, fd, fu in sets:
+            cost = cost + torch.sqrt(sum(_cost_terms(
+                self.layer_weight, self.flux_weight, hr, fd, fu))) / len(sets)
+        return cost.cpu().numpy().astype(np.float64)
 
 
 class CandidateCostLw(_CandidateCostBase):
@@ -118,9 +149,11 @@ class CandidateCostLw(_CandidateCostBase):
 
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, pressure_hl, surf_emissivity, surf_planck,
-                 flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr):
+                 flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr,
+                 fit_limits=None, probe_log=None):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
+        self.probe_log = probe_log
         self._bind(dict(layer_weight=layer_weight, pressure_hl=pressure_hl,
                         surf_emissivity=surf_emissivity,
                         surf_planck=surf_planck, flux_dn_surf=flux_dn_surf,
@@ -130,27 +163,33 @@ class CandidateCostLw(_CandidateCostBase):
         # The fit operands never change between probes, so the parts are
         # built once; fit and truth rows share one K3 pass per call.
         parts, rows, finish = fit_parts_lw(averaging_method, planck_hl,
-                                           metric)
+                                           metric, fit_limits)
         self._parts = parts + _truth_parts(hr, flux_dn_surf, flux_up_toa)
         self._fit_rows = rows
         self._fit_finish = finish
 
+    def _truth_of(self, sums):
+        """(hr (nlay, nseg), flux_dn_surf, flux_up_toa) of the truth
+        rows in the sums of one K3 launch."""
+        rows, nlay = self._fit_rows, self.nlay
+        return (sums[rows:rows + nlay], sums[rows + nlay],
+                sums[rows + nlay + 1])
+
+    def _truth_sets(self, i1, i2):
+        return [self._truth_of(fused_interval_sum(
+            self._parts, self.npoints, i1, i2, dtype=self.dtype))]
+
     def _kernel(self, i1, i2):
-        nlay = self.nlay
         seg_of_wav = self._device_seg_of_wav(i1)
         sums = fused_interval_sum(self._parts, self.npoints, i1, i2,
                                   dtype=self.dtype)
-        rows = self._fit_rows
-        od_fit = self._fit_finish(sums[:rows], i1, i2)
-        hr_true = sums[rows:rows + nlay]
-        fd_surf_true = sums[rows + nlay]
-        fu_toa_true = sums[rows + nlay + 1]
+        od_fit = self._fit_finish(sums[:self._fit_rows], i1, i2)
         flux_dn, flux_up = sweep_lw_intervals(
             self.planck_hl, self.bg_od, od_fit.contiguous(), seg_of_wav,
             self.surf_emissivity, self.surf_planck, i1, i2)
         return _candidate_cost_from_fluxes(
             self.pressure_hl, self.layer_weight, self.flux_weight,
-            flux_dn, flux_up, hr_true, fd_surf_true, fu_toa_true)
+            flux_dn, flux_up, *self._truth_of(sums))
 
 
 class CandidateCostSw(_CandidateCostBase):
@@ -170,9 +209,11 @@ class CandidateCostSw(_CandidateCostBase):
 
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, cos_sza, pressure_hl, ssi, surf_albedo,
-                 flux_dn_surf, flux_up_toa, bg_od, metric, hr, extras=None):
+                 flux_dn_surf, flux_up_toa, bg_od, metric, hr, extras=None,
+                 fit_limits=None, probe_log=None):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
+        self.probe_log = probe_log
         self.cos_sza = float(cos_sza)
         arrays = dict(layer_weight=layer_weight, pressure_hl=pressure_hl,
                       ssi=ssi, flux_dn_surf=flux_dn_surf,
@@ -198,13 +239,15 @@ class CandidateCostSw(_CandidateCostBase):
         # Fit and truth rows share one K3 pass per call; the truth is that
         # of the two scaled runs for total-transmission.
         if total_trans:
-            parts, rows, finish = total_trans_fit_parts(ssi, bg_od, metric)
+            parts, rows, finish = total_trans_fit_parts(ssi, bg_od, metric,
+                                                        fit_limits)
             truth = [_truth_parts(self.hr_low, self.flux_dn_surf_low,
                                   self.flux_up_toa_low),
                      _truth_parts(self.hr_high, self.flux_dn_surf_high,
                                   self.flux_up_toa_high)]
         else:
-            parts, rows, finish = fit_parts_sw(averaging_method, ssi, metric)
+            parts, rows, finish = fit_parts_sw(averaging_method, ssi, metric,
+                                               fit_limits)
             truth = []
         self._fit_parts = parts
         self._truth = truth + [_truth_parts(hr, flux_dn_surf, flux_up_toa)]
@@ -228,6 +271,20 @@ class CandidateCostSw(_CandidateCostBase):
             sets.append((t[:nlay], t[nlay], t[nlay + 1]))
         return od_fit, sets
 
+    def _truth_sets(self, i1, i2):
+        return self._sums(i1, i2, len(self._runs()))[1]
+
+    def linear_fallback(self, i1: np.ndarray, i2: np.ndarray) -> np.ndarray:
+        """Per interval, whether the total-transmission fit falls back to
+        the linear fit (some level flux of the interval is not positive);
+        False for every other method."""
+        t1, t2 = _as_bounds(i1, i2, self.device)
+        if self.averaging_method != "total-transmission":
+            return np.zeros(len(t1), bool)
+        sums = fused_interval_sum(self._fit_parts, self.npoints, t1, t2,
+                                  dtype=self.dtype)
+        return total_trans_fallback(sums, self.nlay).cpu().numpy()
+
     def _runs(self):
         """(tag, od scaling) of the runs whose costs make up a probe's."""
         if self.averaging_method == "total-transmission":
@@ -243,13 +300,9 @@ class CandidateCostSw(_CandidateCostBase):
         # The SW heating rate uses downwelling only
         # (calc_cost_function_sw.cpp:93)
         hr_fit = heating_rate(self.pressure_hl, flux_dn)
-        hr_err = hr_fit - hr_true
-        dn_err = flux_dn[-1] - fd_surf_true
-        up_err = flux_up[0] - fu_toa_true
-        cf_hr2 = (HR_WEIGHT * HR_WEIGHT
-                  * torch.sum(self.layer_weight[:, None] * hr_err * hr_err,
-                              dim=0))
-        cf_flux2 = self.flux_weight * (dn_err * dn_err + up_err * up_err)
+        cf_hr2, cf_flux2 = _cost_terms(
+            self.layer_weight, self.flux_weight, hr_fit - hr_true,
+            flux_dn[-1] - fd_surf_true, flux_up[0] - fu_toa_true)
         cost = torch.sqrt(cf_hr2 + cf_flux2)
         if not want_components:
             return cost
@@ -277,8 +330,7 @@ class CandidateCostSw(_CandidateCostBase):
         The tag is MID for a plain method; total-transmission gives LOW
         and HIGH, the scaled runs whose costs are averaged, and MID, the
         unscaled fit against the main truth (find_g_points.cpp:346-375)."""
-        i1 = torch.as_tensor(np.asarray(i1, np.int32), device=self.device)
-        i2 = torch.as_tensor(np.asarray(i2, np.int32), device=self.device)
+        i1, i2 = _as_bounds(i1, i2, self.device)
         seg_of_wav = self._device_seg_of_wav(i1)
         runs = self._runs()
         if len(runs) > 1:

@@ -8,7 +8,7 @@ albedo of 0.15) with parts of their work switched off.  Each variant is a copy o
 package under ``build/ablate/<variant>/`` with a line of one or two CUDA
 sources edited, built and timed in a process of its own, in the order base,
 no-reduce, no-scan, no-fit, no-common, lanes-swap, strip-32, strip-8,
-direct-loads, lpl-16, base.
+lpl-16, base.
 An edited kernel may give wrong sums: its times only count.
 
   no-reduce  the per-interval sums do nothing, on the streaming core of
@@ -30,10 +30,6 @@ An edited kernel may give wrong sums: its times only count.
              level buffer a warp, half the warps an SM holds
   strip-8    E1 takes strips of 8 wavenumbers: half the level buffer, twice
              the strips and their table entries
-  direct-loads
-             E1 stages nothing: each lane reads its layers of planck and
-             bg_od from device memory through L1 (a whole 32-byte sector
-             a layer row and step), the shared buffer only takes levels
   lpl-16     E1 takes up to 16 layers a lane, in place of 8: at 50 layers
              float32 takes 4 lanes a wavenumber (13 layers a lane, 8
              wavenumbers a step) in place of 8 (7 layers, 4 wavenumbers)
@@ -43,13 +39,14 @@ from the root of a checkout, on a machine with a CUDA card; named
 variants run between two base runs in place of all of them.  One JSON
 line per variant and dtype: the mean milliseconds (CUDA events, best of 3 runs of 20
 launches) of each kernel, and the warps of E1 one SM holds at 50 layers
-(occupancy calculator).
+(:func:`e1_resident_warps`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,16 +90,12 @@ EDITS = {
     "strip-8": (
         ("sweep_lw_scan.cu", "constexpr int kScanStrip = 16;",
          "constexpr int kScanStrip = 8;"),),
-    "direct-loads": (
-        ("sweep_lw_scan.cu", "constexpr bool kStaged = true;",
-         "constexpr bool kStaged = false;"),),
     "lpl-16": (
         ("sweep_lw_scan.cu", "constexpr int kScanMaxLpl = 8;",
          "constexpr int kScanMaxLpl = 16;"),),
 }
 VARIANTS = ("base", "no-reduce", "no-scan", "no-fit", "no-common",
-            "lanes-swap", "strip-32", "strip-8", "direct-loads", "lpl-16",
-            "base")
+            "lanes-swap", "strip-32", "strip-8", "lpl-16", "base")
 
 
 def _copy(variant):
@@ -120,6 +113,36 @@ def _copy(variant):
                                f"{old!r} once")
         src.write_text(text.replace(old, new))
     return root
+
+
+def _constant(text, name):
+    return int(re.search(rf"{name} = (\d+);", text)[1])
+
+
+def e1_resident_warps(nlay, bytes_, build_log):
+    """Warps of E1 one H100 SM holds at ``nlay`` layers of ``bytes_``-byte
+    values, as the occupancy calculator counts them: the blocks that its
+    64 warps, its 64K registers (the instantiation's registers in nvcc's
+    report ``build_log``, a warp's rounded up to 256) and its 228 KB of
+    shared memory (the level buffers, 1 KB more a block) allow, at most
+    32, times the warps a block.  The shape is csrc/sweep_lw_scan.cu's
+    visit_shape, from the constants of the source this process built."""
+    text = (PKG / "csrc" / "sweep_lw_scan.cu").read_text()
+    strip, warps, max_lpl = (_constant(text, k) for k in (
+        "kScanStrip", "kScanWarps", "kScanMaxLpl"))
+    group = _constant(text, "kScanGroup<double>" if bytes_ == 8
+                      else "constexpr int kScanGroup")
+    while group * max_lpl < nlay:
+        group *= 2
+    lpl = -(-nlay // group)
+    name = f"sweep_lw_scan_kernelI{'d' if bytes_ == 8 else 'f'}Li{group}ELi{lpl}E"
+    regs = int(re.search(rf"Compiling entry function '[^']*{name}[^']*'.*?"
+                         r"Used (\d+) registers", build_log, re.S)[1])
+    smem = bytes_ * warps * 2 * (nlay + 1) * (strip + 1)
+    blocks = min(32, 64 // warps,
+                 65536 // (-(-regs * 32 // 256) * 256) // warps,
+                 228 * 1024 // (-(-smem // 128) * 128 + 1024))
+    return blocks * warps
 
 
 def time_kernels(variant):
@@ -157,8 +180,8 @@ def time_kernels(variant):
                                                       i2)}
         ms = {k: min(time_ms(fn, 20, dev) for _ in range(3))
               for k, fn in runs.items()}
-        warps = _build.library().ecckd_scan_resident_warps(
-            NLAY, torch.finfo(dtype).bits // 8)
+        warps = e1_resident_warps(NLAY, torch.finfo(dtype).bits // 8,
+                                  _build.build_log)
         print(json.dumps({"variant": variant, "dtype": str(dtype),
                           "device": torch.cuda.get_device_name(dev),
                           "ms": ms, "e1_resident_warps": warps}), flush=True)

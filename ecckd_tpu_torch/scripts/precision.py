@@ -21,15 +21,17 @@ float32 to the bounds PARITY.md sets for the reference's own float32:
                -log1p(-mean) near 1 (8 float32 ulp of the mean, which moves
                od by ulp * exp(1.66 od) / 1.66)
 
-Two properties of float32 move costs and ranks beyond those bounds, and the
-comparison shows each by giving the float64 chain float32's behaviour
-(:func:`float32_semantics`) and finding float32 within the bounds again:
+Two limits of float32 move costs and ranks beyond those bounds, and the
+comparison shows each by giving the float64 search float32's limits (the
+cost kernels' ``fit_limits``) and finding float32 within the bounds again:
 the transmission clamp (``1 - 1e-6`` in float32, where -log1p(-mean)
 caps the LW fitted od at ~8.3) and the range of the total-transmission
 fit's level fluxes (``ssi * exp(-2 * cumulative od)`` underflows in
 float32 where float64 keeps it, and an interval with an empty flux falls
-back to the linear fit).  :func:`compare` returns the levels and the
-failures; an empty list of failures is the pass.
+back to the linear fit).  Float64 takes only those two limits, not
+float32's rounding, and every probe whose costs they leave alone is held
+to the bound in float32 as it is.  :func:`compare` returns the levels and
+the failures; an empty list of failures is the pass.
 
 Usage: ``python -m ecckd_tpu_torch.scripts.precision [lw|sw ...]
 [device=cpu]`` prints one JSON line a rig.
@@ -37,7 +39,6 @@ Usage: ``python -m ecckd_tpu_torch.scripts.precision [lw|sw ...]
 
 from __future__ import annotations
 
-import contextlib
 import json
 import sys
 from types import SimpleNamespace
@@ -47,9 +48,6 @@ import torch
 
 from ..constants import ACCEL_GRAVITY, MOLAR_MASS_DRY_AIR
 from ..models import ConcDependence
-from ..ops import average
-from ..ops.kernels import fused_interval_sum
-from ..partition import cost_kernel
 from ..tools.common import resolve_device
 from ..tools.create_lut import LutGas, SolarSpectrum, create_lut_core
 from ..tools.find_g_points import GasInput, find_g_points_core
@@ -101,63 +99,24 @@ def small_rig(kind):
             ([250.0, 10000.0], [10000.0, 50000.0]), 0.5)
 
 
-@contextlib.contextmanager
-def record_probes():
-    """Record every candidate-cost call as (kernel, i1, i2, costs) in the
-    list this yields."""
-    real = cost_kernel._CandidateCostBase.costs
-    calls = []
-
-    def costs(self, i1, i2):
-        out = real(self, i1, i2)
-        calls.append((self, np.array(i1), np.array(i2), np.array(out)))
-        return out
-
-    cost_kernel._CandidateCostBase.costs = costs
-    try:
-        yield calls
-    finally:
-        cost_kernel._CandidateCostBase.costs = real
-
-
-@contextlib.contextmanager
-def float32_semantics():
-    """Give the float64 chain float32's transmission clamp and round the
-    total-transmission fit's level fluxes to float32's range, until the
-    block ends."""
-    real_clamp = average._trans_clamp
-    real_parts = cost_kernel.total_trans_fit_parts
-
-    def parts(ssi, bg_od, od):
-        out, rows, finish = real_parts(ssi, bg_od, od)
-        levels = out[0].arrays[0]
-        out[0] = average.part_of(levels.float().to(levels.dtype))
-        return out, rows, finish
-
-    average._trans_clamp = lambda dtype: real_clamp(torch.float32)
-    cost_kernel.total_trans_fit_parts = parts
-    try:
-        yield
-    finally:
-        average._trans_clamp = real_clamp
-        cost_kernel.total_trans_fit_parts = real_parts
-
-
-def _search(profiles, ssi, order, hr_tol, device, dtype):
-    """find_g_points_core on ``order``, with its probes: (g-points, the
-    kernels by band, the calls)."""
+def _search(profiles, ssi, order, hr_tol, device, dtype, limits=None):
+    """find_g_points_core on ``order``, its interval fits taking the clamp
+    and range of ``limits`` (a float dtype; None: ``dtype``'s): (g-points,
+    the candidate-cost kernels by band, every probe as (kernel, i1, i2,
+    costs))."""
     sp = profiles[0]
     gas = GasInput("h2o", order["rank"], order["band_number"],
                    order["wavenumber1_band"], order["wavenumber2_band"],
                    order["sorting_variable"], sp.pressure_hl,
                    sp.temperature_hl, sp.wavenumber, sp.d_wavenumber,
                    sp.optical_depth, min_scaling=0.5, max_scaling=2.5)
-    with record_probes() as calls:
-        gp = find_g_points_core(
-            [gas], hr_tol, averaging_method=("total-transmission"
-                                             if ssi is not None
-                                             else "transmission"),
-            device=device, dtype=dtype, ssi=ssi)
+    calls = []
+    gp = find_g_points_core(
+        [gas], hr_tol, averaging_method=("total-transmission"
+                                         if ssi is not None
+                                         else "transmission"),
+        device=device, dtype=dtype, ssi=ssi,
+        cost_options=dict(fit_limits=limits, probe_log=calls))
     kernels = []
     for k, *_ in calls:
         if k not in kernels:
@@ -165,38 +124,12 @@ def _search(profiles, ssi, order, hr_tol, device, dtype):
     return gp, kernels, calls
 
 
-def cost_scale(kernel, i1, i2):
-    """Per interval, the cost of a fit whose fluxes are all zero: the
-    scale of the fluxes whose differences make up the cost."""
-    t1 = torch.as_tensor(np.asarray(i1, np.int32), device=kernel.device)
-    t2 = torch.as_tensor(np.asarray(i2, np.int32), device=kernel.device)
-    if isinstance(kernel, cost_kernel.CandidateCostLw):
-        sums = fused_interval_sum(kernel._parts, kernel.npoints, t1, t2,
-                                  dtype=kernel.dtype)
-        rows, nlay = kernel._fit_rows, kernel.nlay
-        sets = [(sums[rows:rows + nlay], sums[rows + nlay],
-                 sums[rows + nlay + 1])]
-    else:
-        sets = kernel._sums(t1, t2, len(kernel._runs()))[1]
-    scale = 0.0
-    for hr, fd, fu in sets:
-        c2 = (cost_kernel.HR_WEIGHT ** 2
-              * torch.sum(kernel.layer_weight[:, None] * hr * hr, dim=0)
-              + kernel.flux_weight * (fd * fd + fu * fu))
-        scale = scale + torch.sqrt(c2) / len(sets)
-    return scale.cpu().numpy().astype(np.float64)
-
-
-def _probe_errors(calls32, kernels32, kernels64):
-    """Per float32 probe, the worst |cost32 - cost64| over the cost scale,
-    cost64 from the float64 kernel of the same band."""
-    worst = []
-    for k32, i1, i2, c32 in calls32:
-        k64 = kernels64[kernels32.index(k32)]
-        c64 = k64.costs(i1, i2)
-        worst.append(float(np.max(np.abs(c32 - c64)
-                                  / cost_scale(k64, i1, i2))))
-    return np.asarray(worst)
+def _errors(probes, costs64, scales):
+    """|cost32 - cost64| over the cost scale of every interval of every
+    float32 probe (band, i1, i2, costs), in one array."""
+    return np.concatenate([np.abs(c32 - c64) / scale
+                           for (_, _, _, c32), c64, scale
+                           in zip(probes, costs64, scales)])
 
 
 def _ranks(gp):
@@ -256,46 +189,75 @@ def compare(kind, device="cpu"):
         fail.append(f"{int(untied.sum())} order inversions wider than "
                     "float32's rounding of the sorting variable")
 
-    # search, from the float64 order in both precisions
+    # search, from the float64 order: float64, float32, and float64 with
+    # float32's limits; every float32 probe evaluated by the other two
     order = orders[f64]
     gp64, k64, _ = _search(profiles, ssi, order, hr_tol, device, f64)
     gp32, k32, calls32 = _search(profiles, ssi, order, hr_tol, device, f32)
-    with float32_semantics():
-        gps, ks, _ = _search(profiles, ssi, order, hr_tol, device, f64)
-        sem = _probe_errors(calls32, k32, ks)
-    native = _probe_errors(calls32, k32, k64)
-    lev["probes"] = len(calls32)
+    gpl, kl, _ = _search(profiles, ssi, order, hr_tol, device, f64, f32)
+    probes = [(k32.index(k), i1, i2, c) for k, i1, i2, c in calls32]
+    scales = [k64[j].zero_fit_costs(i1, i2) for j, i1, i2, _ in probes]
+    c64 = [k64[j].costs(i1, i2) for j, i1, i2, _ in probes]
+    climits = [kl[j].costs(i1, i2) for j, i1, i2, _ in probes]
+    native = _errors(probes, c64, scales)
+    limited = _errors(probes, climits, scales)
+    # the intervals whose float64 costs float32's limits change, and (SW)
+    # those whose fit falls back for an empty flux in float32 and not in
+    # float64
+    touched = np.concatenate(c64) != np.concatenate(climits)
+    fallback = [np.concatenate([k[j].linear_fallback(i1, i2)
+                                for j, i1, i2, _ in probes])
+                if ssi is not None else np.zeros(len(native), bool)
+                for k in (k32, k64)]
+    lev["probes"] = len(probes)
+    lev["intervals"] = len(native)
     lev["probe_err_native"] = float(native.max())
-    lev["probes_beyond_bound_native"] = int((native > bound).sum())
-    lev["probe_err_float32_semantics"] = float(sem.max())
-    if sem.max() > bound:
-        fail.append(f"probe cost error {sem.max():.3e} > {bound} with the "
-                    "float32 clamp and range in float64")
-    r64, r32, rs = _ranks(gp64), _ranks(gp32), _ranks(gps)
+    lev["intervals_beyond_bound_native"] = int((native > bound).sum())
+    lev["intervals_touched_by_limits"] = int(touched.sum())
+    empty32 = fallback[0] & ~fallback[1]
+    lev["intervals_empty_in_float32_only"] = int(empty32.sum())
+    lev["intervals_touched_not_empty_in_float32_only"] = int(
+        (touched & ~empty32).sum())
+    lev["probe_err_native_untouched"] = float(
+        native[~touched].max(initial=0.0))
+    lev["probe_err_float32_limits"] = float(limited.max())
+    if limited.max() > bound:
+        fail.append(f"probe cost error {limited.max():.3e} > {bound} with "
+                    "float32's clamp and range in float64")
+    # SW takes no transmission clamp: its limit is the range alone
+    if ssi is not None and lev["intervals_touched_not_empty_in_float32_only"]:
+        fail.append(f"{lev['intervals_touched_not_empty_in_float32_only']} "
+                    "intervals whose float64 costs float32's limits change "
+                    "have no empty flux in float32 that float64 lacks")
+    if lev["probe_err_native_untouched"] > bound:
+        fail.append("native probe cost error "
+                    f"{lev['probe_err_native_untouched']:.3e} > {bound} "
+                    "where float32's limits change no float64 cost")
+    r64, r32, rl = _ranks(gp64), _ranks(gp32), _ranks(gpl)
     lev["ranks_identical_native"] = all(np.array_equal(x, y)
                                         for x, y in zip(r64, r32))
-    lev["ranks_identical_float32_semantics"] = all(
-        np.array_equal(x, y) for x, y in zip(rs, r32))
-    if not lev["ranks_identical_float32_semantics"]:
-        fail.append("float32 ranks differ from float64's with the float32 "
+    lev["ranks_identical_float32_limits"] = all(
+        np.array_equal(x, y) for x, y in zip(rl, r32))
+    if not lev["ranks_identical_float32_limits"]:
+        fail.append("float32 ranks differ from float64's with float32's "
                     "clamp and range")
     else:
-        g32, gs = gp32.gases[0], gps.gases[0]
+        g32, gl = gp32.gases[0], gpl.gases[0]
         i1, i2 = r32
-        err = np.abs(np.asarray(g32.error) - np.asarray(gs.error))
+        err = np.abs(np.asarray(g32.error) - np.asarray(gl.error))
         # the final g-points' intervals, by band, in the band's kernel
         bands_of = np.asarray(g32.band_number)
         scale = np.concatenate([
-            cost_scale(ks[j], *_band_local(order, j, i1[bands_of == j],
-                                           i2[bands_of == j]))
-            for j in range(len(ks))])
-        lev["error_err_float32_semantics"] = float(np.max(err / scale))
-        if lev["error_err_float32_semantics"] > bound:
+            k64[j].zero_fit_costs(*_band_local(order, j, i1[bands_of == j],
+                                               i2[bands_of == j]))
+            for j in range(len(k64))])
+        lev["error_err_float32_limits"] = float(np.max(err / scale))
+        if lev["error_err_float32_limits"] > bound:
             fail.append("per-g-point errors differ by "
-                        f"{lev['error_err_float32_semantics']:.3e} > {bound}")
+                        f"{lev['error_err_float32_limits']:.3e} > {bound}")
     if not lev["ranks_identical_native"] and not (
-            lev["probes_beyond_bound_native"] > 0
-            and lev["ranks_identical_float32_semantics"]):
+            lev["intervals_beyond_bound_native"] > 0
+            and lev["ranks_identical_float32_limits"]):
         fail.append("float32 ranks moved with every probe within the bound")
 
     # LUT on the float64 search's g-points

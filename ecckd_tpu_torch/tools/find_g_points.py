@@ -301,7 +301,7 @@ def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
 def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight, min_pressure, block_wav,
                 device, dtype, sw: Optional[_Shortwave],
-                debug_partition) -> SingleGasData:
+                debug_partition, cost_options) -> SingleGasData:
     """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455,
     no g_split); shortwave where ``sw`` is given."""
     irank = np.asarray(gas.rank).astype(np.int64).copy()
@@ -420,7 +420,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight,
                 surf_emissivity=torch.ones_like(band(surf_planck)),
                 surf_planck=band(surf_planck), planck_hl=band(planck_hl),
-                **state)
+                **state, **cost_options)
         else:
             band_extras = None
             if extras is not None:
@@ -431,7 +431,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight, cos_sza=sw.cos_sza,
                 ssi=to_dev(ssi_reorder[sl]),
                 surf_albedo=float(band_albedo[jband]), extras=band_extras,
-                **state)
+                **state, **cost_options)
         istatus, bounds, error, ng, eq = _search_band(
             kernel, heating_rate_tolerance[jband], tolerance_tolerance,
             max_iterations, min_g_points[jband], max_g_points[jband])
@@ -550,7 +550,8 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
                        dtype=torch.float64, ssi=None,
                        cloud: Optional[CloudInput] = None,
                        max_no_rayleigh_wavenumber=10000.0,
-                       debug_partition=False) -> GPoints:
+                       debug_partition=False,
+                       cost_options=None) -> GPoints:
     """Array-level find_g_points: search every gas, then overlap them
     (Hogan 2010) into merged g-points and their per-wavenumber map.
 
@@ -559,7 +560,10 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
     below ``max_no_rayleigh_wavenumber``), SSI weights, the cloud
     pseudo-gas if ``cloud`` is given, and the solar irradiance of each
     merged g-point in the result.  The candidate costs run on ``device``,
-    the card unless ``device="cpu"`` (raises without one)."""
+    the card unless ``device="cpu"`` (raises without one).
+    ``cost_options`` are keywords for every band's candidate-cost kernel
+    (``fit_limits``, ``probe_log``: :mod:`~ecckd_tpu_torch.partition.
+    cost_kernel`)."""
     device = resolve_device(device)
     hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
     sw = None
@@ -580,7 +584,7 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
         single_gas_data.append(_search_gas(
             gas, hr_tol, tolerance_tolerance, max_iterations,
             averaging_method, flux_weight, min_pressure, block_wav, device,
-            dtype, sw, debug_partition))
+            dtype, sw, debug_partition, cost_options or {}))
         band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
         logs.log("")
     logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")

@@ -897,7 +897,7 @@ def test_chain_core_float32_on_card(cuda):
 
 @pytest.mark.parametrize("variant", ["no-reduce", "no-scan", "no-fit",
                                      "no-common", "lanes-swap", "strip-32",
-                                     "strip-8", "direct-loads", "lpl-16"])
+                                     "strip-8", "lpl-16"])
 def test_ablation_edits_apply(variant):
     """Every line the ablation script edits is in its source exactly
     once, so each variant switches off what it names."""
@@ -906,3 +906,19 @@ def test_ablation_edits_apply(variant):
     for name, old, new in EDITS[variant]:
         text = (CSRC / name).read_text()
         assert text.count(old) == 1 and new not in text
+
+
+@pytest.mark.parametrize("bytes_,regs,warps", [
+    (8, 96, 16), (4, 64, 30), (8, 255, 8), (4, 128, 16)])
+def test_ablation_resident_warps(bytes_, regs, warps):
+    """E1's resident warps a SM at 50 layers from nvcc's register report
+    and the level buffers: shared memory holds 8 blocks of 2 warps in
+    float64 and 15 in float32, unless the registers hold fewer."""
+    from ecckd_tpu_torch.scripts.ablate_kernels import e1_resident_warps
+    name = f"_ZN5ecckd20sweep_lw_scan_kernelI{'d' if bytes_ == 8 else 'f'}" \
+        "Li8ELi7EEEvPKT_"
+    log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+           "ptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           f"loads\nptxas info    : Used {regs} registers, 384 bytes cmem[0]\n")
+    assert e1_resident_warps(50, bytes_, log) == warps

@@ -7,13 +7,16 @@ tests/test_torch_sw_pipeline.py, at the bounds PARITY.md sets for the
 reference's own float32 (LW costs 1e-5, SW costs 2e-4, linear averaging
 1e-5, transmission averaging 5e-4).  Float32 departs from float64 beyond
 them in two places, and the comparison shows each rather than widening a
-bound: the transmission clamp moves every LW probe's cost and the LW
+bound: the transmission clamp moves every LW interval's cost and the LW
 g-point bounds, and the float32 range of the total-transmission fit's
-level fluxes moves SW probes and ranks; with the float64 chain given
-float32's clamp and range, every probe is back within its bound and the
-ranks are float32's.  A rank that the reorder moves is a tie of the
-sorting variable within float32's rounding.  chip_smoke.py runs the same
-comparison on the card.
+level fluxes moves SW costs and ranks.  With the float64 search given
+float32's clamp and range (not its rounding), every probe is back within
+its bound and the ranks are float32's; every interval whose float64 cost
+those limits leave alone is within its bound in float32 as it is, and
+in SW the intervals they change are exactly those with an empty level
+flux in float32 and none in float64.  A rank that the reorder moves is a
+tie of the sorting variable within float32's rounding.  chip_smoke.py
+runs the same comparison on the card.
 """
 
 import numpy as np
@@ -23,6 +26,7 @@ import torch
 from ecckd_tpu_torch.ops import average
 from ecckd_tpu_torch.partition import cost_kernel
 from ecckd_tpu_torch.scripts import precision
+from ecckd_tpu_torch.scripts.exp_kernels import build_inputs
 
 KINDS = ["lw", "sw"]
 
@@ -51,15 +55,22 @@ def test_reorder_ties(run):
 def test_probe_costs(run):
     """Every cost the float32 search computed is within the bound of the
     float64 cost of the same probe once float64 takes float32's clamp and
-    range; without them, the LW clamp moves every probe and the SW range
-    some of them."""
+    range, and, as it is, wherever those limits change no float64 cost;
+    the LW clamp changes every interval's cost, the SW range exactly
+    those of the intervals with an empty flux in float32 only."""
     kind, lev, _ = run
     bound = precision.COST_BOUND[kind]
     assert lev["probes"] > 0
-    assert lev["probe_err_float32_semantics"] <= bound
-    assert lev["probes_beyond_bound_native"] > 0
+    assert lev["probe_err_float32_limits"] <= bound
+    assert lev["probe_err_native_untouched"] <= bound
+    assert 0 < lev["intervals_beyond_bound_native"] \
+        <= lev["intervals_touched_by_limits"]
     if kind == "lw":
-        assert lev["probes_beyond_bound_native"] == lev["probes"]
+        assert lev["intervals_touched_by_limits"] == lev["intervals"]
+    else:
+        assert lev["intervals_touched_not_empty_in_float32_only"] == 0
+        assert lev["intervals_touched_by_limits"] \
+            == lev["intervals_empty_in_float32_only"]
 
 
 def test_g_points(run):
@@ -68,8 +79,8 @@ def test_g_points(run):
     their cost scale."""
     kind, lev, _ = run
     assert not lev["ranks_identical_native"]
-    assert lev["ranks_identical_float32_semantics"]
-    assert lev["error_err_float32_semantics"] <= precision.COST_BOUND[kind]
+    assert lev["ranks_identical_float32_limits"]
+    assert lev["error_err_float32_limits"] <= precision.COST_BOUND[kind]
 
 
 def test_lut(run):
@@ -83,16 +94,64 @@ def test_lut(run):
     assert lev["lut_transmission_over_allowed"] <= 1.0
 
 
-def test_float32_semantics_restores():
-    """The context gives float64 float32's clamp only inside the block."""
-    clamp = average._trans_clamp(torch.float64)
-    parts = cost_kernel.total_trans_fit_parts
-    with precision.float32_semantics():
-        assert average._trans_clamp(torch.float64) \
-            == average._trans_clamp(torch.float32)
-        assert cost_kernel.total_trans_fit_parts is not parts
-    assert average._trans_clamp(torch.float64) == clamp
-    assert cost_kernel.total_trans_fit_parts is parts
+def test_fit_limits():
+    """A fit given float32's limits takes float32's transmission clamp,
+    and the total-transmission levels below float32's smallest normal
+    number are zero; by default each dtype keeps its own."""
+    f64, f32 = torch.float64, torch.float32
+    planck = torch.ones(3, 4, dtype=f64)
+    metric = torch.zeros(2, 4, dtype=f64)
+    i1 = torch.tensor([0], dtype=torch.int32)
+    # interval sums whose mean transmission is 1 - 1e-9 in both layers
+    sums = torch.tensor([[1.0 - 1e-9]] * 2 + [[1.0]] * 2, dtype=f64)
+    od = {limits: average.fit_parts_lw("transmission", planck, metric,
+                                       limits)[2](sums, i1, i1)
+          for limits in (None, f32)}
+    clamp32 = average._trans_clamp(f32)
+    assert clamp32 < 1.0 - 1e-9 < average._trans_clamp(f64)
+    want = -np.log1p(-clamp32) / 1.66
+    np.testing.assert_allclose(od[f32].numpy(), want, rtol=1e-12)
+    assert (od[None] > od[f32]).all()
+    ssi = torch.ones(4, dtype=f64)
+    od = torch.tensor([[1.0, 20.0, 40.0, 50.0]], dtype=f64)
+    levels = {limits: average.total_trans_fit_parts(
+        ssi, torch.zeros_like(od), od, limits)[0][0].arrays[0]
+        for limits in (None, f32)}
+    low = levels[None] < torch.finfo(f32).tiny
+    assert low.any() and (levels[None][low] > 0).all()
+    assert (levels[f32][low] == 0).all()
+    assert torch.equal(levels[f32][~low], levels[None][~low])
+
+
+def _lw_kernel(**options):
+    d = build_inputs(6, 512, 4, torch.float64, "cpu")
+    return cost_kernel.CandidateCostLw(
+        "transmission", 0.02, layer_weight=d["layer_weight"],
+        pressure_hl=d["pressure_hl"], surf_emissivity=d["surf_emissivity"],
+        surf_planck=d["surf_planck"], flux_dn_surf=d["flux_dn_surf"],
+        flux_up_toa=d["flux_up_toa"], planck_hl=d["planck_hl"],
+        bg_od=d["bg_od"], metric=d["metric"], hr=d["hr"], **options)
+
+
+def test_probe_log_and_zero_fit_costs():
+    """The kernel logs every costs call when given a list, and the cost
+    of a zero fit is the cost formula on the truth alone."""
+    log = []
+    k = _lw_kernel(probe_log=log)
+    i1, i2 = np.array([0, 100, 300]), np.array([99, 299, 511])
+    costs = k.costs(i1, i2)
+    assert len(log) == 1 and log[0][0] is k
+    np.testing.assert_array_equal(log[0][1], i1)
+    np.testing.assert_array_equal(log[0][3], costs)
+    assert _lw_kernel().probe_log is None
+    hr = torch.stack([k.hr[:, a:b + 1].sum(1) for a, b in zip(i1, i2)], 1)
+    fd = torch.stack([k.flux_dn_surf[a:b + 1].sum() for a, b in zip(i1, i2)])
+    fu = torch.stack([k.flux_up_toa[a:b + 1].sum() for a, b in zip(i1, i2)])
+    want = torch.sqrt(cost_kernel.HR_WEIGHT ** 2
+                      * (k.layer_weight[:, None] * hr * hr).sum(0)
+                      + 0.02 * (fd * fd + fu * fu))
+    np.testing.assert_allclose(k.zero_fit_costs(i1, i2), want.numpy(),
+                               rtol=1e-12)
 
 
 @pytest.mark.parametrize("kind", KINDS)
