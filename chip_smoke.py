@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's generation chains on one GPU.
+"""Drive the PyTorch/CUDA port's generation chains, and the optimisation
+and evaluation of their models, on one GPU.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout,
 on a machine with one NVIDIA Hopper card.  It needs neither jax nor h5py,
@@ -38,15 +39,27 @@ Phases (every failed check raises; nothing is caught):
   7. each main path once more under ``torch.profiler``: wall and device
      seconds, the device time of the costliest kernels and copies and the
      host time of the costliest operators;
-  8. the experiment path of ``scripts/exp_kernels.py`` as ported
+  8. create_lut -> optimize_lut -> run_ckd on the card: LW training
+     fluxes from the LW main path's profiles (the port's Planck function
+     and ``rt_lw`` over the spectrum, summed per g-point), then
+     ``optimize_lut_core`` (scipy L-BFGS-B, at most 60 iterations, prior
+     error 4) on its model and ``run_ckd_core`` before and after: the cost
+     and the heating-rate and surface-downwelling errors must fall; the
+     training step at bench.py's production size (ng 64, nt 6, np 53, 48
+     columns, 50 layers, an o3 gas in LUT mode added) and the SW main
+     path's model with Rayleigh active: value and gradient on the card
+     within 1e-10 of the CPU (float64) and bit-identical in a repeat,
+     float32 within PARITY.md's 1e-3, with milliseconds, kernel launches
+     and the device's idle share per evaluation;
+  9. the experiment path of ``scripts/exp_kernels.py`` as ported
      (``ecckd_tpu_torch.scripts.exp_kernels.main``, all three variants, at
      2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
      layers) against K1, E2 (fused LW fit and truth sums) bit-identical
      to K3, both against their plain versions, with kernel, plain,
      yardstick and library times;
-  9. phases 3, 4 and 8 again on the checked build: any index outside its
-     range traps and fails the run; the kernel times beside the normal
-     build's.
+  10. phases 3, 4 and 9 again on the checked build: any index outside its
+      range traps and fails the run; the kernel times beside the normal
+      build's.
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -699,7 +712,7 @@ def phase_lw_main_path():
                  HR_TOL)
     check(np.all(np.isfinite(model.planck_function))
           and np.all(model.planck_function > 0), "Planck LUT positive")
-    return profiles, launches
+    return profiles, gp, model, launches
 
 
 def phase_sw_main_path():
@@ -728,7 +741,7 @@ def phase_sw_main_path():
     ray = model.rayleigh_molar_scat
     check(np.all(np.isfinite(ray)) and np.all(ray >= 0),
           "Rayleigh coefficients finite and >= 0")
-    return profiles, ssi, launches
+    return profiles, ssi, gp, model, launches
 
 
 def phase_profile(lw_profiles, sw_profiles, ssi):
@@ -761,6 +774,212 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
         for e in host[:8]:
             log(f"[profile {what}]   host {e.self_cpu_time_total / 1e3:9.3f} "
                 f"ms {e.count:6d} x  {e.key[:90]}")
+
+
+def training_fluxes(profiles, g_point, ng, dev, ssi=None):
+    """LblFluxes of a main path's profiles (h2o at vmr 0.01), computed on
+    the card as tests/synth.py:195-347 computes its training files: each
+    profile's spectrum through the port's ``planck_function`` and ``rt_lw``
+    (SW: ``rt_norayleigh_sw`` at the zenith angles of
+    ``SW_SZA_INDICES`` with a surface albedo of 0.15), the fluxes summed
+    over the spectrum and over each g-point of the merged map."""
+    from ecckd_tpu_torch.io.lbl_fluxes import SW_SZA_INDICES, LblFluxes
+    from ecckd_tpu_torch.ops import planck_function, rt_lw, rt_norayleigh_sw
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device=dev)
+    gp = torch.as_tensor(np.asarray(g_point), dtype=torch.int64, device=dev)
+    onehot = (gp[:, None] == torch.arange(ng, device=dev)[None, :]).double()
+    mu0_all = np.array([0.9, 0.7, 0.5, 0.3, 0.1])[list(SW_SZA_INDICES)]
+    rows = {k: [] for k in ("p", "t", "fd", "fu", "sfd", "sfu", "mu0")}
+    for sp in profiles:
+        od = f(sp.optical_depth)
+        if ssi is None:
+            planck = planck_function(f(sp.temperature_hl), f(sp.wavenumber),
+                                     f(sp.d_wavenumber))
+            fluxes = [rt_lw(planck, od, torch.ones_like(planck[0]),
+                            planck[-1])]
+            del planck
+        else:
+            albedo = torch.full_like(od[0], 0.15)
+            fluxes = [rt_norayleigh_sw(float(mu0), f(ssi), od, albedo)
+                      for mu0 in mu0_all]
+            rows["mu0"].extend(mu0_all)
+        for fd, fu in fluxes:
+            rows["p"].append(sp.pressure_hl)
+            rows["t"].append(sp.temperature_hl)
+            for key, flux in (("fd", fd), ("fu", fu)):
+                rows[key].append(flux.sum(-1).cpu().numpy())
+                rows["s" + key].append((flux @ onehot).cpu().numpy())
+        del od, fluxes
+    nlay = profiles[0].optical_depth.shape[0]
+    lbl = LblFluxes()
+    lbl.is_sw = ssi is not None
+    lbl.pressure_hl = np.stack(rows["p"])
+    lbl.temperature_hl = np.stack(rows["t"])
+    lbl.vmr_fl = np.full((len(rows["p"]), 1, nlay), 0.01)
+    lbl.molecules = ["h2o"]
+    lbl.flux_dn, lbl.flux_up = np.stack(rows["fd"]), np.stack(rows["fu"])
+    lbl.spectral_flux_dn = np.stack(rows["sfd"])
+    lbl.spectral_flux_up = np.stack(rows["sfu"])
+    lbl.have_spectral_fluxes = True
+    if lbl.is_sw:
+        lbl.mu0 = np.asarray(rows["mu0"])
+        lbl.tsi = lbl.flux_dn[0, 0] / lbl.mu0[0]
+        lbl._update_albedo()
+    lbl.calc_heating_rates()
+    lbl.surf_emissivity = np.ones((lbl.ncol, ng))
+    return lbl
+
+
+def flux_errors(model, lbl, device="cuda"):
+    """RMS errors of a LW model against the training fluxes through
+    ``run_ckd_core``: (heating rate in K/day, surface downwelling flux in
+    W m-2)."""
+    from ecckd_tpu_torch import constants as c
+    from ecckd_tpu_torch.tools.run_ckd import run_ckd_core
+    out = run_ckd_core(model, lbl.pressure_hl, lbl.temperature_hl,
+                       {"h2o": lbl.vmr_fl[:, 0]}, device=device)
+    fd, fu = out["flux_dn_lw"], out["flux_up_lw"]
+    conv = (-(c.ACCEL_GRAVITY / c.SPECIFIC_HEAT_AIR)
+            / np.diff(lbl.pressure_hl, axis=1))
+    hr = conv * (np.diff(fd, axis=1) - np.diff(fu, axis=1))
+    err_hr = c.HR_WEIGHT * np.sqrt(np.mean((hr - lbl.heating_rate) ** 2))
+    err_dn = np.sqrt(np.mean((fd[:, -1] - lbl.flux_dn[:, -1]) ** 2))
+    return float(err_hr), float(err_dn)
+
+
+def card_against_cpu(what, cost_of, x0, card="cuda"):
+    """The value and gradient of one training cost on the card against the
+    same code on the CPU (float64, normwise 1e-10), and a repeat on the
+    card bit for bit.  ``cost_of(device)`` builds the TrainingCost."""
+    card, cpu = cost_of(card), cost_of("cpu")
+    v, g = card.value_and_grad(card.tensor(x0))
+    v2, g2 = card.value_and_grad(card.tensor(x0))
+    vc, gc = cpu.value_and_grad(cpu.tensor(x0))
+    rel_v = abs(float(v) - float(vc)) / abs(float(vc))
+    rel_g = float((g.cpu() - gc).norm() / gc.norm())
+    same = torch.equal(v, v2) and torch.equal(g, g2)
+    log(f"[optimize] {what}: {g.numel()} state variables; card against CPU "
+        f"value {rel_v:.3e}, gradient {rel_g:.3e} (normwise, bar 1e-10); "
+        f"repeat on the card bit-identical {same}")
+    check(rel_v <= 1e-10 and rel_g <= 1e-10,
+          f"{what}: card within 1e-10 of the CPU")
+    check(same, f"{what}: value and gradient bit-identical in a repeat")
+    return card
+
+
+def step_launches(cost, x, reps):
+    """(kernels and copies launched per value and gradient, the device's
+    busy milliseconds per evaluation) from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cost.value_and_grad(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cost.value_and_grad(x)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in rows if e.key.startswith(("Memcpy",
+                                                             "Memset")))
+    kernels = sum(e.count for e in rows) - copies
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return kernels / reps, copies / reps, busy_ms / reps
+
+
+def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
+                   sw_model):
+    """create_lut -> optimize_lut -> run_ckd on the LW main path's model,
+    the training step at bench.py's production size, and the SW step with
+    Rayleigh active, all on the card."""
+    import copy
+    import scipy
+    from ecckd_tpu_torch.ops.cost import CostWeights
+    from ecckd_tpu_torch.optimize.solver import (TrainingCost, log_state_tree,
+                                                 ravel_tree)
+    from ecckd_tpu_torch.scripts import train_step
+    from ecckd_tpu_torch.tools.optimize_lut import (optimize_lut_core,
+                                                    prepare_lbl)
+    dev = torch.device("cuda")
+    say = lambda line: log(f"[optimize] {line}")
+    say(f"scipy {scipy.__version__}")
+    t_phase = time.perf_counter()
+
+    # the chain: training fluxes, optimisation, evaluation before and after
+    t0 = time.perf_counter()
+    lbl = training_fluxes(lw_profiles, lw_gp.g_point, lw_model.ng, dev)
+    say(f"LW training fluxes of {lbl.ncol} profiles x "
+        f"{lw_profiles[0].optical_depth.shape[1]} wavenumbers, "
+        f"{lw_model.ng} g-points, on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    before = flux_errors(lw_model, lbl)
+    model = copy.deepcopy(lw_model)
+    res = optimize_lut_core(model, [lbl], gases=["h2o"], prior_error=4.0,
+                            max_iterations=60, convergence_criterion=0.002,
+                            device="cuda")
+    after = flux_errors(model, lbl)
+    say(f"chain: {res.status.name}, {res.n_iterations} iterations, "
+        f"{res.n_evaluations} evaluations; cost {res.first_cost:.6g} -> "
+        f"{res.cost:.6g}; heating-rate RMS error {before[0]:.6e} -> "
+        f"{after[0]:.6e} K/day, surface downwelling {before[1]:.9e} -> "
+        f"{after[1]:.9e} W m-2")
+    say(f"chain: {res.seconds_per_iteration * 1e3:.2f} ms per iteration "
+        f"(host clock): cost and gradient {res.device_seconds:.3f} s, "
+        f"minimizer {res.minimizer_seconds:.3f} s of {res.wall_time:.3f} s "
+        f"over {res.n_evaluations} evaluations")
+    check(res.cost < res.first_cost, "optimisation lowers the cost")
+    check(after[0] < before[0] and after[1] < before[1],
+          "optimisation lowers the heating-rate and surface-downwelling "
+          "errors")
+
+    # the training step at production size
+    size = "ng 64, nt 6, np 53, 48 columns, 50 layers, h2o linear, o3 LUT"
+    x0 = ravel_tree(log_state_tree(train_step.synthetic_model(
+        64, 6, 53, lut_gas=True)))
+    card = card_against_cpu(f"production step ({size})",
+                            lambda d: train_step.training_cost(device=d)[0],
+                            x0)
+    x64 = card.tensor(x0)
+    c32, x32 = train_step.training_cost(device="cuda", dtype=torch.float32)
+    lev = train_step.precision_levels(card, x64, c32, x32)
+    say(f"production step float32 against float64: {json.dumps(lev)}")
+    for key in ("value_rel", "gradient_norm_rel", "cost_20_rel"):
+        check(lev[key] <= 1e-3, f"float32 {key} within 1e-3 of float64")
+    for tag, cost, x in (("f64", card, x64), ("f32", c32, x32)):
+        ms = cuda_ms(lambda: cost.value_and_grad(x), 20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cost(x0)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        kernels, copies, busy = step_launches(cost, x, 5)
+        say(f"production step {tag}: {ms:.3f} ms per value and gradient "
+            f"(CUDA events), {host_ms:.3f} ms per scipy evaluation with its "
+            f"copies (host clock); per evaluation {kernels:.0f} kernels and "
+            f"{copies:.0f} copies launched, device busy {busy:.3f} ms, idle "
+            f"{100 * max(0.0, 1 - busy / ms):.1f}% (torch.profiler)")
+
+    # the SW step: the SW main path's model with Rayleigh active
+    t0 = time.perf_counter()
+    sw_lbl = training_fluxes(sw_profiles, sw_gp.g_point, sw_model.ng, dev,
+                             ssi=ssi)
+    say(f"SW training fluxes of {sw_lbl.ncol} profile-angle columns on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    model = copy.deepcopy(sw_model)
+    model.set_active(["h2o", "rayleigh"])
+    model.create_error_covariances(4.0, rayleigh_prior_error=0.5)
+    prepare_lbl(sw_lbl, model, 1.0e4)
+    check(model.rayleigh_is_active, "Rayleigh active in the SW step")
+    card = card_against_cpu(
+        f"SW step ({sw_lbl.ncol} columns, {model.ng} g-points, Rayleigh "
+        "active)",
+        lambda d: TrainingCost(model, [sw_lbl], CostWeights(), device=d),
+        ravel_tree(log_state_tree(model)))
+    x = card.tensor(ravel_tree(log_state_tree(model)))
+    say(f"SW step f64: {cuda_ms(lambda: card.value_and_grad(x), 20):.3f} ms "
+        "per value and gradient (CUDA events)")
+    say(f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_experiment(checked=False):
@@ -853,7 +1072,7 @@ def phase_experiment(checked=False):
 
 
 def phase_checked(dev, times, exp):
-    """Phases 3, 4 and 8 again with the wrappers on the checked build: an
+    """Phases 3, 4 and 9 again with the wrappers on the checked build: an
     index outside its range traps, which fails the run at the next
     synchronisation, and a host check that fails raises.  Logs each
     kernel's time beside the normal build's."""
@@ -870,7 +1089,7 @@ def phase_checked(dev, times, exp):
                 log(f"[checked] {name} {tag}: {res['ms']:.4f} ms on the "
                     f"checked build, {normal[tag][name]['ms']:.4f} ms on the "
                     f"normal one ({res['ms'] / normal[tag][name]['ms']:.2f}x)")
-    log(f"[checked] phases 3, 4 and 8 passed on the checked build in "
+    log(f"[checked] phases 3, 4 and 9 passed on the checked build in "
         f"{time.perf_counter() - t0:.1f} s: no index out of range")
 
 
@@ -899,10 +1118,12 @@ def main() -> int:
     phase_build()
     times = phase_kernels(dev)
     phase_small_rig()
-    lw_profiles, lw_launches = phase_lw_main_path()
-    sw_profiles, ssi, sw_launches = phase_sw_main_path()
+    lw_profiles, lw_gp, lw_model, lw_launches = phase_lw_main_path()
+    sw_profiles, ssi, sw_gp, sw_model, sw_launches = phase_sw_main_path()
     phase_profile(lw_profiles, sw_profiles, ssi)
-    del lw_profiles, sw_profiles
+    phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
+                   sw_model)
+    del lw_profiles, sw_profiles, lw_model, sw_model
     exp, exp_launches = phase_experiment()
     phase_checked(dev, times, exp)
     check(not jax_modules(), f"no module of jax or ecckd_tpu imported "

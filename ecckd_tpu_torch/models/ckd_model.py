@@ -2,29 +2,38 @@
 file.
 
 PyTorch-package counterpart of ``ecckd_tpu/models/ckd_model.py``
-(ref ckd_model.{h,cpp}).  The container holds numpy arrays; what is ported
-so far is what create_lut needs: :class:`GasData`, the LW and SW
-constructor (SW models get their per-g-point Rayleigh coefficient) and
-:meth:`CkdModel.write` with the reference's exact ckd-definition schema
-(ckd_model.cpp:288-641).  Reading, optical-depth evaluation and the
-optimizer state come with optimize_lut (ROADMAP).
+(ref ckd_model.{h,cpp}).  The container holds numpy arrays: the LW and SW
+constructor (SW models get their per-g-point Rayleigh coefficient),
+:meth:`CkdModel.read` and :meth:`CkdModel.write` with the reference's exact
+ckd-definition schema (ckd_model.cpp:30-641), the optical-depth, Planck
+and Rayleigh wrappers over :mod:`.gas_optics`, and the optimisation state:
+the LUTs of the active gases as a dict of arrays, the Markov-correlation
+prior and the relative-linear cap.  Not ported yet (ROADMAP):
+``scale_optical_depth``, which scale_lut uses.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from .. import logs
 from ..constants import K_NAME, MOLES_PER_PA, REFERENCE_COS_SZA
 from ..ops.rayleigh import rayleigh_molar_scattering_coeff
-from .gas_optics import ConcDependence
+from .gas_optics import (ConcDependence, _tensor, calc_optical_depth,
+                         planck_from_lut, rayleigh_optical_depth)
+
+# Numbers below this in the inverse prior covariance are zeroed
+# (ref ckd_model.cpp:649)
+MIN_ERROR_COVARIANCE = 1.0e-6
 
 
 @dataclasses.dataclass
 class GasData:
-    """Per-gas LUT data (ref SingleGasData, ckd_model.h:37-103)."""
+    """Per-gas LUT and prior data (ref SingleGasData, ckd_model.h:37-103)."""
     molecule: str
     conc_dependence: ConcDependence = ConcDependence.LINEAR
     # (nt, np, ng), or (nconc, nt, np, ng) when conc_dependence == LUT
@@ -35,6 +44,10 @@ class GasData:
     reference_vmr: Optional[float] = None     # RELATIVE_LINEAR
     composite_vmr: Optional[np.ndarray] = None    # NONE: (ngas_comp, np)
     composite_molecules: str = ""
+    is_active: bool = False
+    # Prior machinery (ref ckd_model.h:75-90)
+    inv_background_shape: Optional[np.ndarray] = None
+    background_error: Optional[np.ndarray] = None
 
     @property
     def Molecule(self) -> str:
@@ -78,6 +91,9 @@ class CkdModel:
         self.config = config
         self.summary = summary
         self.model_id = model_id
+        self.logarithmic_interpolation = False
+        self.rayleigh_is_active = False
+        self.rayleigh_inv_background = None
         # Optional g-point mapping carried for scale_lut
         # (ref ckd_model.h:315-318)
         self.wavenumber_hr: Optional[np.ndarray] = None
@@ -125,6 +141,326 @@ class CkdModel:
 
     def ngas(self) -> int:
         return len(self.single_gas_data)
+
+    def gas(self, molecule: str) -> GasData:
+        igas = self.get_gas_index(molecule)
+        if igas < 0:
+            raise KeyError(f"CKD model does not contain {molecule!r}")
+        return self.single_gas_data[igas]
+
+    def get_gas_index(self, gas: str) -> int:
+        """Ref CkdModel::get_gas_index (ckd_model.h:211-239): empty string or
+        'composite' matches the first concentration-independent gas."""
+        if not gas:
+            gas = "composite"
+        mols = self.molecules
+        if gas in mols:
+            return mols.index(gas)
+        if gas == "composite":
+            for i, g in enumerate(self.single_gas_data):
+                if g.conc_dependence == ConcDependence.NONE:
+                    return i
+        return -1
+
+    # ------------------------------------------------------------------
+    # Compute wrappers over gas_optics: tensors on the device of
+    # ``pressure_hl`` when it is a tensor, else float64 on the CPU
+    # ------------------------------------------------------------------
+    def calc_optical_depth(self, gas, pressure_hl, temperature_fl,
+                           vmr_fl=None, molar_abs_override=None):
+        """Optical depth (ncol, nlay, ng) of one gas.
+
+        ``molar_abs_override`` substitutes the LUT (e.g. the state during
+        optimisation) while the geometry comes from the model."""
+        g = self.gas(gas) if isinstance(gas, str) else self.single_gas_data[gas]
+        pressure_hl = _tensor(pressure_hl)
+        table = (molar_abs_override if molar_abs_override is not None
+                 else _tensor(g.molar_abs, pressure_hl))
+        return calc_optical_depth(
+            g.conc_dependence, table, pressure_hl, temperature_fl,
+            self.log_pressure, self.temperature, vmr_fl=vmr_fl,
+            lut_vmr=g.vmr, reference_vmr=g.reference_vmr,
+            logarithmic_interpolation=self.logarithmic_interpolation)
+
+    def calc_planck_function(self, temperature):
+        temperature = _tensor(temperature)
+        return planck_from_lut(temperature, self.temperature_planck,
+                               _tensor(self.planck_function, temperature))
+
+    def calc_rayleigh_optical_depth(self, pressure_hl,
+                                    rayleigh_override=None):
+        pressure_hl = _tensor(pressure_hl)
+        coeff = (rayleigh_override if rayleigh_override is not None
+                 else _tensor(self.rayleigh_molar_scat, pressure_hl))
+        return rayleigh_optical_depth(pressure_hl, coeff)
+
+    def iband_per_g(self, wavenumber1_band, wavenumber2_band) -> np.ndarray:
+        """Band index of each g-point (ref ckd_model.h:287-306)."""
+        iband = np.full(self.ng, -1, np.int32)
+        for ib in range(len(wavenumber1_band)):
+            sel = ((self.wavenumber1 >= wavenumber1_band[ib])
+                   & (self.wavenumber2 <= wavenumber2_band[ib]))
+            weight = self.gpoint_fraction[:, sel].sum(axis=1)
+            if np.any((weight > 0.05) & ((weight < 0.95) | (weight > 1.05))):
+                raise ValueError(
+                    "G-points do not lie entirely within requested bands: "
+                    f"weights for band {wavenumber1_band[ib]}-"
+                    f"{wavenumber2_band[ib]} cm-1 are {weight}")
+            iband[weight > 0.5] = ib
+        if np.any(iband < 0):
+            raise ValueError("Some g-points not inside a band")
+        return iband
+
+    # ------------------------------------------------------------------
+    # Optimisable state: the active gases' LUTs (and Rayleigh)
+    # ------------------------------------------------------------------
+    def set_active(self, active_gas_list: Optional[Sequence[str]]):
+        """Flag the gases of ``active_gas_list`` (and "rayleigh" for a SW
+        model) active for optimisation, as :meth:`read` does: None
+        activates nothing, an empty list every gas."""
+        activate_all = active_gas_list is not None and not active_gas_list
+        active_set = set(active_gas_list or [])
+
+        def is_active(mol):
+            if active_gas_list is None:
+                return False
+            return activate_all or mol in active_set
+
+        for g in self.single_gas_data:
+            g.is_active = is_active(g.molecule)
+        self.rayleigh_is_active = self.is_sw() and is_active("rayleigh")
+
+    def active_lut_pytree(self) -> Dict[str, np.ndarray]:
+        """LUT arrays of active gases (plus 'rayleigh' if active): the
+        optimisation state."""
+        tree = {g.molecule: g.molar_abs for g in self.single_gas_data
+                if g.is_active}
+        if self.rayleigh_is_active:
+            tree["rayleigh"] = self.rayleigh_molar_scat
+        return tree
+
+    def set_active_lut_pytree(self, tree: Dict[str, np.ndarray]):
+        for g in self.single_gas_data:
+            if g.is_active:
+                g.molar_abs = np.asarray(tree[g.molecule])
+        if self.rayleigh_is_active:
+            self.rayleigh_molar_scat = np.asarray(tree["rayleigh"])
+
+    # ------------------------------------------------------------------
+    # Prior / covariance machinery
+    # ------------------------------------------------------------------
+    def create_error_covariances(self, prior_error, min_prior_error=-1.0,
+                                 max_prior_error=-1.0,
+                                 prior_error_scaling=1.0,
+                                 pressure_corr=0.5, temperature_corr=0.5,
+                                 conc_corr=0.5, rayleigh_prior_error=-1.0):
+        """Markov-correlation prior covariance per active gas
+        (ref ckd_model.cpp:644-832): correlation^|index difference| over the
+        (T, p[, conc]) grid, inverted and sparsified."""
+        for g in self.single_gas_data:
+            if not g.is_active:
+                continue
+            g.background_error = np.full(
+                self.ng, prior_error if prior_error > 0.0 else 1.0)
+            if g.conc_dependence == ConcDependence.LUT:
+                nconc = len(g.vmr)
+                c_idx, t_idx, p_idx = np.meshgrid(
+                    np.arange(nconc), np.arange(self.nt), np.arange(self.np_),
+                    indexing="ij")
+                idx = [t_idx.ravel(), p_idx.ravel(), c_idx.ravel()]
+                corrs = [temperature_corr, pressure_corr, conc_corr]
+            else:
+                t_idx, p_idx = np.meshgrid(np.arange(self.nt),
+                                           np.arange(self.np_), indexing="ij")
+                idx = [t_idx.ravel(), p_idx.ravel()]
+                corrs = [temperature_corr, pressure_corr]
+            nx = idx[0].size
+            logs.log(f"  Creating {nx}x{nx} error covariance matrix for "
+                     f"{g.Molecule}")
+            background = np.ones((nx, nx))
+            for iv, corr in zip(idx, corrs):
+                background *= corr ** np.abs(iv[:, None] - iv[None, :])
+            inv_background = np.linalg.inv(background)
+            inv_background[np.abs(inv_background) < MIN_ERROR_COVARIANCE] = 0.0
+            g.inv_background_shape = inv_background
+
+            if prior_error <= 0.0:
+                self._estimate_prior_error(g, prior_error_scaling)
+            if min_prior_error > 0.0:
+                g.background_error = np.maximum(min_prior_error,
+                                                g.background_error)
+            if max_prior_error > 0.0:
+                g.background_error = np.minimum(g.background_error,
+                                                max_prior_error)
+
+        if rayleigh_prior_error > 0.0 and self.rayleigh_is_active:
+            self.rayleigh_inv_background = np.full(
+                self.ng, 1.0 / rayleigh_prior_error ** 2)
+        else:
+            self.rayleigh_inv_background = None
+
+    def _estimate_prior_error(self, g: GasData, scaling: float):
+        """Estimate per-g prior error of log(k) from min/max LUT bounds
+        (ref ckd_model.cpp:720-745): mean over table points of
+        0.25*log(max/min), or 0.5*log(max/k) where min is zero."""
+        k = g.molar_abs
+        flat = k.reshape(-1, k.shape[-1])
+        fmin = g.min_molar_abs.reshape(-1, k.shape[-1])
+        fmax = g.max_molar_abs.reshape(-1, k.shape[-1])
+        pos = flat > 0.0
+        with np.errstate(divide="ignore", invalid="ignore"):
+            contrib = np.where(
+                fmin > 0.0, 0.25 * np.log(fmax / np.where(fmin > 0, fmin, 1)),
+                0.5 * np.log(np.where(flat > 0, fmax / np.where(pos, flat, 1),
+                                      1.0)))
+        contrib = np.where(pos, contrib, 0.0)
+        count = pos.sum(axis=0)
+        total = contrib.sum(axis=0)
+        g.background_error = np.where(
+            count > 0, scaling * total / np.maximum(count, 1),
+            g.background_error)
+
+    def calc_background_cost_function(self, delta_tree):
+        """Prior cost and gradient from per-gas deltas of log(k).
+
+        Ref CkdModel::calc_background_cost_function (ckd_model.cpp:838-877):
+        per-g-point quadratic form with the shared inverse-correlation shape
+        scaled by 1/background_error(g)^2, one matmul per gas: delta
+        reshaped (nx, ng).  ``delta_tree`` holds tensors or arrays of each
+        active gas's LUT shape; returns (cost, gradient tree) as tensors on
+        the deltas' device."""
+        cost = 0.0
+        grads = {}
+        for g in self.single_gas_data:
+            if not g.is_active:
+                continue
+            delta = _tensor(delta_tree[g.molecule])
+            ng = delta.shape[-1]
+            d2 = delta.reshape(-1, ng)
+            shape_mat = _tensor(g.inv_background_shape, d2)
+            inv_var = 1.0 / _tensor(g.background_error, d2) ** 2
+            grad = (shape_mat @ d2) * inv_var[None, :]
+            cost = cost + 0.5 * torch.sum(d2 * grad)
+            grads[g.molecule] = grad.reshape(delta.shape)
+        if self.rayleigh_is_active and "rayleigh" in delta_tree:
+            d = _tensor(delta_tree["rayleigh"])
+            if self.rayleigh_inv_background is not None:
+                grad = _tensor(self.rayleigh_inv_background, d) * d
+                cost = cost + 0.5 * torch.sum(d * grad)
+                grads["rayleigh"] = grad
+            else:
+                grads["rayleigh"] = torch.zeros_like(d)
+        return cost, grads
+
+    def cap_relative_linear_coeffts(self, ref_frac_trigger: float = 0.8):
+        """Prevent negative od at zero concentration for relative-linear
+        gases (ref ckd_model.cpp:881-917)."""
+        bg = None
+        rel_lin = []
+        for g in self.single_gas_data:
+            if g.conc_dependence == ConcDependence.NONE:
+                bg = g
+            elif (g.is_active
+                  and g.conc_dependence == ConcDependence.RELATIVE_LINEAR):
+                rel_lin.append(g)
+        if not rel_lin:
+            return
+        if bg is None:
+            logs.log("Unable to cap relative-linear coefficients: no "
+                     "background composite gas found")
+            return
+        for g in rel_lin:
+            cap = bg.molar_abs / (g.reference_vmr * ref_frac_trigger)
+            nbad = int(np.sum(g.molar_abs > cap))
+            if nbad > 0:
+                logs.log(f"Correcting {nbad} {g.Molecule} coefficients that "
+                         "could cause negative optical depth")
+                g.molar_abs = np.minimum(g.molar_abs, cap)
+
+    # ------------------------------------------------------------------
+    # I/O: exact ckd-definition NetCDF schema
+    # ------------------------------------------------------------------
+    @classmethod
+    def read(cls, file_name: str,
+             active_gas_list: Optional[Sequence[str]] = None) -> "CkdModel":
+        """Read a ckd-definition file (ref CkdModel::read,
+        ckd_model.cpp:30-286).  With ``active_gas_list``, the named gases
+        (and optionally "rayleigh") are flagged active for optimisation; an
+        empty list activates all."""
+        from ..io import NcFile
+
+        logs.log(f"Reading CKD definition file {file_name}")
+        f = NcFile(file_name)
+        kwargs = {}
+        is_sw = f.exist("solar_irradiance")
+        if is_sw:
+            kwargs["solar_irradiance"] = f.read("solar_irradiance")
+            if f.exist("solar_spectral_irradiance"):
+                kwargs["ssi"] = f.read("solar_spectral_irradiance")
+            if f.exist("reference_total_solar_irradiance"):
+                kwargs["reference_total_solar_irradiance"] = float(
+                    f.read_scalar("reference_total_solar_irradiance"))
+            if f.exist("rayleigh_molar_scattering_coeff"):
+                kwargs["rayleigh_molar_scat"] = f.read(
+                    "rayleigh_molar_scattering_coeff")
+            else:
+                raise ValueError("rayleigh_molar_scattering_coeff not present")
+        else:
+            kwargs["temperature_planck"] = f.read("temperature_planck")
+            kwargs["planck_function"] = f.read("planck_function")
+
+        temperature = f.read("temperature")
+        pressure = f.read("pressure")
+        molecules_str = f.attribute("constituent_id") or ""
+        history = f.attribute("history", default="") or ""
+        summary = f.attribute("summary", default="") or ""
+        config = f.attribute("config", default="") or ""
+        model_id = f.attribute("model_id", default="") or ""
+
+        gases: List[GasData] = []
+        have_min_max = None
+        for molecule in molecules_str.split():
+            g = GasData(molecule=molecule)
+            varname = f"{molecule}_{K_NAME}"
+            if have_min_max is None:
+                have_min_max = f.exist(varname + "_min")
+            mf_name = f"{molecule}_mole_fraction"
+            if f.exist(mf_name) and len(f.size(mf_name)) == 1:
+                g.conc_dependence = ConcDependence.LUT
+                g.vmr = f.read(mf_name)
+            else:
+                code = int(f.read_scalar(
+                    f"{molecule}_conc_dependence_code"))
+                g.conc_dependence = ConcDependence(code)
+                if g.conc_dependence == ConcDependence.NONE:
+                    g.composite_vmr = f.read(mf_name)
+                    g.composite_molecules = f.attribute(
+                        f"{molecule}_constituent_id", default="") or ""
+                elif g.conc_dependence == ConcDependence.RELATIVE_LINEAR:
+                    g.reference_vmr = float(f.read_scalar(
+                        f"{molecule}_reference_mole_fraction"))
+            g.molar_abs = np.asarray(f.read(varname), np.float64)
+            if have_min_max:
+                g.min_molar_abs = np.asarray(f.read(varname + "_min"),
+                                             np.float64)
+                g.max_molar_abs = np.asarray(f.read(varname + "_max"),
+                                             np.float64)
+            gases.append(g)
+
+        model = cls(
+            gases, pressure, temperature,
+            f.read("wavenumber1"), f.read("wavenumber2"),
+            f.read("gpoint_fraction"),
+            f.read("wavenumber1_band"), f.read("wavenumber2_band"),
+            f.read("band_number"),
+            history=history, config=config, summary=summary,
+            model_id=model_id, **kwargs)
+        if f.exist("g_point"):
+            model.wavenumber_hr = f.read("wavenumber_hr")
+            model.g_point = np.asarray(f.read("g_point"), np.int32)
+        model.set_active(active_gas_list)
+        f.close()
+        return model
 
     def write(self, file_name: str, argv: Sequence[str] = (),
               config_str: str = ""):

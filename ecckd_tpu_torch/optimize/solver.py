@@ -1,0 +1,404 @@
+"""Bounded L-BFGS minimisation of the LUT coefficients.
+
+PyTorch counterpart of ``ecckd_tpu/optimize/solver.py`` (ref solve_adept,
+src/ecckd/solve_adept.cpp:309-419): the state is log(k) per active gas
+(MIN_X sentinel holding exact zeros at zero), bounds come from the min/max
+LUT arrays with the reference's zero-min fixups, and each evaluation runs
+the value and gradient of the full training cost on the device while scipy's
+L-BFGS-B, the reference's exact bounded behaviour, steps on the host.
+
+The state is flattened in the JAX package's ``ravel_pytree`` order (gases
+sorted by name, each LUT in C order), so the bounds list, the L-BFGS-B
+vector and the checkpoints match JAX's element for element.  One
+evaluation copies the state to the device once and its value and gradient
+back once.  Not ported (ROADMAP): the on-device L-BFGS (``solver="device"``)
+and sharding the profiles over several cards.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import os
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import logs
+from ..logs import Timer
+from ..ops.cost import CostWeights
+from ..tools.common import resolve_device
+from .cost_fn import MIN_X, build_scene, make_cost_fn, make_prior_fn
+
+
+class MinimizerStatus(enum.Enum):
+    SUCCESS = 0
+    MAX_ITERATIONS_REACHED = 1
+    FAILED = 2
+    INVALID_COST_FUNCTION = 3
+
+    def describe(self):
+        return {
+            MinimizerStatus.SUCCESS: "Converged",
+            MinimizerStatus.MAX_ITERATIONS_REACHED:
+                "Maximum iterations reached",
+            MinimizerStatus.FAILED: "Failed to converge",
+            MinimizerStatus.INVALID_COST_FUNCTION: "Invalid cost function",
+        }[self]
+
+
+def log_state_tree(model) -> Dict[str, np.ndarray]:
+    """Log-space state with MIN_X sentinel for zeros
+    (ref solve_adept.cpp:335-340)."""
+    tree = {}
+    for mol, k in model.active_lut_pytree().items():
+        k = np.asarray(k, np.float64)
+        with np.errstate(divide="ignore"):
+            x = np.where(k > 0.0, np.log(np.where(k > 0.0, k, 1.0)), MIN_X)
+        tree[mol] = x
+    return tree
+
+
+def state_bounds(model) -> (Dict[str, np.ndarray], Dict[str, np.ndarray]):
+    """Log-space bounds from min/max LUTs with zero-min fixups
+    (ref solve_adept.cpp:344-377 and ChangeLog v1.5)."""
+    x_min_tree, x_max_tree = {}, {}
+    for g in model.single_gas_data:
+        if not g.is_active:
+            continue
+        k = np.asarray(g.molar_abs, np.float64)
+        kmin = g.min_molar_abs
+        kmax = g.max_molar_abs
+        lo = np.full(k.shape, -np.inf)
+        hi = np.full(k.shape, np.inf)
+        if kmin is not None:
+            with np.errstate(divide="ignore"):
+                x = np.where(k > 0.0, np.log(np.where(k > 0, k, 1)), MIN_X)
+                x_max = np.where(kmax > 0.0,
+                                 np.log(np.where(kmax > 0, kmax, 1)), np.inf)
+                x_min = np.where(kmin > 0.0,
+                                 np.log(np.where(kmin > 0, kmin, 1)),
+                                 -np.inf)
+            # Where min is zero but k>0, widen: twice as far below (log) as
+            # x_max is above x, capped at x_max-1
+            fix = (kmin == 0.0) & (k > 0.0) & (kmax > 0.0)
+            x_min = np.where(fix, np.minimum(3.0 * x - 2.0 * x_max,
+                                             x_max - 1.0), x_min)
+            bad = (kmax > 0.0) & (x_min >= x_max)
+            nbad = int(bad.sum())
+            if nbad:
+                logs.warning(f"{nbad} bounds on the state variables have "
+                             "x_min>=x_max")
+                x_min = np.where(bad, x_max - 1.0, x_min)
+            lo, hi = x_min, x_max
+        x_min_tree[g.molecule] = lo
+        x_max_tree[g.molecule] = hi
+    if model.rayleigh_is_active:
+        k = np.asarray(model.rayleigh_molar_scat, np.float64)
+        x_min_tree["rayleigh"] = np.full(k.shape, -np.inf)
+        x_max_tree["rayleigh"] = np.full(k.shape, np.inf)
+    return x_min_tree, x_max_tree
+
+
+def ravel_tree(tree) -> np.ndarray:
+    """The state as one float64 vector: keys sorted, each array in C order
+    (the order of ``jax.flatten_util.ravel_pytree`` on a dict)."""
+    return np.concatenate([np.ravel(np.asarray(tree[k], np.float64))
+                           for k in sorted(tree)])
+
+
+class FlatState:
+    """Views of a flat state vector as the dict of LUT-shaped arrays it
+    ravels (:func:`ravel_tree`)."""
+
+    def __init__(self, tree):
+        self.keys = sorted(tree)
+        self.shapes = [np.shape(tree[k]) for k in self.keys]
+        self.sizes = [int(np.prod(s)) for s in self.shapes]
+
+    def unravel(self, flat):
+        out, i0 = {}, 0
+        for k, shape, n in zip(self.keys, self.shapes, self.sizes):
+            out[k] = flat[i0:i0 + n].reshape(shape)
+            i0 += n
+        return out
+
+
+def _save_checkpoint(path: str, tree, n_iter: int, cost: float):
+    """Atomically write optimizer state (the log-LUT dict + iteration
+    count), in the JAX package's ``.npz`` layout."""
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as f:
+        np.savez(f, _n_iter=np.int64(n_iter), _cost=np.float64(cost),
+                 **{f"state_{k}": np.asarray(v) for k, v in tree.items()})
+    os.replace(tmp, path)
+
+
+def _remove_checkpoint(path: str):
+    """Drop a completed run's checkpoint so a forced rerun starts clean."""
+    try:
+        os.remove(path)
+    except OSError:
+        pass
+
+
+def _load_checkpoint(path: str, expect_tree):
+    """Load a checkpoint if present and shape-compatible, else None."""
+    if not path or not os.path.exists(path):
+        return None
+    with np.load(path) as ck:
+        tree = {k[len("state_"):]: np.asarray(ck[k]) for k in ck.files
+                if k.startswith("state_")}
+        n_iter = int(ck["_n_iter"])
+    if set(tree) != set(expect_tree) or any(
+            tree[k].shape != np.asarray(expect_tree[k]).shape
+            for k in tree):
+        logs.warning(f"Checkpoint {path} does not match the state layout; "
+                     "ignoring it")
+        return None
+    return tree, n_iter
+
+
+def check_one_device(data_parallel, device: torch.device):
+    """``data_parallel`` shards the profiles over every card where there
+    are several (the JAX package's ``_shard_scene_profiles``), which the
+    port does not do yet: raise there.  With one card, or on the CPU, it
+    changes nothing."""
+    if (data_parallel and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            "optimize_lut: data_parallel over "
+            f"{torch.cuda.device_count()} cards (the profiles sharded "
+            "over the cards) is not ported yet (ROADMAP: multi-GPU); set "
+            "data_parallel=0 to run on one card")
+
+
+class TrainingCost:
+    """The training cost (data and prior) of a model's active LUTs against
+    its training fluxes, as a function of the flat log-state, on one
+    device.
+
+    ``value_and_grad(x)`` takes and returns tensors on the device;
+    calling the object with a float64 numpy vector returns scipy's
+    (value, gradient) with one copy each way."""
+
+    def __init__(self, model, training_data, weights: CostWeights,
+                 negative_od_penalty=1.0e4, pressure_weight_power=0.5,
+                 erythemal_weight=0.0, relative_fluxes=None, device="cuda",
+                 dtype=torch.float64):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        scenes = []
+        for ilbl, lbl in enumerate(training_data):
+            rel = None if relative_fluxes is None else relative_fluxes[ilbl]
+            scenes.append(build_scene(
+                model, lbl, pressure_weight_power=pressure_weight_power,
+                erythemal_weight=erythemal_weight, relative_fluxes=rel,
+                device=self.device, dtype=dtype))
+        self.data_cost = make_cost_fn(model, scenes, weights,
+                                      negative_od_penalty=negative_od_penalty)
+        self.prior_cost = make_prior_fn(model, self.device, dtype)
+        # The prior background is the model state as read, not a resumed
+        # checkpoint (ckd_model.cpp:838-877 semantics)
+        x0_tree = log_state_tree(model)
+        self.state = FlatState(x0_tree)
+        self.prior_tree = self.state.unravel(self.tensor(ravel_tree(x0_tree)))
+
+    def tensor(self, x):
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def total_cost(self, tree):
+        return self.data_cost(tree) + self.prior_cost(tree, self.prior_tree)
+
+    def value_and_grad(self, x):
+        x = x.detach().requires_grad_(True)
+        value = self.total_cost(self.state.unravel(x))
+        (grad,) = torch.autograd.grad(value, x)
+        return value.detach(), grad
+
+    def __call__(self, x_flat):
+        value, grad = self.value_and_grad(self.tensor(x_flat))
+        out = torch.cat([value.reshape(1), grad]).to(torch.float64).cpu()
+        out = out.numpy()
+        return float(out[0]), out[1:].copy()
+
+
+@dataclasses.dataclass
+class SolveResult:
+    status: MinimizerStatus
+    cost: float
+    n_iterations: int
+    n_evaluations: int
+    gradient_norm: float
+    wall_time: float
+    seconds_per_iteration: float
+    first_cost: float = float("nan")
+    device_seconds: float = 0.0     # cost function + gradient, host clock
+    minimizer_seconds: float = 0.0
+
+
+def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
+          broadband_weight=0.5, spectral_boundary_weight=0.0,
+          erythemal_weight=0.0, prior_error=-1.0, max_iterations=3000,
+          convergence_criterion=0.02, negative_od_penalty=1.0e4,
+          pressure_weight_power=0.5, is_bounded=True,
+          relative_fluxes=None, data_parallel=False,
+          solver="auto", checkpoint_file=None,
+          checkpoint_every=0, device="cuda",
+          dtype=torch.float64) -> SolveResult:
+    """Optimise the active gases' LUTs against LBL training fluxes.
+
+    ``training_data`` is a list of LblFluxes; the model is updated in place.
+    The cost and its gradient run on ``device`` (the card unless
+    ``device="cpu"``; raises without one).  ``solver``: "scipy" or "auto"
+    (host L-BFGS-B around the device value and gradient); "device" raises
+    NotImplementedError (ROADMAP).  ``data_parallel`` changes nothing on
+    one card and raises NotImplementedError (ROADMAP) where the card has
+    others beside it (:func:`check_one_device`).
+    """
+    from scipy.optimize import minimize
+
+    if solver == "device":
+        raise NotImplementedError(
+            "optimize_lut: solver=device (the on-device L-BFGS) is not "
+            "ported yet (ROADMAP: on-device L-BFGS)")
+    if solver not in ("auto", "scipy"):
+        raise ValueError(f"solver={solver!r} not understood; choose scipy")
+    check_one_device(data_parallel, resolve_device(device))
+
+    weights = CostWeights(
+        flux_weight=flux_weight, flux_profile_weight=flux_profile_weight,
+        broadband_weight=broadband_weight,
+        spectral_boundary_weight=spectral_boundary_weight)
+    cost = TrainingCost(model, training_data, weights,
+                        negative_od_penalty=negative_od_penalty,
+                        pressure_weight_power=pressure_weight_power,
+                        erythemal_weight=erythemal_weight,
+                        relative_fluxes=relative_fluxes, device=device,
+                        dtype=dtype)
+
+    x0_tree = log_state_tree(model)
+    # Resume a long optimisation from its periodic state checkpoint.  The
+    # iteration budget counts TOTAL iterations: a resumed run performs at
+    # most max_iterations - it_offset further iterations.
+    it_offset = 0
+    if checkpoint_file:
+        resumed = _load_checkpoint(checkpoint_file, x0_tree)
+        if resumed is not None:
+            x0_tree, it_offset = resumed
+            logs.log(f"Resuming optimization from {checkpoint_file} "
+                     f"(iteration {it_offset})")
+    max_local = max(0, max_iterations - it_offset)
+    last_saved = [it_offset]
+
+    def _maybe_checkpoint(tree, n_iter, value):
+        if (checkpoint_file and checkpoint_every > 0
+                and n_iter - last_saved[0] >= checkpoint_every):
+            _save_checkpoint(checkpoint_file, tree, n_iter, value)
+            last_saved[0] = n_iter
+
+    x0_flat = ravel_tree(x0_tree)
+    sentinel_mask = x0_flat <= MIN_X
+
+    bounds = None
+    if is_bounded:
+        lo_tree, hi_tree = state_bounds(model)
+        lo_flat, hi_flat = ravel_tree(lo_tree), ravel_tree(hi_tree)
+        # Sentinel entries are held fixed
+        lo_flat = np.where(sentinel_mask, x0_flat, lo_flat)
+        hi_flat = np.where(sentinel_mask, x0_flat, hi_flat)
+        lo_flat = np.where(np.isfinite(lo_flat), lo_flat, None)
+        hi_flat = np.where(np.isfinite(hi_flat), hi_flat, None)
+        bounds = list(zip(lo_flat, hi_flat))
+        n_lo = sum(1 for b in bounds if b[0] is not None)
+        n_hi = sum(1 for b in bounds if b[1] is not None)
+        logs.log(f"  Minimization is bounded: {n_lo} lower, {n_hi} upper "
+                 f"bounds out of {len(bounds)} state variables")
+    else:
+        logs.log("  Minimization is unbounded")
+
+    logs.log(f"Optimizing coefficients with L-BFGS: max iterations = "
+             f"{max_iterations}, convergence criterion = "
+             f"{convergence_criterion}")
+    logs.log("  CKD model interpolation is "
+             + ("LOGARITHMIC" if model.logarithmic_interpolation
+                else "LINEAR"))
+
+    n_eval = [0]
+    first_val = [np.nan]
+    last_grad_norm = [np.inf]
+    last_val = [np.inf]
+    t0 = time.perf_counter()
+    # Named-activity breakdown matching the reference's Timer split
+    # (solve_adept.cpp:214-231): device cost+gradient vs host minimizer
+    timer = Timer()
+    timer.start("minimizer")
+
+    def fun(x_flat):
+        timer.start("cost function + gradient (device)")
+        val, grad_flat = cost(x_flat)
+        timer.start("minimizer")
+        # Hold sentinels fixed; flush tiny gradients
+        # (ref solve_adept.cpp:276-286)
+        grad_flat[sentinel_mask] = 0.0
+        grad_flat[np.abs(grad_flat) < 1.0e-80] = 0.0
+        if n_eval[0] == 0:
+            first_val[0] = val
+        n_eval[0] += 1
+        last_grad_norm[0] = np.abs(grad_flat).max()
+        last_val[0] = val
+        return val, grad_flat
+
+    n_iter = [0]
+
+    def report(x_flat):
+        n_iter[0] += 1
+        if n_iter[0] % 10 == 1 or n_iter[0] < 5:
+            logs.progress(f"Iteration {n_iter[0]}: gradient norm = "
+                          f"{last_grad_norm[0]:.6g}")
+        if (checkpoint_file and checkpoint_every > 0
+                and n_iter[0] % checkpoint_every == 0):
+            _maybe_checkpoint(cost.state.unravel(np.asarray(x_flat)),
+                              n_iter[0] + it_offset, last_val[0])
+
+    result = minimize(
+        fun, x0_flat, jac=True, method="L-BFGS-B", bounds=bounds,
+        callback=report,
+        options=dict(maxiter=max_local, gtol=convergence_criterion,
+                     ftol=1e-14, maxcor=30))
+    wall = time.perf_counter() - t0
+    timer.stop()
+
+    tree_final = cost.state.unravel(np.asarray(result.x))
+    model.set_active_lut_pytree({
+        mol: np.where(v > MIN_X, np.exp(v), 0.0)
+        for mol, v in tree_final.items()})
+
+    if not np.isfinite(result.fun):
+        status = MinimizerStatus.INVALID_COST_FUNCTION
+    elif result.success:
+        status = MinimizerStatus.SUCCESS
+    elif result.nit >= max_local:
+        status = MinimizerStatus.MAX_ITERATIONS_REACHED
+    elif last_grad_norm[0] <= convergence_criterion:
+        status = MinimizerStatus.SUCCESS
+    else:
+        status = MinimizerStatus.FAILED
+
+    logs.log(f"Final cost function = {result.fun:.6g} after {result.nit} "
+             f"iterations, {n_eval[0]} evaluations, {wall:.1f} s "
+             f"({wall / max(result.nit, 1):.3f} s/iter)")
+    logs.log(timer.report())
+    if status == MinimizerStatus.SUCCESS and checkpoint_file:
+        _remove_checkpoint(checkpoint_file)
+    return SolveResult(
+        status=status, cost=float(result.fun),
+        n_iterations=int(result.nit) + it_offset,
+        n_evaluations=n_eval[0], gradient_norm=float(last_grad_norm[0]),
+        wall_time=wall,
+        seconds_per_iteration=wall / max(int(result.nit), 1),
+        first_cost=float(first_val[0]),
+        device_seconds=timer.total("cost function + gradient (device)"),
+        minimizer_seconds=timer.total("minimizer"))

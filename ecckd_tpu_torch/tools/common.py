@@ -3,7 +3,9 @@
 ``find_file``, the search path, ``tool_prologue`` and ``read_string_list``
 are the port's own copy of ``ecckd_tpu/tools/common.py:21-69`` (the port
 imports nothing of the JAX package); :func:`setup` replaces its
-``setup_jax`` and fixes the device and dtype a tool computes in.
+``setup_jax`` and fixes the device and dtype a tool computes in;
+:class:`maybe_profile` traces with ``torch.profiler`` where the JAX one
+traces with ``jax.profiler``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,36 @@ def read_string_list(cfg: Config, key: str) -> List[str]:
         out.append(val)
         i += 1
     return out
+
+
+class maybe_profile:
+    """Context manager: when the ``profile_dir`` config key is set, trace
+    the CPU and (with a card) CUDA activity with ``torch.profiler`` and
+    write a Chrome trace to ``profile_dir/trace.json`` (the counterpart of
+    the JAX tools' ``jax.profiler`` trace, SURVEY.md §5)."""
+
+    def __init__(self, cfg: Optional[Config]):
+        self.trace_dir = (cfg.read_string("profile_dir", default=None)
+                          if cfg is not None else None)
+        self.prof = None
+
+    def __enter__(self):
+        if self.trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=activities)
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            self.prof.__exit__(*exc)
+            os.makedirs(self.trace_dir, exist_ok=True)
+            path = os.path.join(self.trace_dir, "trace.json")
+            self.prof.export_chrome_trace(path)
+            logs.log(f"Profile written to {path}")
 
 
 def resolve_device(device="cuda") -> torch.device:

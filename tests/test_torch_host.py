@@ -1,10 +1,12 @@
 """The port's own copies of the JAX package's host modules agree with it.
 
-``ecckd_tpu_torch`` keeps copies of ``constants``, ``config``,
+``ecckd_tpu_torch`` keeps copies of ``constants``, ``config``, ``logs``,
 ``partition/equipartition.py`` and ``io`` instead of importing them; these
 tests hold each copy to the original: the same constants, the same config
-keys and values, the same equipartition bounds, and g-point files that the
-JAX package reads back as it reads its own.
+keys and values, the same equipartition bounds, g-point files that the
+JAX package reads back as it reads its own, and the same timer report.
+(``io/lbl_fluxes.py`` is held to its original in
+``tests/test_torch_optimize.py``.)
 """
 
 import numpy as np
@@ -164,3 +166,30 @@ def test_spectrum_shards_not_read():
     from ecckd_tpu_torch.io import read_spectrum
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         read_spectrum("ckdmip_h2o_000.spbin", 0)
+
+
+def test_timer_reports_the_same(monkeypatch):
+    """logs.Timer and logs.timed (the solver's split of device cost and
+    gradient from host minimizer time): the same totals and report as the
+    JAX package's on the same clock."""
+    import time
+    import ecckd_tpu.logs as jlogs
+    import ecckd_tpu_torch.logs as tlogs
+    out = []
+    for mod in (jlogs, tlogs):
+        ticks = iter([0.0, 1.5, 2.0, 4.25, 5.0, 6.0, 6.5, 7.0])
+        monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
+        timer = mod.Timer()
+        timer.start("minimizer")
+        timer.start("cost function + gradient (device)")
+        timer.stop()
+        timer.start("minimizer")
+        with mod.timed(timer, "cost function + gradient (device)"):
+            pass
+        timer.start("minimizer")
+        report = timer.report()
+        out.append((timer.total("minimizer"),
+                    timer.total("cost function + gradient (device)"),
+                    report))
+    assert out[1] == out[0]
+    assert out[1][:2] == (1.5 + 0.75 + 0.5, 0.5 + 1.0)
