@@ -24,10 +24,12 @@ Phases (every failed check raises; nothing is caught):
   4. the small test rigs (1024 wavenumbers, 15 layers; LW, and SW over two
      bands) through the array cores of reorder -> find_g_points ->
      create_lut on the CPU (plain versions) and twice on the card
-     (kernels): identical g-point ranks, bit-identical repeats; and the
-     card's float32 chain held against its float64 chain
-     (``ecckd_tpu_torch.scripts.precision``, as tests/test_torch_precision.py
-     does on the CPU);
+     (kernels), band_parallel off on both: identical g-point ranks,
+     bit-identical repeats; the SW rig with band_parallel parallel (one
+     gas-level kernel, both bands' probes in each dispatch) bit-identical
+     to serial on the card; and the card's float32 chain held against its
+     float64 chain (``ecckd_tpu_torch.scripts.precision``, as
+     tests/test_torch_precision.py does on the CPU);
   5. the LW main path at full size: a CKDMIP-shaped synthetic LW spectrum
      of 2^20 wavenumbers x 50 layers (5 temperature profiles) through the
      same cores, with the checks of tests/test_find_g_points.py and the
@@ -35,7 +37,25 @@ Phases (every failed check raises; nothing is caught):
   6. the SW main path at full size: a synthetic SW spectrum of 2^20
      wavenumbers x 50 layers over 250-50000 cm-1 (5 profiles) and a solar
      spectrum, two bands (the lower reflects the direct beam), the
-     total-transmission search and a transmission-averaged LUT;
+     total-transmission search with a kernel per band (band_parallel
+     off, so that K2 runs with and without the reflected beam) and a
+     transmission-averaged LUT;
+  6b. the rest of find_g_points and scale_lut, each path with the counts
+     set to 0 just before it and read just after: the SW main path's
+     search with band_parallel parallel, serial and off, three runs each
+     (parallel bit-identical to serial and to its repeats, against off the
+     same g-points per band and ranks within 2; seconds, dispatches and
+     K2's and K3's launches of each, and K2's and K3's device time in a
+     fourth run under torch.profiler); the LW main path with g_split 0.5
+     and a sub-band boundary at 1000 cm-1 (the chain's checks and those of
+     tests/test_advanced_features.py); the prefix path: an LW search with
+     ``use_prefix`` (no K3 launch, the same g-points, ranks within 2), and
+     every probe of the LW and SW searches again on twins of their kernels
+     with and without it, float64 and float32 (interval sums and costs
+     against the K3 path, the prefix build and a probe timed);
+     scale_lut_core on the SW main path's model with direct fluxes of its
+     profile 0 from the port's ``rt_direct_sw``, card against CPU, and the
+     scaled od against the best od where the LUT's clamp did not act;
   7. each main path once more under ``torch.profiler``: wall and device
      seconds, the device time of the costliest kernels and copies and the
      host time of the costliest operators;
@@ -57,7 +77,8 @@ Phases (every failed check raises; nothing is caught):
      layers) against K1, E2 (fused LW fit and truth sums) bit-identical
      to K3, both against their plain versions, with kernel, plain,
      yardstick and library times;
-  10. phases 3, 4 and 9 again on the checked build: any index outside its
+  10. phases 3, 4 (with its band_parallel dispatches of one gas-level
+      kernel) and 9 again on the checked build: any index outside its
       range traps and fails the run; the kernel times beside the normal
       build's.
 Launch counts are set to 0 just before each main path and read just after.
@@ -122,6 +143,11 @@ def row_err(got, want):
     den = want.double().norm(dim=1)
     rel = torch.where(den > 0, num / den.clamp(min=1e-300), num)
     return float(rel.max()), float(diff.abs().max())
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps):
@@ -508,20 +534,50 @@ def phase_kernels(dev, checked=False):
     return out
 
 
+def gas_input(order, sp, **gas_options):
+    """The h2o GasInput of a profile and its order, with the SW
+    total-transmission scalings 0.5 and 2.5."""
+    from ecckd_tpu_torch.tools.find_g_points import GasInput
+    return GasInput("h2o", order["rank"], order["band_number"],
+                    order["wavenumber1_band"], order["wavenumber2_band"],
+                    order["sorting_variable"], sp.pressure_hl,
+                    sp.temperature_hl, sp.wavenumber, sp.d_wavenumber,
+                    sp.optical_depth, min_scaling=0.5, max_scaling=2.5,
+                    **gas_options)
+
+
+def search(gas, device, hr_tol, ssi=None, **options):
+    """find_g_points_core on one gas: LW transmission, SW (``ssi`` given)
+    total-transmission."""
+    from ecckd_tpu_torch.tools.find_g_points import find_g_points_core
+    return find_g_points_core(
+        [gas], hr_tol,
+        averaging_method="total-transmission" if ssi is not None
+        else "transmission", device=device, ssi=ssi, **options)
+
+
+def order_of(sp, device, dtype=torch.float64, sw=False, bands=(None, None)):
+    """reorder_core on a profile: SW (``sw``) at threshold 0.25, LW 0.5."""
+    from ecckd_tpu_torch.tools.reorder_spectrum import reorder_core
+    return reorder_core(sp.pressure_hl, sp.wavenumber, sp.d_wavenumber,
+                        sp.optical_depth, *bands,
+                        threshold_optical_depth=0.25 if sw else 0.5,
+                        device=device, dtype=dtype, do_sw=sw)
+
+
 def run_chain(profiles, device, hr_tol, lut_profiles=None, ssi=None,
-              bands=(None, None)):
+              bands=(None, None), band_parallel="auto", gas_options=None):
     """reorder -> find_g_points -> create_lut through the array cores;
     returns (order, g-points, model, seconds per stage).  LW: transmission
     search and LUT.  SW (``ssi`` given): total-transmission search with
-    the h2o scalings 0.5 and 2.5, transmission-averaged LUT."""
+    the h2o scalings 0.5 and 2.5, transmission-averaged LUT.
+    ``band_parallel`` and ``gas_options`` (GasInput fields) go to the
+    search."""
     from ecckd_tpu_torch.config import Config
     from ecckd_tpu_torch.models import ConcDependence
     from ecckd_tpu_torch.tools.common import setup
     from ecckd_tpu_torch.tools.create_lut import (LutGas, SolarSpectrum,
                                                   create_lut_core)
-    from ecckd_tpu_torch.tools.find_g_points import (GasInput,
-                                                     find_g_points_core)
-    from ecckd_tpu_torch.tools.reorder_spectrum import reorder_core
 
     dev, dtype = setup(Config({"device": device}))
     sw = ssi is not None
@@ -536,19 +592,10 @@ def run_chain(profiles, device, hr_tol, lut_profiles=None, ssi=None,
         secs[stage] = time.perf_counter() - t0
         return out
 
-    order = timed("reorder", lambda: reorder_core(
-        sp.pressure_hl, sp.wavenumber, sp.d_wavenumber, sp.optical_depth,
-        *bands, threshold_optical_depth=0.25 if sw else 0.5, device=dev,
-        dtype=dtype, do_sw=sw))
-    gas = GasInput("h2o", order["rank"], order["band_number"],
-                   order["wavenumber1_band"], order["wavenumber2_band"],
-                   order["sorting_variable"], sp.pressure_hl,
-                   sp.temperature_hl, sp.wavenumber, sp.d_wavenumber,
-                   sp.optical_depth, min_scaling=0.5, max_scaling=2.5)
-    gp = timed("find_g_points", lambda: find_g_points_core(
-        [gas], hr_tol,
-        averaging_method="total-transmission" if sw else "transmission",
-        device=dev, dtype=dtype, ssi=ssi))
+    order = timed("reorder", lambda: order_of(sp, dev, dtype, sw, bands))
+    gas = gas_input(order, sp, **(gas_options or {}))
+    gp = timed("find_g_points", lambda: search(
+        gas, dev, hr_tol, ssi=ssi, dtype=dtype, band_parallel=band_parallel))
     lut_profiles = profiles if lut_profiles is None else lut_profiles
     lut_gas = LutGas("h2o", ConcDependence.LINEAR,
                      [lambda icol: (lut_profiles[icol], 0.01)])
@@ -583,20 +630,41 @@ def check_same_runs(cpu, gpu, gpu2, what):
         "bit-identical")
 
 
+def same_search(a, b):
+    """Bit-identical g-points, ranks and errors of two searches."""
+    ga, gb = a.gases[0], b.gases[0]
+    return (np.array_equal(ga.rank1, gb.rank1)
+            and np.array_equal(ga.rank2, gb.rank2)
+            and np.array_equal(ga.error, gb.error)
+            and np.array_equal(a.g_point, b.g_point))
+
+
 def phase_small_rig():
-    """The 1024 x 15 h2o rigs of tests/synth.py on the CPU and the card:
-    LW as tests/test_torch_pipeline.py, SW over two bands as
-    tests/test_torch_sw_pipeline.py; then the card's float32 chain against
-    its float64 chain on both."""
+    """The 1024 x 15 h2o rigs of tests/synth.py on the CPU and the card
+    (band_parallel off on both): LW as tests/test_torch_pipeline.py, SW
+    over two bands as tests/test_torch_sw_pipeline.py; the SW rig's
+    band_parallel parallel against serial on the card, bit for bit; then
+    the card's float32 chain against its float64 chain on both."""
     from ecckd_tpu_torch.scripts import precision
     profiles = lw_spectrum(1024, 15, 5, seed=3, nlines=60, width=(2, 30),
                            wav_max=2000.0)
-    check_same_runs(*(run_chain(profiles, dev, 0.4)
+    check_same_runs(*(run_chain(profiles, dev, 0.4, band_parallel="off")
                       for dev in ("cpu", "cuda", "cuda")), "LW")
     profiles, ssi = sw_spectrum(1024, 15, 6, seed=11)
-    check_same_runs(*(run_chain(profiles, dev, 0.5, ssi=ssi,
-                                bands=SW_BANDS)
+    check_same_runs(*(run_chain(profiles, dev, 0.5, ssi=ssi, bands=SW_BANDS,
+                                band_parallel="off")
                       for dev in ("cpu", "cuda", "cuda")), "SW two bands")
+    runs = {mode: run_chain(profiles, "cuda", 0.5, ssi=ssi, bands=SW_BANDS,
+                            band_parallel=mode)
+            for mode in ("parallel", "serial")}
+    check(same_search(runs["parallel"][1], runs["serial"][1])
+          and np.array_equal(runs["parallel"][2].single_gas_data[0].molar_abs,
+                             runs["serial"][2].single_gas_data[0].molar_abs),
+          "SW two bands: band_parallel parallel bit-identical to serial on "
+          "the card")
+    log(f"[small rig] SW two bands: band_parallel parallel and serial "
+        f"bit-identical on the card (ng "
+        f"{len(runs['parallel'][1].band_number)})")
     for kind in ("lw", "sw"):
         lev, fail = precision.compare(kind, "cuda")
         log(f"[small rig] float32 against float64 on the card, {kind}: "
@@ -605,13 +673,17 @@ def phase_small_rig():
               f" {fail}")
 
 
-def chain_checks(what, gp, model, nwav, ncol, nlay, hr_tol):
+def chain_checks(what, gp, model, nwav, ncol, nlay, hr_tol,
+                 shared_bounds=False):
     """The checks of tests/test_find_g_points.py on a main path's result,
-    band by band."""
+    band by band; with ``shared_bounds`` (g_split's sub-bands) a g-point
+    may start at the last rank of the one before."""
     g = gp.gases[0]
     ng = len(gp.band_number)
-    check(g.rank1[0] == 0 and np.all(g.rank1[1:] == g.rank2[:-1] + 1)
-          and np.all(g.rank2 >= g.rank1), f"{what}: contiguous g-point ranks")
+    first = g.rank1[1:] - g.rank2[:-1]
+    check(g.rank1[0] == 0 and np.all(g.rank2 >= g.rank1)
+          and np.all((first >= 0 if shared_bounds else first == 1)
+                     & (first <= 1)), f"{what}: contiguous g-point ranks")
     check(g.rank2[-1] == nwav - 1, f"{what}: ranks cover the spectrum")
     check(gp.g_point.min() >= 0
           and set(np.unique(gp.g_point)) == set(range(ng)),
@@ -669,22 +741,31 @@ def timing_tables():
     return stats, undo
 
 
-def drive(what, profiles, hr_tol, ssi=None, bands=(None, None)):
-    """One main path with the launch counts set to 0 just before it and
-    read just after, and the host time of its interval tables; returns
-    (g-points, model, seconds, launches)."""
-    from ecckd_tpu_torch.ops.kernels import (KERNELS, reset_launch_counts,
-                                             sweep_sw_intervals)
-    stats, undo = timing_tables()
-    reset_launch_counts()
-    try:
-        _, gp, model, secs = run_chain(profiles, "cuda", hr_tol, ssi=ssi,
-                                       bands=bands)
-    finally:
-        undo()
+def launch_counts():
+    """Each kernel's launches since the counts were last set to 0, and
+    K2's with the reflected beam."""
+    from ecckd_tpu_torch.ops.kernels import KERNELS, sweep_sw_intervals
     launches = {k.__name__: k.launches for k in KERNELS}
     launches["sweep_sw_with_upwelling"] = \
         sweep_sw_intervals.upwelling_launches
+    return launches
+
+
+def drive(what, profiles, hr_tol, ssi=None, bands=(None, None),
+          device="cuda", **options):
+    """One main path with the launch counts set to 0 just before it and
+    read just after, and the host time of its interval tables; returns
+    (g-points, model, seconds, launches).  ``options`` go to
+    :func:`run_chain`."""
+    from ecckd_tpu_torch.ops.kernels import reset_launch_counts
+    stats, undo = timing_tables()
+    reset_launch_counts()
+    try:
+        _, gp, model, secs = run_chain(profiles, device, hr_tol, ssi=ssi,
+                                       bands=bands, **options)
+    finally:
+        undo()
+    launches = launch_counts()
     log(f"[{what}] seconds: reorder {secs['reorder']:.2f}, find_g_points "
         f"{secs['find_g_points']:.2f}, create_lut {secs['create_lut']:.2f}, "
         f"total {sum(secs.values()):.2f}")
@@ -723,7 +804,8 @@ def phase_sw_main_path():
         f"cm-1, {NCOL_FULL} profiles built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
     gp, model, secs, launches = drive("SW main", profiles, HR_TOL_SW,
-                                      ssi=ssi, bands=SW_BANDS)
+                                      ssi=ssi, bands=SW_BANDS,
+                                      band_parallel="off")
     nup = launches["sweep_sw_with_upwelling"]
     check(0 < nup < launches["sweep_sw_intervals"],
           "K2 launched with and without the reflected beam on the SW main "
@@ -744,6 +826,305 @@ def phase_sw_main_path():
     return profiles, ssi, gp, model, launches
 
 
+def fgp_run(gas, hr_tol, ssi=None, keep_log=False, cost_options=None,
+            device="cuda", **options):
+    """One find_g_points_core with the launch counts set to 0 just before
+    it and read just after; returns (g-points, host seconds, candidate-cost
+    calls (dispatches), launches, the probe log or None)."""
+    from ecckd_tpu_torch.ops.kernels import reset_launch_counts
+    probes = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    gp = search(gas, device, hr_tol, ssi=ssi,
+                cost_options=dict(probe_log=probes, **(cost_options or {})),
+                **options)
+    sync(device)
+    secs = time.perf_counter() - t0
+    return (gp, secs, len(probes), launch_counts(),
+            probes if keep_log else None)
+
+
+def cost_twin(k, dtype, use_prefix, fit_limits=None):
+    """A candidate-cost kernel over ``k``'s arrays in ``dtype``, with or
+    without the prefix path, with ``fit_limits``."""
+    from ecckd_tpu_torch.partition import CandidateCostLw, CandidateCostSw
+    c = lambda name: getattr(k, name).to(dtype)
+    kw = dict(use_prefix=use_prefix, fit_limits=fit_limits)
+    if isinstance(k, CandidateCostLw):
+        names = ("layer_weight", "pressure_hl", "surf_emissivity",
+                 "surf_planck", "flux_dn_surf", "flux_up_toa", "planck_hl",
+                 "bg_od", "metric", "hr")
+        return CandidateCostLw(k.averaging_method, k.flux_weight,
+                               **{n: c(n) for n in names}, **kw)
+    names = ("layer_weight", "pressure_hl", "ssi", "surf_albedo",
+             "flux_dn_surf", "flux_up_toa", "bg_od", "metric", "hr")
+    extras = None
+    if k.averaging_method == "total-transmission":
+        extras = {f"{v}_{t}": c(f"{v}_{t}") for t in ("low", "high")
+                  for v in ("hr", "flux_dn_surf", "flux_up_toa")}
+        extras.update(min_scaling=k.min_scaling, max_scaling=k.max_scaling)
+    return CandidateCostSw(k.averaging_method, k.flux_weight,
+                           cos_sza=k.cos_sza, extras=extras,
+                           **{n: c(n) for n in names}, **kw)
+
+
+def normwise(got, want):
+    got, want = np.concatenate(got), np.concatenate(want)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def check_prefix(what, probes, say):
+    """Every probe of a K3-path search's log again on twins of its kernels
+    with and without the prefix path, float64 and float32: the probe's
+    interval sums (fit and truth rows) within BARS of K3's, relative to
+    the largest prefix sum of their row (the scale of a difference of two
+    prefixes: a deep level's flux summed over opaque ranks is 1e-300 after
+    transparent ranks whose sum is 1, and the prefix path keeps the
+    difference to ~2^-106 of 1, not of 1e-300), no K3 launch with the
+    prefix; the costs normwise within BARS where the fit is well
+    conditioned.  A transmission fit is not where an interval is
+    opaque: its mean transmission sits at the clamp, where -log1p(-mean)
+    turns the sums' last bits into the cost's fifth digit (ROADMAP.md,
+    faults); there the float64 costs are held with float32's clamp as
+    ``fit_limits`` on both sides and the rest reported.  The prefix build
+    and a probe (the batch of most intervals) timed with and without
+    it."""
+    from ecckd_tpu_torch.ops.kernels import fused_interval_sum
+    kernels = list({id(p[0]): p[0] for p in probes}.values())
+    clamped = kernels[0].averaging_method in ("transmission",
+                                              "transmission-2")
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        bar = BARS[dtype]
+        sums_err = 0.0
+        costs = {None: ([], []), torch.float32: ([], [])}
+        for j, k in enumerate(kernels):
+            sync(k.device)
+            t0 = time.perf_counter()
+            pre = cost_twin(k, dtype, True)
+            sync(k.device)
+            build_ms = 1e3 * (time.perf_counter() - t0)
+            base = cost_twin(k, dtype, False)
+            mine = [(i1, i2) for kk, i1, i2, _ in probes if kk is k]
+            k3_before = fused_interval_sum.launches
+            got = [pre.costs(i1, i2) for i1, i2 in mine]
+            sums = [pre.interval_sums(i1, i2) for i1, i2 in mine]
+            check(fused_interval_sum.launches == k3_before,
+                  f"prefix {what}: no K3 launch on the prefix path")
+            scale = pre._prefix[0].double().abs().amax(dim=1)
+            for s, (i1, i2) in zip(sums, mine):
+                diff = (s - base.interval_sums(i1, i2)).double().abs()
+                diff = diff.amax(dim=1)
+                sums_err = np.nanmax([sums_err, float(torch.where(
+                    scale > 0, diff / scale.clamp(min=1e-300), diff).max())])
+                check(np.isfinite(sums_err), f"prefix {what}: finite sums")
+            costs[None][0].extend(got)
+            costs[None][1].extend(base.costs(i1, i2) for i1, i2 in mine)
+            if clamped and dtype == torch.float64:
+                for use, side in ((True, 0), (False, 1)):
+                    twin = cost_twin(k, dtype, use, torch.float32)
+                    costs[torch.float32][side].extend(
+                        twin.costs(i1, i2) for i1, i2 in mine)
+                    del twin
+            i1, i2 = max(mine, key=lambda p: len(p[0]))
+            ms_pre = cuda_ms(lambda: pre.costs(i1, i2), 10)
+            ms_k3 = cuda_ms(lambda: base.costs(i1, i2), 10)
+            hi = pre._prefix[0]
+            nbytes = 2 * hi.numel() * hi.element_size()
+            out[f"{tag} kernel {j}"] = dict(
+                build_ms=build_ms, bytes=nbytes, rows=hi.shape[0],
+                nwav=k.npoints, probe_ms=ms_pre, probe_k3_ms=ms_k3,
+                nseg=len(i1), probes=len(mine))
+            say(f"prefix {what} {tag} kernel {j} ({k.npoints} wavenumbers): "
+                f"build {build_ms:.2f} ms (host clock), {hi.shape[0]} rows, "
+                f"{nbytes / 1e9:.3f} GB; a probe of {len(i1)} intervals "
+                f"{ms_pre:.3f} ms with the prefix, {ms_k3:.3f} ms with K3 "
+                f"(CUDA events, 10); {len(mine)} probes")
+            del pre, base, sums
+        rel = normwise(*costs[None])
+        say(f"prefix {what} {tag}: interval sums {sums_err:.3e} (of the "
+            f"row's largest prefix, worst probe), costs {rel:.3e} (normwise) "
+            f"from the K3 path; bar {bar:.0e}")
+        check(sums_err <= bar, f"prefix {what} {tag}: interval sums within "
+              f"{bar} of K3's")
+        if clamped and dtype == torch.float64:
+            rel_l = normwise(*costs[torch.float32])
+            say(f"prefix {what} {tag}: costs {rel_l:.3e} with float32's "
+                "transmission clamp on both sides")
+            check(rel_l <= bar, f"prefix {what} {tag}: costs of the clamped "
+                  f"fits within {bar} of the K3 path")
+            out[tag] = dict(sums=sums_err, costs=rel, clamped_costs=rel_l)
+        else:
+            if not clamped:
+                check(rel <= bar, f"prefix {what} {tag}: costs within {bar} "
+                      "of the K3 path")
+            out[tag] = dict(sums=sums_err, costs=rel)
+    return out
+
+
+def profiled_device_ms(fn):
+    """Device milliseconds of ``fn()`` under torch.profiler: K2's
+    (``sweep_sw_kernel``), K3's (``stream_kernel``) and the rest's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    ms = {"K2": 0.0, "K3": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = ("K2" if "sweep_sw_kernel" in e.key else
+                   "K3" if "stream_kernel" in e.key else "other")
+            ms[key] += e.self_device_time_total / 1e3
+    return ms
+
+
+def phase_rest(lw_profiles, sw_profiles, ssi, sw_gp, sw_model,
+               device="cuda"):
+    """Phase 6b: band_parallel three ways on the SW main path's search,
+    g_split on the LW main path, the prefix path on both, scale_lut on
+    the SW main path's model."""
+    from ecckd_tpu_torch.ops.rt_sw import rt_direct_sw
+    from ecckd_tpu_torch.tools.scale_lut import scale_lut_core
+    say = lambda line: log(f"[rest] {line}")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    out = {}
+
+    # band_parallel: three ways, three runs each
+    sw_gas = gas_input(order_of(sw_profiles[0], dev, sw=True,
+                                bands=SW_BANDS), sw_profiles[0])
+    modes = ("parallel", "serial", "off")
+    runs = {m: [] for m in modes}
+    sw_log = None
+    for rep in range(3):
+        for mode in modes:
+            keep = rep == 0 and mode == "off"
+            r = fgp_run(sw_gas, HR_TOL_SW, ssi=ssi, band_parallel=mode,
+                        keep_log=keep, device=dev)
+            runs[mode].append(r[:4])
+            sw_log = r[4] if keep else sw_log
+    for mode in modes:
+        l = runs[mode][0][3]
+        up = l["sweep_sw_with_upwelling"]
+        out[mode] = dict(seconds=[r[1] for r in runs[mode]],
+                         dispatches=runs[mode][0][2], k2_reflecting=up,
+                         k2_not=l["sweep_sw_intervals"] - up,
+                         k3=l["fused_interval_sum"])
+        say(f"band_parallel {mode}: find_g_points seconds (host clock) "
+            f"{[round(r[1], 4) for r in runs[mode]]}; dispatches "
+            f"{out[mode]['dispatches']}; K2 reflecting {up}, not "
+            f"{out[mode]['k2_not']}; K3 {out[mode]['k3']}")
+        check(all(r[3] == l for r in runs[mode]),
+              f"band_parallel {mode}: the same launches in every run")
+    for mode in modes:
+        ms = profiled_device_ms(lambda: fgp_run(
+            sw_gas, HR_TOL_SW, ssi=ssi, band_parallel=mode, device=dev))
+        out[mode]["device_ms"] = ms
+        say(f"band_parallel {mode}, a fourth run under torch.profiler: "
+            f"device ms K2 {ms['K2']:.3f}, K3 {ms['K3']:.3f}, all "
+            f"{sum(ms.values()):.3f}")
+    par = runs["parallel"][0][0]
+    check(all(same_search(par, r[0]) for r in runs["parallel"][1:]
+              + runs["serial"]), "band_parallel parallel bit-identical to "
+          "its repeats and to serial")
+    off = runs["off"][0][0]
+    gp_, go = par.gases[0], off.gases[0]
+    check(np.array_equal(gp_.n_g_points, go.n_g_points)
+          and np.max(np.abs(gp_.rank1 - go.rank1)) <= 2
+          and np.max(np.abs(gp_.rank2 - go.rank2)) <= 2,
+          "band_parallel parallel against off: the same g-points per band, "
+          "ranks within 2")
+    check(out["parallel"]["dispatches"] < out["serial"]["dispatches"],
+          "band_parallel: fewer dispatches than serial")
+    say(f"band_parallel: parallel bit-identical to serial and its repeats; "
+        f"against off g-points per band {gp_.n_g_points.tolist()} both, "
+        f"largest rank move {int(np.max(np.abs(gp_.rank1 - go.rank1)))}")
+    del runs, par, off, gp_, go
+
+    # g_split on the LW main path
+    gp, model, secs, launches = drive(
+        "g_split LW", lw_profiles, HR_TOL, device=dev,
+        gas_options=dict(g_split=[0.5], subband_wavenumber_boundary=[1000.0]))
+    g = chain_checks("g_split LW", gp, model, NWAV_FULL, NCOL_FULL,
+                     NLAY_FULL, HR_TOL, shared_bounds=True)
+    ng = len(g.rank1)
+    wav = gp.wavenumber
+    check(ng >= 3 and g.g_point.min() >= 0 and g.g_point.max() == ng - 1
+          and (wav[g.g_point == 0].max() <= 1000.0
+               or wav[g.g_point == 1].max() <= 1000.0),
+          "g_split: the checks of tests/test_advanced_features.py:42-58")
+    out["g_split"] = dict(seconds=secs, launches=launches, ng=ng)
+    del gp, model
+
+    # the prefix path
+    lw_gas = gas_input(order_of(lw_profiles[0], dev), lw_profiles[0])
+    k3_run = fgp_run(lw_gas, HR_TOL, keep_log=True, device=dev)
+    pre_run = fgp_run(lw_gas, HR_TOL, cost_options=dict(use_prefix=True),
+                      device=dev)
+    gk, gpre = k3_run[0].gases[0], pre_run[0].gases[0]
+    say(f"prefix LW find_g_points: {pre_run[1]:.3f} s against {k3_run[1]:.3f}"
+        f" s with K3 (host clock); launches {pre_run[3]}")
+    check(pre_run[3]["fused_interval_sum"] == 0
+          and pre_run[3]["sweep_lw_intervals"] > 0,
+          "prefix LW find_g_points: no K3 launch, K1 launched")
+    check(np.array_equal(gk.n_g_points, gpre.n_g_points)
+          and np.max(np.abs(gk.rank1 - gpre.rank1)) <= 2,
+          "prefix LW find_g_points: the same g-points, ranks within 2")
+    out["prefix_lw_run"] = dict(seconds=pre_run[1], k3_seconds=k3_run[1],
+                                launches=pre_run[3])
+    out["prefix"] = {"LW": check_prefix("LW", k3_run[4], say),
+                     "SW": check_prefix("SW", sw_log, say)}
+    del k3_run, pre_run, sw_log
+
+    # scale_lut on the SW main path's model
+    sp = sw_profiles[0]
+    mu0 = 0.5
+    nlay = sp.optical_depth.shape[0]
+    flux = rt_direct_sw(mu0, torch.as_tensor(ssi, device=dev),
+                        torch.as_tensor(sp.optical_depth, device=dev))
+    args = (sw_gp.g_point, mu0, sp.pressure_hl, sp.temperature_hl,
+            np.full((1, nlay), 0.01), ["h2o"])
+    sync(dev)
+    t0 = time.perf_counter()
+    card = scale_lut_core(sw_model, *args, flux, device=dev)
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = scale_lut_core(sw_model, *args, flux.cpu(), device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    k_card = card.model.single_gas_data[0].molar_abs
+    k_cpu = cpu.model.single_gas_data[0].molar_abs
+    rel = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+              for a, b in ((k_card, k_cpu), (card.scaling, cpu.scaling),
+                           (card.od_best, cpu.od_best)))
+    check(rel <= 1e-10, f"scale_lut: card within 1e-10 of the CPU ({rel})")
+    check(sw_model.np_ == nlay and np.allclose(
+        np.exp(sw_model.log_pressure),
+        0.5 * (sp.pressure_hl[1:] + sp.pressure_hl[:-1]), rtol=1e-14),
+        "scale_lut: the LUT's pressures are the profile's layers")
+    # where the clamp left the scaled LUT at the unclamped product, the
+    # scaled model's od of the profile is od_best
+    g0 = sw_model.single_gas_data[0]
+    free = np.all(k_card == g0.molar_abs * card.scaling[None], axis=0)
+    od = scale_lut_core(card.model, *args, flux, device=dev).od_total
+    good = free & (card.od_best > 0) & (card.od_total > 0)
+    ratio = od[good] / card.od_best[good]
+    med = float(np.median(ratio))
+    worst = float(np.max(np.abs(ratio - 1.0)))
+    say(f"scale_lut: {secs:.3f} s on the card, {cpu_secs:.3f} s on the CPU "
+        f"(host clock); card against CPU {rel:.3e} (bar 1e-10); "
+        f"{int(good.sum())} of {good.size} (layer, g-point) entries "
+        f"unclamped with od_best > 0: scaled od / od_best median {med!r}, "
+        f"largest |ratio - 1| {worst:.3e}")
+    check(abs(med - 1.0) <= 1e-3, "scale_lut: median scaled od / od_best "
+          "within 1e-3 of 1")
+    out["scale_lut"] = dict(seconds=secs, cpu_seconds=cpu_secs, rel=rel,
+                            median=med, worst=worst)
+    say(f"phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_profile(lw_profiles, sw_profiles, ssi):
     """Each main path once more under torch.profiler: wall and device
     seconds, the device time of the costliest kernels and copies, and the
@@ -752,7 +1133,8 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
     from torch.profiler import ProfilerActivity, profile
     for what, args in (("LW", (lw_profiles, "cuda", HR_TOL)),
                        ("SW", (sw_profiles, "cuda", HR_TOL_SW))):
-        kw = dict(ssi=ssi, bands=SW_BANDS) if what == "SW" else {}
+        kw = (dict(ssi=ssi, bands=SW_BANDS, band_parallel="off")
+              if what == "SW" else {})
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1120,6 +1502,7 @@ def main() -> int:
     phase_small_rig()
     lw_profiles, lw_gp, lw_model, lw_launches = phase_lw_main_path()
     sw_profiles, ssi, sw_gp, sw_model, sw_launches = phase_sw_main_path()
+    phase_rest(lw_profiles, sw_profiles, ssi, sw_gp, sw_model)
     phase_profile(lw_profiles, sw_profiles, ssi)
     phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
                    sw_model)

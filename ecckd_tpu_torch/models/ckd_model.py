@@ -8,8 +8,8 @@ constructor (SW models get their per-g-point Rayleigh coefficient),
 ckd-definition schema (ckd_model.cpp:30-641), the optical-depth, Planck
 and Rayleigh wrappers over :mod:`.gas_optics`, and the optimisation state:
 the LUTs of the active gases as a dict of arrays, the Markov-correlation
-prior and the relative-linear cap.  Not ported yet (ROADMAP):
-``scale_optical_depth``, which scale_lut uses.
+prior, the relative-linear cap and :meth:`CkdModel.scale_optical_depth`,
+which scale_lut applies.
 """
 
 from __future__ import annotations
@@ -376,6 +376,26 @@ class CkdModel:
                 logs.log(f"Correcting {nbad} {g.Molecule} coefficients that "
                          "could cause negative optical depth")
                 g.molar_abs = np.minimum(g.molar_abs, cap)
+
+    def scale_optical_depth(self, pressure_fl, scaling):
+        """Scale every gas's LUT by a (nz, ng) factor interpolated onto the
+        LUT pressure grid (ref ckd_model.cpp:1149-1176), clamped to min/max
+        bounds where available.  Host numpy, as in the JAX package
+        (``ecckd_tpu/models/ckd_model.py:383-400``)."""
+        log_p_in = np.log(np.asarray(pressure_fl, np.float64))
+        scaling = np.asarray(scaling, np.float64)
+        local = np.empty((self.np_, scaling.shape[1]))
+        for igcol in range(scaling.shape[1]):
+            local[:, igcol] = np.interp(self.log_pressure, log_p_in,
+                                        scaling[:, igcol])
+        for g in self.single_gas_data:
+            if g.conc_dependence == ConcDependence.LUT:
+                g.molar_abs = g.molar_abs * local[None, None, :, :]
+            else:
+                g.molar_abs = g.molar_abs * local[None, :, :]
+            if g.min_molar_abs is not None:
+                g.molar_abs = np.maximum(
+                    g.min_molar_abs, np.minimum(g.molar_abs, g.max_molar_abs))
 
     # ------------------------------------------------------------------
     # I/O: exact ckd-definition NetCDF schema

@@ -9,11 +9,16 @@ itself.  :func:`interval_sum_fused` here is K3's plain version: per tile,
 the stacked part rows times a 0/1 membership matrix.  Matmuls against
 membership matrices must be exact, so the port keeps TF32 off
 (:func:`ecckd_tpu_torch.tools.common.setup`).
+
+The prefix path (:func:`build_prefix_sums`, :func:`interval_sum_from_prefix`)
+replaces K3 where the same rows are reduced over many interval sets: the
+rows' double-float prefix sums are built once, and each interval sum is
+then two gathers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -79,6 +84,89 @@ def interval_sum_fused(parts: Sequence[Callable], n: int, i1, i2,
         t = reduce_tile(nfull * tile, rem)
         acc = t if acc is None else acc + t
     return acc
+
+
+def _two_sum(a, b):
+    """Error-free addition (Knuth): s + err == a + b exactly."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _df_add(x, y):
+    """Double-float addition of (hi, lo) pairs: ~2x-precision accumulate."""
+    xh, xl = x
+    yh, yl = y
+    s, e = _two_sum(xh, yh)
+    e = e + (xl + yl)
+    hi = s + e
+    lo = e - (hi - s)
+    return hi, lo
+
+
+def _df_cumsum(v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive double-float prefix sums of ``v`` along the last axis.
+
+    The port of ``ecckd_tpu/ops/segments.py:_df_cumsum``, an XLA
+    ``associative_scan``: here a doubling (Hillis-Steele) scan whose every
+    combine is :func:`_df_add`, so hi + lo is the prefix sum to ~2x working
+    precision, the error after n elements O(log n * eps^2) of the prefix.
+    The combines pair other elements than XLA's tree, so the two agree to
+    that order, not bit for bit."""
+    hi = v.clone()
+    lo = torch.zeros_like(v)
+    n = v.shape[-1]
+    shift = 1
+    while shift < n:
+        h, l = _df_add((hi[..., :-shift], lo[..., :-shift]),
+                       (hi[..., shift:], lo[..., shift:]))
+        hi[..., shift:] = h
+        lo[..., shift:] = l
+        del h, l
+        shift *= 2
+    return hi, lo
+
+
+def build_prefix_sums(parts: Sequence[Callable], n: int, row_chunk: int = 64):
+    """Double-float prefix sums of the rows of ``parts``.
+
+    Port of ``ecckd_tpu/ops/segments.py:build_prefix_sums``: when the same
+    operand rows are reduced over many interval sets (a band's candidate
+    search probes hundreds), the O(rows * n) reduction is paid once and
+    every interval sum is a pair of gathers
+    (:func:`interval_sum_from_prefix`).  Each part is formed whole with
+    plain tensor products, not with kernel K3, and scanned ``row_chunk``
+    rows at a time to bound the scan's temporaries.
+
+    Returns (hi, lo), each (total_rows, n + 1) with a leading zero column,
+    so the sum over inclusive [i1, i2] is C[i2 + 1] - C[i1]."""
+    his, los = [], []
+    for p in parts:
+        block = p(0, n)
+        for r0 in range(0, block.shape[0], row_chunk):
+            hi, lo = _df_cumsum(block[r0:r0 + row_chunk])
+            zero = hi.new_zeros((hi.shape[0], 1))
+            his.append(torch.cat([zero, hi], dim=1))
+            los.append(torch.cat([zero, lo], dim=1))
+            del hi, lo
+        del block
+    hi = torch.cat(his) if len(his) > 1 else his[0]
+    del his
+    lo = torch.cat(los) if len(los) > 1 else los[0]
+    return hi, lo
+
+
+def interval_sum_from_prefix(hi, lo, i1, i2):
+    """Interval sums over inclusive [i1, i2] from the prefix sums of
+    :func:`build_prefix_sums`: (rows, nseg).  The hi difference of nearby
+    prefixes is exact (Sterbenz) or correctly rounded; the lo difference
+    restores the compensated tail."""
+    j1 = i1.long()
+    j2 = i2.long() + 1
+    h = hi.index_select(1, j2) - hi.index_select(1, j1)
+    l = lo.index_select(1, j2) - lo.index_select(1, j1)
+    return h + l
 
 
 def fused_groups(parts, n: int):

@@ -8,6 +8,11 @@ intervals: kernel K3 reduces the fit operands and the truth rows over every
 interval in one pass, and the sweep kernel (K1 for the longwave, K2 for the
 shortwave) runs the flux recurrence once, each wavenumber carrying the
 fitted od of its own interval, and sums the fluxes per interval.
+
+With ``use_prefix`` the fit and truth rows' double-float prefix sums are
+built once per kernel (:func:`~ecckd_tpu_torch.ops.segments.
+build_prefix_sums`) and each probe's interval sums are gathers from them:
+a probe then launches no K3, only its sweep.  Off by default.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import logs
 from ..constants import HR_WEIGHT
 from ..ops.average import (fit_parts_lw, fit_parts_sw, total_trans_fallback,
                            total_trans_fit_parts)
@@ -25,7 +31,8 @@ from ..ops.kernels.interval_stream import device_bounds
 from ..ops.kernels.interval_sum import fused_interval_sum
 from ..ops.kernels.sweep_lw import sweep_lw_intervals
 from ..ops.kernels.sweep_sw import sweep_sw_intervals
-from ..ops.segments import part_of
+from ..ops.segments import (build_prefix_sums, interval_sum_from_prefix,
+                             part_of)
 from .equipartition import Equipartition
 
 
@@ -37,13 +44,22 @@ def _pad_to_bucket(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+def _layer_sum(x):
+    """Sum of (nlay, nseg) ``x`` over its layers, in layer order for each
+    column: the same bits for an interval whatever else rides the batch.
+    ``torch.sum`` over a leading axis sums in an order that depends on the
+    number of columns on the CPU, and guarantees none on the card; a
+    cumulative sum runs down each column in turn on both."""
+    return torch.cumsum(x, dim=0)[-1]
+
+
 def _cost_terms(layer_weight, flux_weight, hr_err, dn_err, up_err):
     """The two squared terms of the candidate cost per interval (ref
     calc_cost_function_lw.cpp:104-110): the layer-weighted squared
     heating-rate error (K/day), and the flux-weighted squared boundary-flux
     errors; the cost is the square root of their sum."""
     return (HR_WEIGHT * HR_WEIGHT
-            * torch.sum(layer_weight[:, None] * hr_err * hr_err, dim=0),
+            * _layer_sum(layer_weight[:, None] * hr_err * hr_err),
             flux_weight * (dn_err * dn_err + up_err * up_err))
 
 
@@ -72,11 +88,43 @@ class _CandidateCostBase:
     the LW and SW kernels; a subclass defines ``_kernel(i1, i2)`` and
     ``_truth_sets(i1, i2)``.
 
-    Both kernels take two keywords besides their arrays: ``fit_limits``, a
-    float dtype whose transmission clamp and range the interval fit takes
+    Both kernels take three keywords besides their arrays: ``fit_limits``,
+    a float dtype whose transmission clamp and range the interval fit takes
     in place of its own (:func:`~ecckd_tpu_torch.ops.average.fit_parts_lw`),
-    and ``probe_log``, a list to which :meth:`costs` appends each call as
-    (kernel, i1, i2, costs)."""
+    ``probe_log``, a list to which :meth:`costs` appends each call as
+    (kernel, i1, i2, costs), and ``use_prefix``, whether the rows that
+    :meth:`costs` reduces are summed once into prefix sums at construction
+    (``ecckd_tpu/partition/cost_kernel.py:135-158``; off by default).  The
+    prefix holds the rows of a probe's K3 launch in the same order, so the
+    sums of the first rows are a slice of it."""
+
+    _prefix = None
+
+    def _build_prefix(self, parts):
+        """Keep the prefix sums of ``parts`` and log their size."""
+        hi, lo = build_prefix_sums(parts, self.npoints)
+        self._prefix = (hi, lo)
+        logs.log(f"    Prefix sums: {hi.shape[0]} rows x {hi.shape[1]} "
+                 f"({2 * hi.numel() * hi.element_size() / 1e9:.3f} GB on "
+                 f"{hi.device})")
+
+    def interval_sums(self, i1: np.ndarray, i2: np.ndarray):
+        """The sums over each interval of a probe's fit and truth rows,
+        (rows, nseg) on the kernel's device, as :meth:`costs` reduces
+        them: gathers from the prefix sums with ``use_prefix``, else one
+        K3 launch."""
+        return self._row_sums(self._probe_parts, self._probe_rows,
+                              *_as_bounds(i1, i2, self.device))
+
+    def _row_sums(self, parts, nrows, i1, i2):
+        """Sums over [i1, i2] of the first ``nrows`` rows of the probe
+        stack, whose parts are ``parts``: gathers from the prefix sums where
+        they hold those rows, else one launch of K3."""
+        if self._prefix is not None and nrows <= self._prefix[0].shape[0]:
+            hi, lo = self._prefix
+            return interval_sum_from_prefix(hi[:nrows], lo[:nrows], i1, i2)
+        return fused_interval_sum(parts, self.npoints, i1, i2,
+                                  dtype=self.dtype)
 
     def _bind(self, arrays, like):
         """Check that every array is a tensor of ``like``'s device and
@@ -150,7 +198,7 @@ class CandidateCostLw(_CandidateCostBase):
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, pressure_hl, surf_emissivity, surf_planck,
                  flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr,
-                 fit_limits=None, probe_log=None):
+                 fit_limits=None, probe_log=None, use_prefix=False):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
         self.probe_log = probe_log
@@ -167,6 +215,11 @@ class CandidateCostLw(_CandidateCostBase):
         self._parts = parts + _truth_parts(hr, flux_dn_surf, flux_up_toa)
         self._fit_rows = rows
         self._fit_finish = finish
+        self._probe_parts = self._parts
+        self._probe_rows = rows + self.nlay + 2
+        self.use_prefix = bool(use_prefix)
+        if self.use_prefix:
+            self._build_prefix(self._parts)
 
     def _truth_of(self, sums):
         """(hr (nlay, nseg), flux_dn_surf, flux_up_toa) of the truth
@@ -176,13 +229,12 @@ class CandidateCostLw(_CandidateCostBase):
                 sums[rows + nlay + 1])
 
     def _truth_sets(self, i1, i2):
-        return [self._truth_of(fused_interval_sum(
-            self._parts, self.npoints, i1, i2, dtype=self.dtype))]
+        return [self._truth_of(self._row_sums(self._parts, self._probe_rows,
+                                              i1, i2))]
 
     def _kernel(self, i1, i2):
         seg_of_wav = self._device_seg_of_wav(i1)
-        sums = fused_interval_sum(self._parts, self.npoints, i1, i2,
-                                  dtype=self.dtype)
+        sums = self._row_sums(self._parts, self._probe_rows, i1, i2)
         od_fit = self._fit_finish(sums[:self._fit_rows], i1, i2)
         flux_dn, flux_up = sweep_lw_intervals(
             self.planck_hl, self.bg_od, od_fit.contiguous(), seg_of_wav,
@@ -210,7 +262,7 @@ class CandidateCostSw(_CandidateCostBase):
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, cos_sza, pressure_hl, ssi, surf_albedo,
                  flux_dn_surf, flux_up_toa, bg_od, metric, hr, extras=None,
-                 fit_limits=None, probe_log=None):
+                 fit_limits=None, probe_log=None, use_prefix=False):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
         self.probe_log = probe_log
@@ -253,16 +305,26 @@ class CandidateCostSw(_CandidateCostBase):
         self._truth = truth + [_truth_parts(hr, flux_dn_surf, flux_up_toa)]
         self._fit_rows = rows
         self._fit_finish = finish
+        # The rows of a probe: the fit and the truth of its runs (for
+        # total-transmission LOW and HIGH, not the unscaled MID that only
+        # ``components`` reads)
+        ntruth = len(self._runs())
+        self._probe_parts = self._fit_parts + [
+            p for t in self._truth[:ntruth] for p in t]
+        self._probe_rows = rows + ntruth * (self.nlay + 2)
+        self.use_prefix = bool(use_prefix)
+        if self.use_prefix:
+            self._build_prefix(self._probe_parts)
 
     def _sums(self, i1, i2, ntruth):
         """Fitted od (nlay, nseg) and the first ``ntruth`` truth sets, each
         (hr (nlay, nseg), flux_dn_surf (nseg,), flux_up_toa (nseg,)), from
-        one K3 launch."""
+        one K3 launch or the prefix sums."""
         nlay = self.nlay
         truth = self._truth[:ntruth]
-        sums = fused_interval_sum(
-            self._fit_parts + [p for t in truth for p in t], self.npoints,
-            i1, i2, dtype=self.dtype)
+        sums = self._row_sums(
+            self._fit_parts + [p for t in truth for p in t],
+            self._fit_rows + ntruth * (nlay + 2), i1, i2)
         rows = self._fit_rows
         od_fit = self._fit_finish(sums[:rows], i1, i2)
         sets = []
@@ -281,8 +343,7 @@ class CandidateCostSw(_CandidateCostBase):
         t1, t2 = _as_bounds(i1, i2, self.device)
         if self.averaging_method != "total-transmission":
             return np.zeros(len(t1), bool)
-        sums = fused_interval_sum(self._fit_parts, self.npoints, t1, t2,
-                                  dtype=self.dtype)
+        sums = self._row_sums(self._fit_parts, self._fit_rows, t1, t2)
         return total_trans_fallback(sums, self.nlay).cpu().numpy()
 
     def _runs(self):
@@ -329,7 +390,10 @@ class CandidateCostSw(_CandidateCostBase):
 
         The tag is MID for a plain method; total-transmission gives LOW
         and HIGH, the scaled runs whose costs are averaged, and MID, the
-        unscaled fit against the main truth (find_g_points.cpp:346-375)."""
+        unscaled fit against the main truth (find_g_points.cpp:346-375).
+        MID's truth is not in the prefix sums, so total-transmission's
+        components are reduced by K3 with ``use_prefix`` too, as the JAX
+        package's are (``ecckd_tpu/partition/cost_kernel.py:639-695``)."""
         i1, i2 = _as_bounds(i1, i2, self.device)
         seg_of_wav = self._device_seg_of_wav(i1)
         runs = self._runs()

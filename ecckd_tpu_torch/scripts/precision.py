@@ -100,10 +100,11 @@ def small_rig(kind):
 
 
 def _search(profiles, ssi, order, hr_tol, device, dtype, limits=None):
-    """find_g_points_core on ``order``, its interval fits taking the clamp
-    and range of ``limits`` (a float dtype; None: ``dtype``'s): (g-points,
-    the candidate-cost kernels by band, every probe as (kernel, i1, i2,
-    costs))."""
+    """find_g_points_core on ``order`` with a kernel per band (the
+    comparison holds each band's probes in its own kernel), its interval
+    fits taking the clamp and range of ``limits`` (a float dtype; None:
+    ``dtype``'s): (g-points, the candidate-cost kernels by band, every
+    probe as (kernel, i1, i2, costs))."""
     sp = profiles[0]
     gas = GasInput("h2o", order["rank"], order["band_number"],
                    order["wavenumber1_band"], order["wavenumber2_band"],
@@ -115,7 +116,7 @@ def _search(profiles, ssi, order, hr_tol, device, dtype, limits=None):
         [gas], hr_tol, averaging_method=("total-transmission"
                                          if ssi is not None
                                          else "transmission"),
-        device=device, dtype=dtype, ssi=ssi,
+        device=device, dtype=dtype, ssi=ssi, band_parallel="off",
         cost_options=dict(fit_limits=limits, probe_log=calls))
     kernels = []
     for k, *_ in calls:

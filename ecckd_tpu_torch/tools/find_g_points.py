@@ -9,10 +9,14 @@ the card) in the longwave or
 :class:`~ecckd_tpu_torch.partition.CandidateCostSw` (K3 and K2) in the
 shortwave, where ``ssi`` is given.  Covered: per-gas background spectra,
 min/max g-point overrides with sqrt-spaced re-initialisation,
-base_split/base_wavenumber_boundary dissection, the SW total-transmission
-method with its low/high scaled runs, the SW cloud pseudo-gas,
-``debug_partition``, the hypercube gas overlap and the g-point NetCDF
-schema.  Not ported yet (ROADMAP): ``g_split`` and ``band_parallel``.
+``g_split`` sub-bands, base_split/base_wavenumber_boundary dissection, the
+SW total-transmission method with its low/high scaled runs, the SW cloud
+pseudo-gas, ``debug_partition``, ``band_parallel`` (every band's search on
+its own thread against one gas-level kernel,
+:mod:`~ecckd_tpu_torch.partition.band_parallel`), the cost kernels'
+prefix path (``cost_options={"use_prefix": True}``), the hypercube gas
+overlap and the g-point NetCDF schema.  Not ported yet: ``sharded``
+sweeps (multi-GPU).
 
 :func:`find_g_points_core` works on arrays; :func:`find_g_points` is the
 file tool around it (``python -m ecckd_tpu_torch.tools.find_g_points
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -37,6 +42,7 @@ from ..ops.rt_lw import rt_lw
 from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
+from ..partition.band_parallel import BandKernelView, ProbeScheduler
 from .common import (find_file, read_string_list, resolve_device, setup,
                      tool_prologue)
 
@@ -53,7 +59,11 @@ class GasInput:
     (the background is the sum of the other gases, or None).  The
     per-band overrides default to the reference's values; the SW
     total-transmission method scales the gas's od by at most
-    ``min(0.5, min_scaling)`` and at least ``max(2.5, max_scaling)``."""
+    ``min(0.5, min_scaling)`` and at least ``max(2.5, max_scaling)``.
+    ``g_split`` (per band; -1 for none) splits the optically thin part of
+    a band, its ranks up to that fraction of the band, into sub-bands at
+    ``subband_wavenumber_boundary``, each searched on its own (ref
+    find_g_points.cpp:788-870); it excludes ``base_split``."""
     name: str
     rank: np.ndarray
     band_number: np.ndarray
@@ -72,13 +82,15 @@ class GasInput:
     base_wavenumber_boundary: Sequence[float] = ()
     min_scaling: float = 1.0
     max_scaling: float = 1.0
+    g_split: Optional[Sequence[float]] = None
+    subband_wavenumber_boundary: Optional[Sequence[float]] = None
 
 
 @dataclasses.dataclass
 class CloudInput:
     """The SW cloud pseudo-gas: the fields of its order file (written by
-    the JAX package's reorder_cloud_spectrum) and the largest range of
-    reflectance one of its g-points may span."""
+    reorder_cloud_spectrum, this package's or the JAX package's) and the
+    largest range of reflectance one of its g-points may span."""
     name: str
     rank: np.ndarray
     band_number: np.ndarray
@@ -275,15 +287,121 @@ def _debug_partition(gas_name, jband, eq, bounds, kernel):
                       f"{fmt(c[key][..., ig])}", file=sys.stderr)
 
 
+def _check_splits(g_split, subband_wavenumber_boundary, base_split):
+    """The JAX tool's errors for ``g_split`` (ecckd_tpu/tools/
+    find_g_points.py:360-383)."""
+    if g_split is None:
+        return
+    if subband_wavenumber_boundary is None:
+        raise ValueError("g_split must be accompanied by "
+                         "subband_wavenumber_boundary")
+    if base_split is not None:
+        raise ValueError("Cannot use both g_split and base_split")
+
+
+def _g_split_subbands(irank, ireorder, iband, wavenumber, band_bound1,
+                      band_bound2, g_split, subband_wavenumber_boundary):
+    """Re-rank the optically thin part of each ``g_split`` band by
+    sub-band (ref find_g_points.cpp:788-870): within a band, ranks up to
+    the fraction ``g_split`` of the band are renumbered sub-band by
+    sub-band, in rank order inside each.  Returns (irank, ireorder,
+    subbands), where ``subbands[jband]`` is None or (the (g_start, g_end)
+    range of each sub-band, the start of the final overarching sub-band or
+    None, the band's g_split)."""
+    nband = len(band_bound1)
+    subbands = [None] * nband
+    for jband in range(nband):
+        in_band = ((subband_wavenumber_boundary > band_bound1[jband])
+                   & (subband_wavenumber_boundary < band_bound2[jband]))
+        if not (g_split[jband] > 0.0 and np.any(in_band)):
+            continue
+        ibandloc = np.nonzero(iband == jband)[0]
+        irank1 = int(ibandloc[0])
+        irank3 = int(ibandloc[-1])
+        irank2 = irank3
+        if g_split[jband] < 1.0:
+            irank2 = int(ibandloc[0] + g_split[jband] * (irank3 - irank1))
+        nsub = 1 + int(np.sum(in_band))
+        wn_bound = np.empty(nsub + 1)
+        wn_bound[0] = band_bound1[jband]
+        wn_bound[-1] = band_bound2[jband] + 1.0
+        if nsub > 1:
+            wn_bound[1:-1] = subband_wavenumber_boundary[in_band]
+        logs.log(f"  Splitting optically thin part of band {jband} into "
+                 f"{nsub} sub-bands")
+        wavenumber_cm_1 = wavenumber[ireorder]
+        position = irank[ireorder]
+        irank_new = irank.copy()
+        isub1 = np.empty(nsub, np.int64)
+        isub2 = np.empty(nsub, np.int64)
+        isub1[0] = irank1
+        for isub in range(nsub):
+            if isub > 0:
+                isub1[isub] = isub2[isub - 1] + 1
+            idx = np.nonzero((wavenumber_cm_1 >= wn_bound[isub])
+                             & (wavenumber_cm_1 < wn_bound[isub + 1])
+                             & (position >= irank1)
+                             & (position <= irank2))[0]
+            isub2[isub] = isub1[isub] + len(idx) - 1
+            irank_new[ireorder[idx]] = np.arange(isub1[isub],
+                                                 isub2[isub] + 1)
+            logs.log(f"    Creating {wn_bound[isub]}-{wn_bound[isub + 1]} "
+                     f"cm-1 sub-band: {len(idx)} spectral points")
+        if isub2[-1] != irank2:
+            raise ValueError("Failed to account for all wavenumbers in "
+                             "split")
+        irank = irank_new
+        ireorder[irank] = np.arange(len(irank))
+        denom = float(irank3 - irank1)
+        ranges = [((isub1[k] - irank1) / denom, (isub2[k] - irank1) / denom)
+                  for k in range(nsub)]
+        final = ((isub2[-1] - irank1) / denom if g_split[jband] < 1.0
+                 else None)
+        subbands[jband] = (ranges, final, float(g_split[jband]))
+    return irank, ireorder, subbands
+
+
 def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
-                 min_g, max_g):
-    """One band's equipartition search with the min/max g-point overrides
-    (ref find_g_points.cpp:1152-1266).  Returns (istatus, bounds, error,
-    ng, eq)."""
+                 min_g, max_g, subbands=None):
+    """One band's equipartition search (ref find_g_points.cpp:1152-1266):
+    with the min/max g-point overrides, or sub-band by sub-band where
+    ``subbands`` (from :func:`_g_split_subbands`) is given, the final
+    overarching sub-band re-initialised to at least ``min_g`` g-points
+    overall.  Touches only its own search and kernel, so band threads may
+    run it side by side.  Returns (istatus, bounds, error, ng, eq)."""
     eq = CkdEquipartition(kernel)
     eq.set_partition_max_iterations(max_iterations)
     eq.set_partition_tolerance(tolerance_tolerance)
     eq.set_verbose(False)
+    if subbands is not None:
+        ranges, final, g_split = subbands
+        bounds_l: List[float] = []
+        error_l: List[float] = []
+        ng = 0
+        for jsub, (g_start, g_end) in enumerate(ranges):
+            logs.log(f"  Subband {jsub}: g range {g_start}-{g_end}")
+            istatus, sb, se = eq.equipartition_e(tolerance, g_start, g_end)
+            if ng == 0:
+                bounds_l = list(sb)
+            else:
+                bounds_l[ng:ng] = list(sb)
+            error_l.extend(se)
+            ng += len(se)
+        if final is not None:
+            logs.log(f"  Final overarching subband: g range {final}-1.0")
+            istatus, sb, se = eq.equipartition_e(tolerance, final, 1.0)
+            nsubg = len(se)
+            if ng + nsubg < min_g:
+                nsubg = int(min_g) - ng
+                sb = g_split + (1.0 - g_split) * _sqrt_bounds(nsubg)
+                se = np.zeros(nsubg)
+                eq.invalidate()
+                istatus = eq.equipartition_n(sb, se)
+            bounds_l[ng:ng] = list(sb)
+            error_l.extend(se)
+            ng += nsubg
+        return (istatus, np.asarray(bounds_l[:ng + 1]), np.asarray(error_l),
+                ng, eq)
     istatus, bounds, error = eq.equipartition_e(tolerance, 0.0, 1.0)
     ng = len(error)
     if ng < min_g or ng > max_g:
@@ -298,12 +416,86 @@ def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
     return istatus, bounds, error, ng, eq
 
 
+_BAND_MODES = {"parallel": "parallel", "1": "parallel", "yes": "parallel",
+               "true": "parallel", "serial": "serial",
+               "serial_gas": "serial", "off": "off", "0": "off",
+               "no": "off", "false": "off", "auto": "auto"}
+
+
+def _band_mode(band_parallel, device: torch.device, nband: int,
+               debug_partition: bool) -> str:
+    """The band mode of a gas of ``nband`` bands: "parallel", "serial" or
+    "off" (ecckd_tpu/tools/find_g_points.py:701-713).  "auto" is "parallel" on
+    the card, as the JAX tool's is on its accelerator, and "off" on the
+    CPU, where the plain versions' sums of an interval depend on the rest
+    of the launch; one band and ``debug_partition`` (which needs
+    band-local kernels) are always "off"."""
+    key = str(band_parallel).lower()
+    if key not in _BAND_MODES:
+        raise ValueError(f"band_parallel={band_parallel!r} not understood; "
+                         "choose auto, parallel, serial or off")
+    mode = _BAND_MODES[key]
+    if mode == "auto":
+        mode = "parallel" if device.type == "cuda" else "off"
+    if nband <= 1 or debug_partition:
+        mode = "off"
+    return mode
+
+
+def _search_bands(kernel, band_ranges, search, mode):
+    """Every band's search against the gas-level ``kernel``, through a
+    :class:`BandKernelView` of its ranks: one band after another
+    ("serial"), or each on its own thread with the probes of all bands
+    merged into one dispatch ("parallel").  ``search(jband, view)`` is
+    one band's search; returns {jband: its result}.  A band's exception,
+    or a failed dispatch, is raised here after every thread has ended."""
+    if mode == "serial":
+        return {j: search(j, BandKernelView(kernel, b1, b2 - b1 + 1))
+                for j, (b1, b2) in enumerate(band_ranges)}
+    nband = len(band_ranges)
+    logs.log(f"Batching equipartition probes across {nband} bands "
+             "(band_parallel)")
+    sched = ProbeScheduler(kernel)
+    results = {}
+
+    def run(jband):
+        b1, b2 = band_ranges[jband]
+        try:
+            results[jband] = search(jband, BandKernelView(
+                kernel, b1, b2 - b1 + 1, sched, jband))
+        except BaseException as e:   # noqa: BLE001 (raised below)
+            results[jband] = e
+        finally:
+            sched.done()
+
+    # Every thread registers before any starts: an early starter must not
+    # dispatch alone
+    for _ in range(nband):
+        sched.register()
+    threads = [threading.Thread(target=run, args=(j,), name=f"ecckd-band{j}")
+               for j in range(nband)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if sched.error is not None:
+        raise sched.error
+    for jband in range(nband):
+        if isinstance(results[jband], BaseException):
+            raise results[jband]
+    logs.log(f"  band_parallel: {sched.dispatches} merged dispatches")
+    return results
+
+
 def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight, min_pressure, block_wav,
                 device, dtype, sw: Optional[_Shortwave],
-                debug_partition, cost_options) -> SingleGasData:
-    """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455,
-    no g_split); shortwave where ``sw`` is given."""
+                debug_partition, cost_options, band_parallel
+                ) -> SingleGasData:
+    """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455);
+    shortwave where ``sw`` is given."""
+    _check_splits(gas.g_split, gas.subband_wavenumber_boundary,
+                  gas.base_split)
     irank = np.asarray(gas.rank).astype(np.int64).copy()
     iband = np.asarray(gas.band_number)
     band_bound1 = np.asarray(gas.wavenumber1_band, np.float64)
@@ -332,9 +524,18 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         if np.any(no_rayleigh):
             sw.max_no_rayleigh_wavenumber = band_bound2[no_rayleigh].max()
 
-    # ireorder: index that reorders arrays into rank order
+    # ireorder: index that reorders arrays into rank order.  g_split
+    # re-ranks before the spectra are gathered into rank order.
     ireorder = np.empty(len(irank), np.int64)
     ireorder[irank] = np.arange(len(irank))
+    subbands = [None] * nband
+    if gas.g_split is not None:
+        g_split = _per_band(gas.g_split, nband, -1.0, np.float64)
+        logs.log(f"Bands will be split at g values according to: {g_split}")
+        irank, ireorder, subbands = _g_split_subbands(
+            irank, ireorder, iband, np.asarray(gas.wavenumber, np.float64),
+            band_bound1, band_bound2, g_split,
+            np.asarray(gas.subband_wavenumber_boundary, np.float64))
     sorting_variable = np.asarray(gas.sorting_variable)[ireorder]
 
     to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -401,14 +602,15 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
     if bg_od is None:
         bg_od = torch.zeros_like(metric)
 
-    logs.log("Finding g points:")
-    n_g_points_per_band = []
-    rank1_l, rank2_l, band_l, error_l, median_l = [], [], [], [], []
+    band_ranges = []
     for jband in range(nband):
-        logs.log(f"Band {jband}")
         band_index = np.nonzero(iband == jband)[0]
-        ibegin, iend = int(band_index[0]), int(band_index[-1])
-        sl = slice(ibegin, iend + 1)
+        band_ranges.append((int(band_index[0]), int(band_index[-1])))
+
+    def make_kernel(sl, albedo):
+        """The candidate-cost kernel over ranks ``sl``: one band, or the
+        whole gas for band_parallel (bands are disjoint rank ranges, so a
+        band's probes are global intervals of it)."""
         band = lambda a: a[..., sl].contiguous()
         state = dict(layer_weight=to_dev(layer_weight),
                      pressure_hl=to_dev(pressure_hl),
@@ -416,25 +618,56 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                      flux_up_toa=band(flux_up_toa), bg_od=band(bg_od),
                      metric=band(metric), hr=band(hr))
         if sw is None:
-            kernel = CandidateCostLw(
+            return CandidateCostLw(
                 averaging_method, flux_weight,
                 surf_emissivity=torch.ones_like(band(surf_planck)),
                 surf_planck=band(surf_planck), planck_hl=band(planck_hl),
                 **state, **cost_options)
-        else:
-            band_extras = None
-            if extras is not None:
-                band_extras = {k: band(v) for k, v in extras.items()}
-                band_extras.update(min_scaling=min_scaling,
-                                   max_scaling=max_scaling)
-            kernel = CandidateCostSw(
-                averaging_method, flux_weight, cos_sza=sw.cos_sza,
-                ssi=to_dev(ssi_reorder[sl]),
-                surf_albedo=float(band_albedo[jband]), extras=band_extras,
-                **state, **cost_options)
-        istatus, bounds, error, ng, eq = _search_band(
+        band_extras = None
+        if extras is not None:
+            band_extras = {k: band(v) for k, v in extras.items()}
+            band_extras.update(min_scaling=min_scaling,
+                               max_scaling=max_scaling)
+        return CandidateCostSw(
+            averaging_method, flux_weight, cos_sza=sw.cos_sza,
+            ssi=to_dev(ssi_reorder[sl]), surf_albedo=albedo,
+            extras=band_extras, **state, **cost_options)
+
+    def search(jband, kernel):
+        return _search_band(
             kernel, heating_rate_tolerance[jband], tolerance_tolerance,
-            max_iterations, min_g_points[jband], max_g_points[jband])
+            max_iterations, min_g_points[jband], max_g_points[jband],
+            subbands[jband])
+
+    logs.log("Finding g points:")
+    # ---- Cross-band probe batching (ref ecckd_tpu/tools/find_g_points.py
+    # :690-767): one gas-level kernel, SW with each band's albedo ----
+    band_results = {}
+    gas_kernel = None
+    mode = _band_mode(band_parallel, device, nband, debug_partition)
+    if mode != "off":
+        gas_albedo = None
+        if sw is not None:
+            gas_albedo = np.zeros(nwav)
+            for jband, (b1, b2) in enumerate(band_ranges):
+                gas_albedo[b1:b2 + 1] = band_albedo[jband]
+            gas_albedo = to_dev(gas_albedo)
+        gas_kernel = make_kernel(slice(0, nwav), gas_albedo)
+        band_results = _search_bands(gas_kernel, band_ranges, search, mode)
+
+    n_g_points_per_band = []
+    rank1_l, rank2_l, band_l, error_l, median_l = [], [], [], [], []
+    for jband in range(nband):
+        logs.log(f"Band {jband}")
+        ibegin, iend = band_ranges[jband]
+        if jband in band_results:
+            kernel = gas_kernel
+            istatus, bounds, error, ng, eq = band_results.pop(jband)
+        else:
+            kernel = make_kernel(slice(ibegin, iend + 1),
+                                 None if sw is None
+                                 else float(band_albedo[jband]))
+            istatus, bounds, error, ng, eq = search(jband, kernel)
         logs.log(f"  Equipartition status: {istatus.describe()}")
         logs.log(f"      computational cost = {eq.total_comp_cost:.2f}")
 
@@ -528,7 +761,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 sorting_variable, weight_for_median, ind1, ind2))
         if debug_partition:
             _debug_partition(gas.name, jband, eq, bounds, kernel)
-        del kernel, eq, state   # free the band before the next one
+        kernel = eq = None   # free the band before the next one
 
     gas_data = SingleGasData(
         molecule=gas.name,
@@ -551,7 +784,7 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
                        cloud: Optional[CloudInput] = None,
                        max_no_rayleigh_wavenumber=10000.0,
                        debug_partition=False,
-                       cost_options=None) -> GPoints:
+                       cost_options=None, band_parallel="auto") -> GPoints:
     """Array-level find_g_points: search every gas, then overlap them
     (Hogan 2010) into merged g-points and their per-wavenumber map.
 
@@ -561,9 +794,14 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
     pseudo-gas if ``cloud`` is given, and the solar irradiance of each
     merged g-point in the result.  The candidate costs run on ``device``,
     the card unless ``device="cpu"`` (raises without one).
-    ``cost_options`` are keywords for every band's candidate-cost kernel
-    (``fit_limits``, ``probe_log``: :mod:`~ecckd_tpu_torch.partition.
-    cost_kernel`)."""
+    ``cost_options`` are keywords for every candidate-cost kernel
+    (``fit_limits``, ``probe_log``, ``use_prefix``:
+    :mod:`~ecckd_tpu_torch.partition.cost_kernel`).  ``band_parallel`` is
+    "parallel" (or 1: each band's search on its own thread, all bands'
+    probes in one dispatch of one gas-level kernel), "serial" (that
+    kernel, one band after another), "off" (or 0: a kernel per band) or
+    "auto" (the default: "parallel" on the card, "off" on the CPU); a
+    gas of one band and ``debug_partition`` are always "off"."""
     device = resolve_device(device)
     hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
     sw = None
@@ -584,7 +822,7 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
         single_gas_data.append(_search_gas(
             gas, hr_tol, tolerance_tolerance, max_iterations,
             averaging_method, flux_weight, min_pressure, block_wav, device,
-            dtype, sw, debug_partition, cost_options or {}))
+            dtype, sw, debug_partition, cost_options or {}, band_parallel))
         band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
         logs.log("")
     logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
@@ -614,9 +852,11 @@ def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
     from ..io import read_order
     from ..io.spectrum import open_merged_spectrum_profile
 
-    if cfg.exist(f"{gas_str}.g_split"):
-        raise NotImplementedError("find_g_points: g_split is not ported yet "
-                                  "(ROADMAP: rest of find_g_points)")
+    g_split = cfg.read_floats(f"{gas_str}.g_split", default=None)
+    subband_wavenumber_boundary = cfg.read_floats(
+        f"{gas_str}.subband_wavenumber_boundary", default=None)
+    base_split = cfg.read_floats(f"{gas_str}.base_split", default=None)
+    _check_splits(g_split, subband_wavenumber_boundary, base_split)
     reordering_input = cfg.read_string(f"{gas_str}.reordering_input")
     logs.log(f"Reading {reordering_input}")
     order = read_order(find_file(reordering_input))
@@ -640,13 +880,15 @@ def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
         wavenumber=sp.wavenumber if wavenumber is None else wavenumber,
         d_wavenumber=sp.d_wavenumber, optical_depth=sp.optical_depth,
         bg_optical_depth=bg,
-        base_split=cfg.read_floats(f"{gas_str}.base_split", default=None),
+        base_split=base_split,
         min_g_points=cfg.read_ints(f"{gas_str}.min_g_points", default=None),
         max_g_points=cfg.read_ints(f"{gas_str}.max_g_points", default=None),
         base_wavenumber_boundary=cfg.read_floats(
             f"{gas_str}.base_wavenumber_boundary", default=None) or (),
         min_scaling=cfg.read_float(f"{gas_str}.min_scaling", default=1.0),
-        max_scaling=cfg.read_float(f"{gas_str}.max_scaling", default=1.0))
+        max_scaling=cfg.read_float(f"{gas_str}.max_scaling", default=1.0),
+        g_split=g_split,
+        subband_wavenumber_boundary=subband_wavenumber_boundary)
 
 
 def _read_cloud(cfg: Config, cloud_str: str) -> CloudInput:
@@ -775,11 +1017,7 @@ def find_g_points(cfg: Config, argv=()) -> str:
     """The file tool: read order files and spectra, search, write the
     g-point file."""
     device, dtype = setup(cfg)
-    bp = str(cfg.read_string("band_parallel", default="auto")).lower()
-    if bp not in ("auto", "off", "0", "no", "false"):
-        raise NotImplementedError("find_g_points: band_parallel is not "
-                                  "ported yet (ROADMAP: rest of "
-                                  "find_g_points)")
+    band_parallel = cfg.read_string("band_parallel", default="auto")
     sharded = str(cfg.read_string("sharded", default="auto")).lower()
     if sharded in ("1", "yes", "true"):
         raise NotImplementedError("find_g_points: sharded sweeps are not "
@@ -812,7 +1050,8 @@ def find_g_points(cfg: Config, argv=()) -> str:
         device=device, dtype=dtype, ssi=ssi, cloud=cloud,
         max_no_rayleigh_wavenumber=cfg.read_float(
             "max_no_rayleigh_wavenumber", default=10000.0),
-        debug_partition=cfg.read_bool("debug_partition", default=False))
+        debug_partition=cfg.read_bool("debug_partition", default=False),
+        band_parallel=band_parallel)
     logs.log(f"Writing {output}")
     write_g_points(output, result, cfg, argv)
     return output

@@ -742,9 +742,7 @@ def test_setup_device_and_dtype():
 
 
 @pytest.mark.parametrize("tool,keys", [
-    ("find_g_points", {"band_parallel": "parallel"}),
     ("find_g_points", {"sharded": "1"}),
-    ("find_g_points", {"gases": "h2o", "h2o.g_split": "0.5"}),
     ("create_lut", {"streaming": "1"}),
     ("create_lut", {"sharded": "1"}),
 ])
