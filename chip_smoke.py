@@ -3,8 +3,8 @@ and evaluation of their models, on one GPU.
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout,
 on a machine with one NVIDIA Hopper card.  It needs neither jax nor h5py,
-and builds the port's CUDA kernels from ``ecckd_tpu_torch/csrc`` at first
-use.
+and builds the port's CUDA kernels and its native shard loader from
+``ecckd_tpu_torch/csrc`` at first use.
 
 Phases (every failed check raises; nothing is caught):
   1. the card's name and power limit;
@@ -60,8 +60,8 @@ Phases (every failed check raises; nothing is caught):
      seconds, the device time of the costliest kernels and copies and the
      host time of the costliest operators;
   8. create_lut -> optimize_lut -> run_ckd on the card: LW training
-     fluxes from the LW main path's profiles (the port's Planck function
-     and ``rt_lw`` over the spectrum, summed per g-point), then
+     fluxes from the LW main path's profiles (the port's lw_spectra,
+     ``lw_spectra_core`` with the chain's g-points), then
      ``optimize_lut_core`` (scipy L-BFGS-B, at most 60 iterations, prior
      error 4) on its model and ``run_ckd_core`` before and after: the cost
      and the heating-rate and surface-downwelling errors must fall; the
@@ -80,7 +80,21 @@ Phases (every failed check raises; nothing is caught):
   10. phases 3, 4 (with its band_parallel dispatches of one gas-level
       kernel) and 9 again on the checked build: any index outside its
       range traps and fails the run; the kernel times beside the normal
-      build's.
+      build's;
+  11. streaming at CKDMIP scale: two profiles of the LW main path's
+      synthetic spectrum at 5,600,000 wavenumbers x 50 layers written to
+      float32 ``.spbin`` shards (in a temporary directory under
+      ``build/``, removed at the end) and read back through the native
+      loader: reorder -> find_g_points (K1 and K3 at that size, their
+      launches and device time, and the search once more on the checked
+      build) -> create_lut with ``streaming`` "auto" (which streams blocks
+      of 2^20 wavenumbers) and ``streaming=0`` (min/max bit-identical,
+      molar absorption within 1e-10 normwise below the transmission clamp
+      and 1e-6 at it) -> ``lw_spectra_core`` with and without the
+      g-points (broadband fluxes within 1e-12 of each other and of the
+      g-point fluxes' sum); seconds by stage, the shards' read rate, the
+      device's idle share and the min/max reduction's device time in the
+      streamed create_lut.
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -104,6 +118,11 @@ import torch
 NWAV_FULL = 1 << 20
 NLAY_FULL = 50
 NCOL_FULL = 5
+# Phase 11: the wavenumbers of a CKDMIP longwave spectrum, as
+# tests/test_create_lut.py's streaming rule has them, and its profiles
+NWAV_CKDMIP = 5_600_000
+NCOL_CKDMIP = 2
+BLOCK_CKDMIP = 1 << 20
 HR_TOL = 0.2
 # SW heating-rate tolerance (K/day): 4-16 g-points in each band of the SW
 # main path's spectrum
@@ -1160,39 +1179,48 @@ def phase_profile(lw_profiles, sw_profiles, ssi):
 
 def training_fluxes(profiles, g_point, ng, dev, ssi=None):
     """LblFluxes of a main path's profiles (h2o at vmr 0.01), computed on
-    the card as tests/synth.py:195-347 computes its training files: each
-    profile's spectrum through the port's ``planck_function`` and ``rt_lw``
-    (SW: ``rt_norayleigh_sw`` at the zenith angles of
-    ``SW_SZA_INDICES`` with a surface albedo of 0.15), the fluxes summed
-    over the spectrum and over each g-point of the merged map."""
+    the card as tests/synth.py:195-347 computes its training files: LW,
+    each profile through the port's lw_spectra (``lw_spectra_core`` with
+    the g-points: the Planck function and ``rt_lw`` over the spectrum,
+    summed over the spectrum and over each g-point of the merged map); SW,
+    ``rt_norayleigh_sw`` at the zenith angles of ``SW_SZA_INDICES`` with a
+    surface albedo of 0.15, summed the same way."""
     from ecckd_tpu_torch.io.lbl_fluxes import SW_SZA_INDICES, LblFluxes
-    from ecckd_tpu_torch.ops import planck_function, rt_lw, rt_norayleigh_sw
+    from ecckd_tpu_torch.io.spectrum import spectrum_blocks
+    from ecckd_tpu_torch.ops import rt_norayleigh_sw
+    from ecckd_tpu_torch.tools.lw_spectra import lw_spectra_core
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                   device=dev)
-    gp = torch.as_tensor(np.asarray(g_point), dtype=torch.int64, device=dev)
-    onehot = (gp[:, None] == torch.arange(ng, device=dev)[None, :]).double()
+    if ssi is not None:
+        gp = torch.as_tensor(np.asarray(g_point), dtype=torch.int64,
+                             device=dev)
+        onehot = (gp[:, None] == torch.arange(ng, device=dev)[None, :]
+                  ).double()
     mu0_all = np.array([0.9, 0.7, 0.5, 0.3, 0.1])[list(SW_SZA_INDICES)]
     rows = {k: [] for k in ("p", "t", "fd", "fu", "sfd", "sfu", "mu0")}
     for sp in profiles:
-        od = f(sp.optical_depth)
         if ssi is None:
-            planck = planck_function(f(sp.temperature_hl), f(sp.wavenumber),
-                                     f(sp.d_wavenumber))
-            fluxes = [rt_lw(planck, od, torch.ones_like(planck[0]),
-                            planck[-1])]
-            del planck
+            lw = lw_spectra_core(spectrum_blocks(sp), g_point, ng,
+                                 device=dev)
+            fluxes = [(lw.flux_dn, lw.flux_up, lw.spectral_flux_dn,
+                       lw.spectral_flux_up)]
         else:
+            od = f(sp.optical_depth)
             albedo = torch.full_like(od[0], 0.15)
-            fluxes = [rt_norayleigh_sw(float(mu0), f(ssi), od, albedo)
-                      for mu0 in mu0_all]
+            fluxes = []
+            for mu0 in mu0_all:
+                fd, fu = rt_norayleigh_sw(float(mu0), f(ssi), od, albedo)
+                fluxes.append(tuple(a.cpu().numpy() for a in (
+                    fd.sum(-1), fu.sum(-1), fd @ onehot, fu @ onehot)))
             rows["mu0"].extend(mu0_all)
-        for fd, fu in fluxes:
+            del od
+        for fd, fu, sfd, sfu in fluxes:
             rows["p"].append(sp.pressure_hl)
             rows["t"].append(sp.temperature_hl)
-            for key, flux in (("fd", fd), ("fu", fu)):
-                rows[key].append(flux.sum(-1).cpu().numpy())
-                rows["s" + key].append((flux @ onehot).cpu().numpy())
-        del od, fluxes
+            for key, flux in (("fd", fd), ("fu", fu), ("sfd", sfd),
+                              ("sfu", sfu)):
+                rows[key].append(flux)
+        del fluxes
     nlay = profiles[0].optical_depth.shape[0]
     lbl = LblFluxes()
     lbl.is_sw = ssi is not None
@@ -1475,6 +1503,560 @@ def phase_checked(dev, times, exp):
         f"{time.perf_counter() - t0:.1f} s: no index out of range")
 
 
+class TimedSource:
+    """A profile's block source that counts the blocks and bytes its
+    ``iter_blocks`` yields and the seconds from its opening to its
+    ``close``, into ``stats`` (a list of per-profile dicts)."""
+
+    def __init__(self, source, stats):
+        self._source = source
+        self._stat = dict(t0=time.perf_counter(), blocks=0, bytes=0)
+        stats.append(self._stat)
+
+    def __getattr__(self, name):
+        return getattr(self._source, name)
+
+    def iter_blocks(self, block_wav):
+        for i0, block in self._source.iter_blocks(block_wav=block_wav):
+            self._stat["blocks"] += 1
+            self._stat["bytes"] += block.nbytes
+            yield i0, block
+
+    def close(self):
+        self._source.close()
+        self._stat["seconds"] = time.perf_counter() - self._stat["t0"]
+
+
+def device_ms(prof, names):
+    """Device milliseconds and launches of a profile's kernels and copies,
+    by the first of ``names`` (name -> substring of the kernel's name)
+    that each matches, the rest under "other"; and the device's busy
+    milliseconds."""
+    from torch.autograd import DeviceType
+    ms = {k: [0.0, 0] for k in list(names) + ["other"]}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = next((k for k, sub in names.items() if sub in e.key),
+                       "other")
+            ms[key][0] += e.self_device_time_total / 1e3
+            ms[key][1] += e.count
+    ms = {k: [round(v[0], 3), v[1]] for k, v in ms.items()}
+    return ms, sum(v[0] for v in ms.values())
+
+
+def hold_probe_kernels(k, i1, i2, say):
+    """K3 and K1 on one logged probe of an LW search, launched on the
+    probe's own inputs as its cost launched them (bounds padded to the
+    bucket, the partition map, the od fitted from the sums), each held
+    against its plain version on the same inputs at phase 3's bar;
+    returns {name: dict(max_rel_err, max_abs_err, ms, plain_ms)}."""
+    from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
+                                             sweep_lw_intervals,
+                                             sweep_lw_plain)
+    from ecckd_tpu_torch.ops.kernels.interval_stream import device_bounds
+    from ecckd_tpu_torch.ops.segments import interval_sum_fused
+    from ecckd_tpu_torch.partition.cost_kernel import _pad_to_bucket
+    pad = _pad_to_bucket(len(i1)) - len(i1)
+    d1, d2 = device_bounds(np.r_[np.zeros(pad, np.int32), i1].astype(np.int32),
+                           np.r_[np.zeros(pad, np.int32), i2].astype(np.int32),
+                           k.device)
+    n = k.npoints
+    sums = lambda: (fused_interval_sum(k._parts, n, d1, d2, dtype=k.dtype),)
+    plain_sums = lambda: (interval_sum_fused(k._parts, n, d1, d2,
+                                             dtype=k.dtype),)
+    od_fit = k._fit_finish(plain_sums()[0][:k._fit_rows], d1, d2)
+    args = (k.planck_hl, k.bg_od, od_fit.contiguous(),
+            k._device_seg_of_wav(d1), k.surf_emissivity, k.surf_planck, d1,
+            d2)
+    out = {}
+    for name, kern, plain in (
+            ("K3", sums, plain_sums),
+            ("K1", lambda: sweep_lw_intervals(*args),
+             lambda: sweep_lw_plain(*args))):
+        got, want = kern(), plain()
+        sync(k.device)
+        errs = [row_err(g, w) for g, w in zip(got, want)]
+        rel, absolute = max(e[0] for e in errs), max(e[1] for e in errs)
+        card = k.device.type == "cuda"
+        out[name] = dict(max_rel_err=rel, max_abs_err=absolute,
+                         ms=cuda_ms(kern, 3) if card else None,
+                         plain_ms=cuda_ms(plain, 1) if card else None)
+        del got, want
+        say(f"{name} on a probe of the search ({len(i1)} intervals, ranks "
+            f"{int(i1[0])}..{int(i2[-1])} of {n}, {k.planck_hl.shape[0]} x "
+            f"{n} f64 levels): max rel err (normwise per row) {rel:.3e} "
+            f"(bar {BARS[k.dtype]:.0e}), max abs err {absolute:.3e}; kernel "
+            f"{out[name]['ms']} ms, plain {out[name]['plain_ms']} ms (CUDA "
+            "events)")
+        check(rel <= BARS[k.dtype], f"{name} on the CKDMIP search's probe "
+              f"within {BARS[k.dtype]} of its plain version")
+    return out
+
+
+def reference_sums(path, icol, g_point, ng, block, dev, say):
+    """One profile's transmission-average sums two ways: the streamed
+    path's block partials (``_block_accumulate`` a block read through
+    ``open_spectrum_profile``, ``_combine``d on the host), and a plain
+    whole-array reduction independent of them (the profile's f64 od on
+    the card, ``index_add_`` over the g-point map for the sums, the
+    members of each g-point gathered in rank order for min and max).
+    Holds the sums within 1e-12 normwise and min and max bit-identical;
+    returns (the streamed partials, and the reference's transmission sum,
+    weight sum, min and max, each (nlay, ng) numpy)."""
+    from ecckd_tpu_torch.constants import LW_DIFFUSIVITY
+    from ecckd_tpu_torch.io.spectrum import open_spectrum_profile
+    from ecckd_tpu_torch.ops.planck import planck_function
+    from ecckd_tpu_torch.ops.streaming import _block_accumulate, _combine
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device=dev)
+    gp = torch.as_tensor(np.asarray(g_point), device=dev)
+    t0 = time.perf_counter()
+    with open_spectrum_profile(path, icol) as pb:
+        p_hl = np.asarray(pb.pressure_hl)
+        p_fl = 0.5 * (p_hl[:-1] + p_hl[1:])
+        t_x_p = np.asarray(pb.temperature_hl) * p_hl
+        t_fl = f(0.5 * (t_x_p[:-1] + t_x_p[1:]) / p_fl)
+        wav, dwav = f(pb.wavenumber), f(pb.d_wavenumber)
+        acc = None
+        for i0, blk in pb.iter_blocks(block_wav=block):
+            nb = blk.shape[1]
+            part = _block_accumulate(
+                ng, gp[i0:i0 + nb], blk,
+                planck_function(t_fl, wav[i0:i0 + nb], dwav[i0:i0 + nb]),
+                "transmission", dev, torch.float64)
+            acc = part if acc is None else _combine(acc, part)
+        od = f(pb.materialize().optical_depth)
+    t_streamed = time.perf_counter() - t0
+    sync(dev)
+    t0 = time.perf_counter()
+    w = planck_function(t_fl, wav, dwav)
+    nlay = od.shape[0]
+    zeros = lambda: torch.zeros((nlay, ng), dtype=torch.float64, device=dev)
+    num = zeros().index_add_(1, gp, -torch.expm1(-od * LW_DIFFUSIVITY) * w)
+    den = zeros().index_add_(1, gp, w)
+    del w
+    members = od[:, torch.argsort(gp, stable=True)]
+    del od
+    edges = np.r_[0, np.cumsum(torch.bincount(gp, minlength=ng).cpu().numpy())]
+    mn = torch.stack([members[:, a:b].amin(1) for a, b in zip(edges[:-1],
+                                                             edges[1:])], 1)
+    mx = torch.stack([members[:, a:b].amax(1) for a, b in zip(edges[:-1],
+                                                             edges[1:])], 1)
+    del members
+    sync(dev)
+    t_ref = time.perf_counter() - t0
+    num, den, mn, mx = (t.cpu().numpy() for t in (num, den, mn, mx))
+    e_num = normwise([acc["num"]], [num])
+    e_den = normwise([acc["w_sum"]], [den])
+    same = (np.array_equal(acc["min"], mn) and np.array_equal(acc["max"], mx))
+    say(f"profile {icol}: streamed block partials ({t_streamed:.2f} s) "
+        f"against a whole-array index_add_ reduction ({t_ref:.2f} s on "
+        f"{dev}): transmission sums {e_num:.3e}, weights {e_den:.3e} "
+        f"(normwise, bar 1e-12); min and max bit-identical {same}")
+    check(e_num <= 1e-12 and e_den <= 1e-12 and same,
+          "streamed partials against the independent reduction")
+    return acc, num, den, mn, mx
+
+
+def hold_lut_independent(model, gp, path, block, p_hl, dev, say, out):
+    """Profile 0 of a streamed LUT against a reduction independent of the
+    block code (:func:`reference_sums`).  The LUT must be the finalised
+    streamed partials bit for bit, and its min and max the reference's.
+    Its mean transmissions must be the reference's within 1e-12 in every
+    entry, and its molar absorption the one-pass fit of the reference's
+    (-log1p(-mean), clamped as average_optical_depth.cpp:120-163 does, on
+    the host as the port does): within 1e-10 normwise where the fit is
+    well conditioned (kappa = mean / ((1 - mean) (-log1p(-mean))) <= 100,
+    so that means within 1e-12 give fits within 1e-10), bit for bit where
+    both means sit at the transmission clamp, and everywhere between the
+    fits of the reference's mean moved by -1e-12 and +1e-12.  Towards the
+    clamp -log1p(-mean) turns the sums' last bits into the od's leading
+    digits (ROADMAP §3): there the last bound is the one that holds."""
+    from ecckd_tpu_torch.constants import LW_DIFFUSIVITY
+    from ecckd_tpu_torch.ops.average import (_TRANS_CLAMP,
+                                             finalize_gpoint_partials,
+                                             od_to_molar_abs)
+    ng = len(gp.band_number)
+    acc, num, den, mn, mx = reference_sums(path, 0, gp.g_point, ng, block,
+                                           dev, say)
+    g = model.single_gas_data[0]
+    conv = lambda a: od_to_molar_abs(a, p_hl, 0.01)
+    lut = (g.molar_abs[0], g.min_molar_abs[0], g.max_molar_abs[0])
+    check(all(np.array_equal(conv(a), b) for a, b in zip(
+        finalize_gpoint_partials(acc, "transmission"), lut)),
+        "the streamed LUT's profile 0 is its finalised block partials")
+    mean, mean_s = num / den, acc["num"] / acc["w_sum"]
+    e_mean = float(np.max(np.abs(mean_s / mean - 1.0)))
+
+    def fit_of(m):
+        od = np.abs(-np.log1p(-np.minimum(_TRANS_CLAMP, m)) / LW_DIFFUSIVITY)
+        return conv(np.maximum(mn, np.minimum(od, mx)))
+
+    ref, lo, hi = (fit_of(mean * (1.0 + d)) for d in (0.0, -1e-12, 1e-12))
+    # a degenerate range is widened after the fit is clamped to it
+    degenerate = (mn > 0.0) & (mn >= mx)
+    same_range = (
+        np.array_equal(conv(np.where(degenerate, mn * 0.99, mn)), lut[1])
+        and np.array_equal(conv(np.where(degenerate, mx * 1.01, mx)), lut[2]))
+    m = np.minimum(mean, _TRANS_CLAMP)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kappa = m / ((1.0 - m) * -np.log1p(-m))
+    well = kappa <= 100.0
+    clamped = (mean >= _TRANS_CLAMP) & (mean_s >= _TRANS_CLAMP)
+    rest = ~well & ~clamped
+    e_well = normwise([lut[0][well]], [ref[well]])
+    e_rest = (float(np.max(np.abs(lut[0][rest] / ref[rest] - 1.0)))
+              if rest.any() else 0.0)
+    same_clamped = np.array_equal(lut[0][clamped], ref[clamped])
+    bracketed = np.all((lo <= lut[0]) & (lut[0] <= hi))
+    say(f"streamed LUT profile 0 against the one-pass fit of the "
+        f"independent sums: min and max bit-identical {same_range}; mean "
+        f"transmissions {e_mean:.3e} (worst entry, bar 1e-12); "
+        f"{int(well.sum())} well-conditioned entries {e_well:.3e} normwise "
+        f"(bar 1e-10); {int(clamped.sum())} at the clamp in both, "
+        f"bit-identical {same_clamped}; {int(rest.sum())} towards the clamp "
+        f"(kappa > 100), worst {e_rest:.3e} relative; every entry between "
+        f"the fits of the mean moved by 1e-12 {bracketed}")
+    out.update(lut_independent=dict(
+        mean_err=e_mean, well=int(well.sum()), well_err=e_well,
+        clamped=int(clamped.sum()), near=int(rest.sum()), near_err=e_rest))
+    check(same_range and e_mean <= 1e-12 and e_well <= 1e-10
+          and same_clamped and bracketed,
+          "streamed LUT within its bars of the independent one-pass fit")
+
+
+def lut_paths_at_main_size(profiles, gp, smi, device="cuda"):
+    """create_lut on the LW main path's g-points and profiles (2^20 x 50,
+    arrays in memory), streamed (``streaming=1``: a block a profile, read
+    one ahead) and dense (``streaming=0``), in the order streamed, dense,
+    dense, streamed: seconds of each and the same bits."""
+    from ecckd_tpu_torch.models import ConcDependence
+    from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_core
+    runs = {"1": [], "0": []}
+    models = {}
+    for mode in ("1", "0", "0", "1"):
+        t0 = time.perf_counter()
+        models[mode] = create_lut_core(
+            gp.g_point, gp.wavenumber1_band, gp.wavenumber2_band,
+            gp.band_number,
+            [LutGas("h2o", ConcDependence.LINEAR,
+                    [lambda icol: (profiles[icol], 0.01)])],
+            averaging_method="transmission", device=device, streaming=mode)
+        sync(device)
+        runs[mode].append(time.perf_counter() - t0)
+    a, b = (models[m].single_gas_data[0] for m in ("1", "0"))
+    same = all(np.array_equal(getattr(a, n), getattr(b, n)) for n in (
+        "molar_abs", "min_molar_abs", "max_molar_abs"))
+    nlay, nwav = profiles[0].optical_depth.shape
+    log(f"[ckdmip] create_lut at {nwav} x {nlay}, {len(profiles)} "
+        f"profiles from memory: streamed {[round(t, 3) for t in runs['1']]}"
+        f" s, dense {[round(t, 3) for t in runs['0']]} s (host clock, "
+        f"order streamed, dense, dense, streamed); bit-identical {same} "
+        f"({smi})")
+    check(same, "streamed and dense create_lut bit-identical at 2^20")
+
+
+def phase_ckdmip(smi, device="cuda"):
+    """Phase 11: the LW chain at CKDMIP scale from shards on disk.  Two
+    profiles of 5,600,000 wavenumbers x 50 layers written to float32
+    shards, read back through ``open_spectrum_profile``: reorder ->
+    find_g_points (K1 and K3 at 5.6M wavenumbers; once more on the checked
+    build; K1 and K3 on the search's largest probe held against their
+    plain versions) -> create_lut streamed ("auto") and dense
+    (``streaming=0``), min/max bit-identical, and profile 0 of the
+    streamed LUT against a whole-array reduction independent of the block
+    code -> lw_spectra with and without the g-points, and one
+    full-resolution call under torch.profiler.  The shards are read back
+    both through the loader's pool and through the tools' path."""
+    import os
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from ecckd_tpu_torch.constants import (ACCEL_GRAVITY, LW_DIFFUSIVITY,
+                                           MOLAR_MASS_DRY_AIR)
+    from ecckd_tpu_torch.io import native
+    from ecckd_tpu_torch.io.shards import ShardReader, write_shard
+    from ecckd_tpu_torch.io.spectrum import Spectrum, open_spectrum_profile
+    from ecckd_tpu_torch.models import ConcDependence
+    from ecckd_tpu_torch.ops.average import _TRANS_CLAMP
+    from ecckd_tpu_torch.ops.kernels import _build, reset_launch_counts
+    from ecckd_tpu_torch.tools.create_lut import (LutGas, _Execution,
+                                                  create_lut_core)
+    from ecckd_tpu_torch.tools.lw_spectra import lw_spectra_core
+    say = lambda line: log(f"[ckdmip] {line}")
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    nwav, nlay, ncol = NWAV_CKDMIP, NLAY_FULL, NCOL_CKDMIP
+    block = BLOCK_CKDMIP
+    secs, out = {}, {}
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    say(f"native shard loader {native.library_path().name} built and "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    profiles = lw_spectrum(nwav, nlay, ncol, seed=0, nlines=120,
+                           width=(2.0, 40.0), wav_max=2500.0)
+    secs["spectrum"] = time.perf_counter() - t0
+    say(f"spectrum {nwav} x {nlay}, {ncol} profiles built on the host in "
+        f"{secs['spectrum']:.1f} s")
+    root = _build.BUILD_DIR.parent
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    need = ncol * nwav * (nlay * 4 + 16)
+    say(f"disk free under {root}: {free / 1e9:.2f} GB before writing "
+        f"{need / 1e9:.2f} GB of shards")
+    check(free > 2 * need, "room for the shards on disk")
+    with tempfile.TemporaryDirectory(dir=root, prefix="ckdmip_") as tmp:
+        t0 = time.perf_counter()
+        paths = [write_shard(
+            os.path.join(tmp, f"h2o_{icol:03d}.spbin"),
+            Spectrum(sp.pressure_hl, sp.temperature_hl, sp.wavenumber,
+                     sp.d_wavenumber, sp.optical_depth, "h2o", 0.01,
+                     np.full(nlay, 0.01), ncol), np.float32)
+            for icol, sp in enumerate(profiles)]
+        secs["write"] = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        say(f"wrote {len(paths)} float32 shards, {nbytes} bytes, in "
+            f"{secs['write']:.2f} s ({nbytes / secs['write'] / 1e9:.2f} "
+            "GB/s)")
+        del profiles
+        t0 = time.perf_counter()
+        nread = nblocks = 0
+        for path in paths:
+            with ShardReader(path) as r:
+                for _, b in r.iter_blocks(block_wav=block):
+                    nread += b.nbytes
+                    nblocks += 1
+        secs["read"] = time.perf_counter() - t0
+        out.update(shard_bytes=nbytes, read_bytes=nread,
+                   read_gb_s=nread / secs["read"] / 1e9)
+        say(f"read the shards' od back through ShardReader.iter_blocks "
+            f"(the loader's thread pool) in {nblocks} blocks of {block} "
+            f"wavenumbers: {nread} bytes in {secs['read']:.2f} s, "
+            f"{nread / secs['read'] / 1e9:.2f} GB/s (page cache warm: "
+            "written just before)")
+        # the tools' path: open_spectrum_profile, a synchronous pread a
+        # block, widened to float64 on the host
+        t0 = time.perf_counter()
+        nread = nout = 0
+        for icol in range(ncol):
+            with open_spectrum_profile(paths[0], icol) as pb:
+                for _, b in pb.iter_blocks(block_wav=block):
+                    nread += b.size * 4
+                    nout += b.nbytes
+        secs["read_tools"] = time.perf_counter() - t0
+        out.update(read_tools_gb_s=nread / secs["read_tools"] / 1e9)
+        say(f"read them back through open_spectrum_profile(...).iter_blocks,"
+            f" the tools' path: {nread} shard bytes in "
+            f"{secs['read_tools']:.2f} s, {out['read_tools_gb_s']:.2f} GB/s "
+            f"read, {nout / secs['read_tools'] / 1e9:.2f} GB/s of float64 "
+            "blocks")
+
+        # the chain
+        t0 = time.perf_counter()
+        with open_spectrum_profile(paths[0], 0) as pb:
+            check(pb.ncol == ncol and pb.nwav == nwav and pb.nlay == nlay,
+                  "shard metadata")
+            sp0 = pb.materialize()
+            p_hl = pb.pressure_hl
+        secs["materialize"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        order = order_of(sp0, dev)
+        sync(dev)
+        secs["reorder"] = time.perf_counter() - t0
+        gas = gas_input(order, sp0)
+        probes = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        gp = search(gas, dev, HR_TOL, band_parallel="auto",
+                    cost_options=dict(probe_log=probes))
+        sync(dev)
+        secs["find_g_points"] = time.perf_counter() - t0
+        launches = launch_counts()
+        out["search_launches"] = launches
+        say(f"find_g_points at {nwav} wavenumbers: launches {launches}")
+        for name in ("sweep_lw_intervals", "fused_interval_sum"):
+            check(launches[name] > 0 or dev.type == "cpu",
+                  f"{name} launched at CKDMIP scale")
+        # the probe of most intervals, of those the one reaching furthest
+        k, i1, i2, _ = max(probes, key=lambda p: (len(p[1]), int(p[2][-1])))
+        out["search_probe_kernels"] = hold_probe_kernels(k, i1, i2, say)
+        del probes, k
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            again = search(gas, dev, HR_TOL, band_parallel="auto")
+            sync(dev)
+        check(same_search(gp, again), "CKDMIP search repeats bit-identical")
+        k_ms, busy = device_ms(prof, {"K1": "sweep_lw_kernel",
+                                      "K3": "stream_kernel",
+                                      "sum_slots": "sum_slots"})
+        say(f"find_g_points under torch.profiler: device [ms, launches] "
+            f"{k_ms}, busy {busy:.1f} ms")
+        out["search_device"] = k_ms
+        t0 = time.perf_counter()
+        with _build.checked():
+            gp_checked = search(gas, dev, HR_TOL, band_parallel="auto")
+            sync(dev)
+        secs["find_g_points_checked"] = time.perf_counter() - t0
+        gc_, g_ = gp_checked.gases[0], gp.gases[0]
+        check(np.array_equal(gc_.rank1, g_.rank1)
+              and np.array_equal(gc_.rank2, g_.rank2),
+              "CKDMIP search on the checked build: the same ranks")
+        say(f"find_g_points on the checked build: {secs['find_g_points_checked']:.2f}"
+            f" s, no index out of range, the same ranks, errors "
+            f"bit-identical {np.array_equal(gc_.error, g_.error)}")
+        del sp0, gas, order, again, gp_checked
+
+        # create_lut streamed and dense from the shards
+        check(_Execution().use_streaming(nlay, nwav),
+              "auto streams at CKDMIP scale")
+
+        def lut(streaming, stats):
+            def open_profile(icol):
+                return TimedSource(open_spectrum_profile(paths[0], icol),
+                                   stats), 0.01
+            return create_lut_core(
+                gp.g_point, gp.wavenumber1_band, gp.wavenumber2_band,
+                gp.band_number,
+                [LutGas("h2o", ConcDependence.LINEAR, [open_profile])],
+                averaging_method="transmission", device=dev,
+                streaming=streaming, streaming_block_wav=block)
+
+        runs = {}
+        for mode in ("auto", "0"):
+            stats = []
+            t0 = time.perf_counter()
+            model = lut(mode, stats)
+            sync(dev)
+            runs[mode] = (model, stats, time.perf_counter() - t0)
+            out[f"lut_{mode}"] = dict(
+                seconds=runs[mode][2],
+                profile_seconds=[st["seconds"] for st in stats],
+                blocks=[st["blocks"] for st in stats])
+            say(f"create_lut streaming={mode}: {runs[mode][2]:.2f} s; per "
+                f"profile seconds "
+                f"{[round(st['seconds'], 3) for st in stats]}, blocks "
+                f"{[st['blocks'] for st in stats]}, bytes streamed "
+                f"{[st['bytes'] for st in stats]}")
+        streamed, dense = runs["auto"][0], runs["0"][0]
+        check(all(st["blocks"] == -(-nwav // block) for st in runs["auto"][1])
+              and all(st["blocks"] == 0 for st in runs["0"][1]),
+              "streaming auto streamed every profile in blocks, "
+              "streaming=0 none")
+        say(f"streaming auto chose streaming: {runs['auto'][1][0]['blocks']}"
+            f" blocks a profile")
+        chain_checks("CKDMIP", gp, streamed, nwav, ncol, nlay, HR_TOL)
+        gs, gd = streamed.single_gas_data[0], dense.single_gas_data[0]
+        check(np.array_equal(gs.min_molar_abs, gd.min_molar_abs)
+              and np.array_equal(gs.max_molar_abs, gd.max_molar_abs),
+              "streamed min and max molar absorption bit-identical to dense")
+        # where the mean transmission sits at the clamp, the fitted od is
+        # the clamp's; there the fit is ill-conditioned (ROADMAP §3)
+        dp = np.diff(p_hl)[None, :, None]
+        od = gd.molar_abs * 0.01 / (ACCEL_GRAVITY * 0.001
+                                    * MOLAR_MASS_DRY_AIR) * dp
+        od_clamp = -np.log1p(-_TRANS_CLAMP) / LW_DIFFUSIVITY
+        at = od >= od_clamp * (1.0 - 1e-9)
+        below = normwise([gs.molar_abs[~at]], [gd.molar_abs[~at]])
+        rel_at = (float(np.max(np.abs(gs.molar_abs[at] / gd.molar_abs[at]
+                                      - 1.0))) if at.any() else 0.0)
+        same = np.array_equal(gs.molar_abs, gd.molar_abs)
+        say(f"streamed against dense molar absorption: {int(at.sum())} of "
+            f"{at.size} entries at the transmission clamp; below it "
+            f"{below:.3e} normwise (bar 1e-10), at it {rel_at:.3e} "
+            f"(bar 1e-6); bit-identical {same}")
+        out.update(lut_below_clamp=below, lut_at_clamp=rel_at,
+                   lut_at_clamp_entries=int(at.sum()),
+                   lut_bit_identical=same)
+        check(below <= 1e-10 and rel_at <= 1e-6,
+              "streamed molar absorption within its bars of dense")
+        hold_lut_independent(streamed, gp, paths[0], block, p_hl, dev, say,
+                             out)
+
+        # the streamed run once more under torch.profiler
+        stats = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lut("auto", stats)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        ms, busy = device_ms(prof, {"min/max scatter_reduce": "scatter",
+                                    "one-hot matmuls": "gemm",
+                                    "copies": "Memcpy"})
+        idle = max(0.0, 1 - busy / 1e3 / wall)
+        say(f"create_lut streamed under torch.profiler: wall {wall:.3f} s, "
+            f"device busy {busy / 1e3:.3f} s, idle {100 * idle:.1f}%; "
+            f"device [ms, launches] {ms}")
+        out.update(lut_profiled_wall=wall, lut_device=ms, lut_idle=idle)
+
+        # lw_spectra with and without the g-points
+        ng = len(gp.band_number)
+        for icol in range(ncol):
+            res = {}
+            for tag, g in (("full", None), ("g-points", gp.g_point)):
+                t0 = time.perf_counter()
+                with open_spectrum_profile(paths[0], icol) as pb:
+                    res[tag] = lw_spectra_core(pb, g, ng if g is not None
+                                               else None, device=dev)
+                secs[f"lw_spectra {tag} {icol}"] = time.perf_counter() - t0
+            full, gpt = res["full"], res["g-points"]
+            check(full.spectral_flux_dn.shape == (nlay + 1, nwav)
+                  and gpt.spectral_flux_dn.shape == (nlay + 1, ng)
+                  and gpt.optical_depth.shape == (nlay, ng)
+                  and all(np.all(np.isfinite(a)) for a in (
+                      gpt.flux_dn, gpt.flux_up, gpt.spectral_flux_dn,
+                      gpt.spectral_flux_up, gpt.optical_depth)),
+                  "lw_spectra shapes, finite")
+            e_bb = normwise([gpt.flux_dn, gpt.flux_up],
+                            [full.flux_dn, full.flux_up])
+            e_sum = normwise([gpt.spectral_flux_dn.sum(-1),
+                              gpt.spectral_flux_up.sum(-1)],
+                             [gpt.flux_dn, gpt.flux_up])
+            say(f"lw_spectra profile {icol}: full "
+                f"{secs[f'lw_spectra full {icol}']:.2f} s, g-points "
+                f"{secs[f'lw_spectra g-points {icol}']:.2f} s; g-point "
+                f"broadband against full {e_bb:.3e}, g-point fluxes summed "
+                f"against broadband {e_sum:.3e} (normwise, bars 1e-12); "
+                f"surface downwelling {gpt.flux_dn[-1]:.6f} W m-2")
+            out[f"lw_spectra_{icol}"] = dict(broadband=e_bb, summed=e_sum)
+            check(e_bb <= 1e-12 and e_sum <= 1e-12,
+                  "lw_spectra broadband fluxes within 1e-12")
+            del res, full, gpt
+        # where a full-resolution lw_spectra's time goes
+        from torch.autograd import DeviceType
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with open_spectrum_profile(paths[0], 0) as pb:
+                lw_spectra_core(pb, device=dev)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        ms, busy = device_ms(prof, {"DtoH copies": "Memcpy DtoH",
+                                    "HtoD copies": "Memcpy HtoD"})
+        host = [(e.key, e.self_cpu_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        ops_ms = sum(v for _, v in host)
+        top = [(key, round(v, 1)) for key, v in
+               sorted(host, key=lambda kv: -kv[1])[:6]]
+        say(f"lw_spectra full resolution, profile 0, under torch.profiler: "
+            f"wall {wall:.3f} s, device busy {busy / 1e3:.3f} s; device "
+            f"[ms, launches] {ms}; host ms in PyTorch's ops {ops_ms:.1f} "
+            f"(self time, all threads; most: {top}); the rest of the wall, "
+            f"{1e3 * wall - ops_ms:.1f} ms, is outside them (numpy: filling "
+            "the fresh spectral arrays, the float64 widening, waiting for "
+            "the next block)")
+        out.update(lw_spectra_profiled=dict(wall=wall, busy_ms=busy,
+                                            device=ms, host_ops_ms=ops_ms,
+                                            top_host_ops=top))
+    out["seconds"] = secs
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    say(f"summary {json.dumps(out)} ({smi})")
+    say(f"phase {out['phase_seconds']:.1f} s")
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=res["max_abs_err"],
@@ -1495,6 +2077,7 @@ def main() -> int:
         return 1
     import ecckd_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = phase_card()
     phase_build()
@@ -1506,9 +2089,12 @@ def main() -> int:
     phase_profile(lw_profiles, sw_profiles, ssi)
     phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
                    sw_model)
+    lut_paths_at_main_size(lw_profiles, lw_gp, smi)
     del lw_profiles, sw_profiles, lw_model, sw_model
     exp, exp_launches = phase_experiment()
     phase_checked(dev, times, exp)
+    phase_ckdmip(smi)
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     check(not jax_modules(), f"no module of jax or ecckd_tpu imported "
           f"(found {jax_modules()[:5]})")
     f64 = times["f64"]

@@ -21,9 +21,9 @@ Each kernel wrapper runs its plain PyTorch version for tensors on the CPU
 and launches the kernel for CUDA tensors; nothing falls back.  The host
 modules it needs are its own copies of the JAX package's (``config``,
 ``logs``, ``errors``, ``constants``, ``tools/common.py``,
-``partition/equipartition.py`` and ``gas_data.py``, and ``io`` without the
-``.spbin`` shard reader).  This package imports neither jax nor
-``ecckd_tpu``.
+``partition/equipartition.py`` and ``gas_data.py``, and ``io`` with the
+``.spbin`` shards and their native loader, ``csrc/shardloader.cpp``).  This
+package imports neither jax nor ``ecckd_tpu``.
 """
 
 __version__ = "0.1.0"

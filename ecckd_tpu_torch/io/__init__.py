@@ -1,9 +1,10 @@
-"""NetCDF input and output of the port's tools: its own copy of
-``ecckd_tpu/io`` (``ncio``, ``order``, ``spectrum``, ``lbl_fluxes``),
-without the ``.spbin`` shard reader.  The file modules import h5py, so this
-package loads them only when one of their names is first used, and the
-tools use them only inside their file functions; ``lbl_fluxes`` needs
-h5py only to read a file."""
+"""File input and output of the port's tools: its own copy of
+``ecckd_tpu/io`` (``ncio``, ``order``, ``spectrum``, ``lbl_fluxes``, and the
+``.spbin`` shards: ``shards``, ``native``, ``prefetch``).  The NetCDF
+modules import h5py, so this package loads its modules only when one of
+their names is first used, and the tools use them only inside their file
+functions; ``spectrum`` and ``lbl_fluxes`` need h5py only to read a NetCDF
+file, and a shard needs none."""
 
 import importlib
 

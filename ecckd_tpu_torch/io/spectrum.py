@@ -1,7 +1,9 @@
 """Readers for CKDMIP high-resolution absorption-spectra files.
 
-The port's own copy of ``ecckd_tpu/io/spectrum.py``, NetCDF only: the
-``.spbin`` shards of the JAX package's native loader are not read here.
+The port's own copy of ``ecckd_tpu/io/spectrum.py``.  A path ending in
+``.spbin`` is a flat binary shard (io/shards.py), read by the native loader;
+any other path is a NetCDF file, read through h5py, which only those
+branches import, so that shards are read where h5py is missing.
 Equivalents of read_spectrum (src/ecckd/read_spectrum.cpp:19-87)
 and read_merged_spectrum (src/ecckd/read_merged_spectrum.cpp:19-190): load
 one profile of layer x wavenumber optical depth, optionally summing several
@@ -13,7 +15,7 @@ Two access modes share one code path:
   (nlay, nwav) array — fine for test-scale spectra.
 * ``open_spectrum_profile`` / ``open_merged_spectrum_profile`` return a
   :class:`ProfileBlocks` whose ``iter_blocks`` yields wavenumber blocks
-  via HDF5 hyperslab reads, so at CKDMIP scale (~5.6M wavenumbers x ~50
+  via HDF5 hyperslab or shard reads, so at CKDMIP scale (~5.6M wavenumbers x ~50
   layers x several gases) host memory stays bounded and reads overlap
   device compute.  The reference streams one profile at a time for the
   same reason (create_look_up_table.cpp:242-298); the block axis is this
@@ -29,7 +31,6 @@ import numpy as np
 
 from .. import logs
 from ..config import Config
-from .ncio import NcFile
 
 
 @dataclasses.dataclass
@@ -70,7 +71,8 @@ class ProfileBlocks:
     def __init__(self, sources, pressure_hl, temperature_hl, wavenumber,
                  d_wavenumber, molecule="", reference_surface_vmr=-1.0,
                  vmr_fl=None, ncol=1, log_column_od=False):
-        # sources: list of (NcFile, iprof, scale)
+        # sources: list of (file, iprof, scale); a file has
+        # read_slice("optical_depth", iprof, i0, i1) and close()
         self._sources = sources
         self.pressure_hl = pressure_hl
         self.temperature_hl = temperature_hl
@@ -134,7 +136,38 @@ class ProfileBlocks:
         self.close()
 
 
-def _profile_meta(f: NcFile, file_name: str, iprof: int):
+class _ArraySource:
+    """The read_slice view of an in-memory (nlay, nwav) optical depth."""
+
+    def __init__(self, optical_depth):
+        self.optical_depth = optical_depth
+
+    def read_slice(self, var, iprof, a, b):
+        if var != "optical_depth":
+            raise KeyError(var)
+        return self.optical_depth[:, a:b]
+
+    def close(self):
+        pass
+
+
+def spectrum_blocks(spectrum) -> ProfileBlocks:
+    """A :class:`ProfileBlocks` over an in-memory spectrum (anything with
+    ``pressure_hl``, ``temperature_hl``, ``wavenumber``, ``d_wavenumber``
+    and an (nlay, nwav) ``optical_depth``), for the block-wise consumers
+    (streamed averaging, lw_spectra) on arrays.  Blocks are views where the
+    od is float64 already."""
+    g = lambda name, default: getattr(spectrum, name, default)
+    return ProfileBlocks(
+        [(_ArraySource(spectrum.optical_depth), 0, None)],
+        np.asarray(spectrum.pressure_hl, np.float64),
+        np.asarray(spectrum.temperature_hl, np.float64),
+        np.asarray(spectrum.wavenumber, np.float64),
+        np.asarray(spectrum.d_wavenumber, np.float64), g("molecule", ""),
+        g("reference_surface_vmr", -1.0), g("vmr_fl", None), g("ncol", 1))
+
+
+def _profile_meta(f, file_name: str, iprof: int):
     """Everything in a spectrum file except the optical depth."""
     ncol = f.size("pressure_hl")[0]
     pressure_hl = np.asarray(f.read("pressure_hl", index=iprof), np.float64)
@@ -163,21 +196,89 @@ def _profile_meta(f: NcFile, file_name: str, iprof: int):
             molecule, ref_vmr, vmr_fl)
 
 
-def _no_shards(file_name: str):
-    """The port reads NetCDF spectra only."""
-    raise NotImplementedError(
-        f"{file_name}: reading .spbin shards is not ported yet (ROADMAP: "
-        "rest of create_lut, .spbin shard reading); read the NetCDF "
-        "spectrum instead")
+class _ShardSourceFile:
+    """NcFile-compatible optical-depth view of a ``.spbin`` shard, so the
+    native loader serves ProfileBlocks consumers (reorder_spectrum,
+    find_g_points, create_lut, lw_spectra) without h5py.  Each slice is
+    one synchronous ``pread`` (``ShardReader.read_block``); the streamed
+    consumers overlap the reads with the device's work by reading through
+    ``io.prefetch.prefetch_iter``'s thread, not through the loader's
+    thread pool (which ``ShardReader.iter_blocks`` uses)."""
+
+    def __init__(self, path: str):
+        from .shards import ShardReader
+        self.reader = ShardReader(path)
+
+    def read_slice(self, var, iprof, a, b):
+        if var != "optical_depth":
+            raise KeyError(var)
+        return self.reader.read_block(a, b - a)
+
+    def close(self):
+        self.reader.close()
+
+
+def _shard_profile_path(path: str, iprof: int) -> str:
+    """Per-profile shard naming: convert_spectrum_file writes one profile
+    per file as ``prefix_NNN.spbin``; profile i of ``prefix_000.spbin`` is
+    ``prefix_<i:03d>.spbin``."""
+    import re
+    if iprof == 0:
+        return path
+    m = re.match(r"^(.*_)(\d+)(\.spbin)$", path)
+    if not m:
+        raise ValueError(
+            f"{path} has no _NNN.spbin profile suffix; cannot select "
+            f"profile {iprof}")
+    return f"{m.group(1)}{iprof:0{len(m.group(2))}d}{m.group(3)}"
+
+
+def _shard_profile_count(path: str) -> int:
+    """Number of sibling per-profile shards of ``path``."""
+    import glob
+    import re
+    m = re.match(r"^(.*_)(\d+)(\.spbin)$", path)
+    if not m:
+        return 1
+    # glob.escape the literal prefix/suffix: metacharacters ([, ?, *) in
+    # directory or file names must match themselves, not act as patterns
+    return len(glob.glob(f"{glob.escape(m.group(1))}"
+                         f"{'[0-9]' * len(m.group(2))}"
+                         f"{glob.escape(m.group(3))}")) or 1
+
+
+def _shard_meta(path: str, iprof: int):
+    """Shard analogue of :func:`_profile_meta` (header carries molecule,
+    reference vmr and the concentration profile)."""
+    src = _ShardSourceFile(_shard_profile_path(path, iprof))
+    r = src.reader
+    h = r.header
+    vmr_fl = (np.asarray(h.get("vmr_fl"), np.float64)
+              if h.get("vmr_fl") is not None
+              else np.full(r.nlay, -1.0))
+    return src, (_shard_profile_count(path), r.pressure_hl,
+                 r.temperature_hl, r.wavenumber, r.d_wavenumber,
+                 h.get("molecule", "") or "",
+                 float(h.get("reference_surface_vmr", -1.0)), vmr_fl)
+
+
+def _open_source(file_name: str, iprof: int):
+    """(file, metadata) of one profile of a shard or a NetCDF file."""
+    if file_name.endswith(".spbin"):
+        return _shard_meta(file_name, iprof)
+    from .ncio import NcFile
+    f = NcFile(file_name)
+    return f, _profile_meta(f, file_name, iprof)
 
 
 def open_spectrum_profile(file_name: str, iprof: int) -> ProfileBlocks:
-    """Open one profile of spectral optical depth for block reads
-    (NetCDF; ``.spbin`` shards raise :class:`NotImplementedError`)."""
-    if file_name.endswith(".spbin"):
-        _no_shards(file_name)
-    f = NcFile(file_name)
-    meta = _profile_meta(f, file_name, iprof)
+    """Open one profile of spectral optical depth for block reads.
+
+    ``.spbin`` shards (io.shards / tools.convert_spectra) are read by
+    the native loader, a synchronous ``pread`` a block; anything else
+    reads via NetCDF.
+    """
+    f, meta = _open_source(file_name, iprof)
     (ncol, pressure_hl, temperature_hl, wavenumber, d_wavenumber, molecule,
      ref_vmr, vmr_fl) = meta
     return ProfileBlocks([(f, iprof, None)], pressure_hl, temperature_hl,
@@ -222,6 +323,7 @@ def open_merged_spectrum_profile(config: Config, iprofile: int,
         if iprof_conc is None:
             raise ValueError('Concentration file specified without profile '
                              'number in "iprofile"')
+        from .ncio import NcFile
         conc_file = NcFile(conc_file_name)
         pressure_conc = np.asarray(
             conc_file.read("pressure_fl", index=iprof_conc), np.float64)
@@ -236,10 +338,7 @@ def open_merged_spectrum_profile(config: Config, iprofile: int,
         scaling = scalings[ibg] if ibg < len(scalings) else -1.0
         conc = concs[ibg] if ibg < len(concs) else -1.0
         logs.log(f"  Reading {file_name}")
-        if file_name.endswith(".spbin"):
-            _no_shards(file_name)
-        f = NcFile(file_name)
-        meta_f = _profile_meta(f, file_name, iprofile)
+        f, meta_f = _open_source(file_name, iprofile)
         (ncol, pressure_hl, temperature_hl, wavenumber, d_wavenumber,
          molecule, ref_vmr, vmr_fl) = meta_f
         if not molecule:

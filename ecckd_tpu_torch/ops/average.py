@@ -12,6 +12,7 @@ the sign of a negative zero (average_optical_depth.cpp:168).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import ACCEL_GRAVITY, LW_DIFFUSIVITY, MOLAR_MASS_DRY_AIR
@@ -217,111 +218,201 @@ def fit_optical_depth_sw_total_trans(ssi, bg_od, od, i1, i2):
     return finish(sums, i1, i2)
 
 
-def average_od_to_gpoints(ng, g_point, optical_depth, weight,
-                          averaging_method, pressure_fl=None):
-    """Average spectral od into g-points: (od_fit, min_od, max_od), each
-    (nz, ng).
+#: Every method average_optical_depth_to_g_point supports
+#: (average_optical_depth.cpp:120-197), all expressible as accumulated
+#: weighted sums plus a final host-side transform.
+GPOINT_AVERAGING_METHODS = (
+    "linear", "transmission", "transmission-2", "transmission-3",
+    "transmission-10", "square-root", "logarithmic",
+    "hybrid-logarithmic-transmission-3")
 
-    Segment sums are chunked one-hot matmuls (exact with TF32 off); the
-    per-(layer, g) min and max are ``scatter_reduce`` amin/amax.  Ref
-    average_optical_depth_to_g_point (average_optical_depth.cpp:21-197)
-    minus the molar-abs conversion (:func:`od_to_molar_abs`).
+# Wavenumbers of one one-hot matmul of the segment sums
+_SEG_CHUNK = 65536
+
+
+def _segment_min_max(ng, g_point, od):
+    """Per-(layer, g) min and max od over member wavenumbers: flattened
+    ``scatter_reduce`` amin/amax.  Empty segments keep the +/-inf identity,
+    which survives min/max combination across blocks."""
+    nz = od.shape[0]
+    valid = g_point >= 0
+    layer = ng * torch.arange(nz, device=od.device, dtype=torch.int64)
+    seg_ids = torch.where(valid[None, :], g_point.to(torch.int64)[None, :]
+                          + layer[:, None], nz * ng).reshape(-1)
+    flat = od.reshape(-1)
+    out = []
+    for init, how in ((float("inf"), "amin"), (-float("inf"), "amax")):
+        out.append(torch.full((nz * ng + 1,), init, dtype=od.dtype,
+                              device=od.device).scatter_reduce(
+            0, seg_ids, flat, how)[:-1].reshape(nz, ng))
+    return out
+
+
+def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
+    """Partial sums for one wavenumber block: a dict of (nz, ng) tensors
+    on the block's device, in its dtype.
+
+    Every g-point averaging reduction decomposes into weighted sums
+    accumulated over wavenumber blocks (streamed from disk,
+    :mod:`ecckd_tpu_torch.ops.streaming`, or cut from arrays in memory,
+    :func:`average_od_to_gpoints`) plus a final transform
+    (:func:`finalize_gpoint_partials`).  Sum keys combine by addition,
+    ``min``/``max`` by elementwise minimum/maximum.  The sums are chunked
+    one-hot matmuls (exact with TF32 off), ``min``/``max`` a
+    ``scatter_reduce``.
+
+    The logarithmic method (average_optical_depth.cpp:127-141) needs three
+    extra accumulators: sum of w*log(od) over od>0, sum of w over od>0,
+    and the nonzero count; the hybrid method accumulates both those and
+    the transmission-3 numerator so the finalizer can blend per layer.
+
+    Args:
+      g_point: (nb,) integer tensor on ``od``'s device (<0 = unassigned).
+      od: (nz, nb); weight: broadcastable to it.
+    """
+    # Row-major operands whatever the block's origin (a slice of an array,
+    # a transposed shard block), so that the matmuls of a block take the
+    # same path, and sum in the same order, in the dense and streamed runs
+    od = od.contiguous()
+    nz, nb = od.shape
+    dtype = od.dtype
+    w = torch.broadcast_to(weight, od.shape).contiguous()
+    g_range = torch.arange(ng, device=g_point.device, dtype=g_point.dtype)
+
+    def seg(v):
+        acc = torch.zeros((nz, ng), dtype=dtype, device=od.device)
+        for c0 in range(0, nb, _SEG_CHUNK):
+            onehot = (g_point[c0:c0 + _SEG_CHUNK, None]
+                      == g_range[None, :]).to(dtype)
+            acc = acc + v[:, c0:c0 + _SEG_CHUNK] @ onehot
+        return acc
+
+    out = {"w_sum": seg(w), "count": seg(torch.ones_like(od))}
+    method = averaging_method
+    hybrid = method == "hybrid-logarithmic-transmission-3"
+    if method == "linear":
+        out["num"] = seg(od * w)
+    elif method in _METHOD_SCALE or hybrid:
+        scale = 3.0 if hybrid else _METHOD_SCALE[method]
+        out["num"] = seg(-torch.expm1(-od * (LW_DIFFUSIVITY * scale)) * w)
+    elif method == "square-root":
+        out["num"] = seg(torch.sqrt(od) * w)
+    elif method != "logarithmic":
+        raise ValueError(
+            f"averaging_method {method!r} not understood; choose from "
+            f"{GPOINT_AVERAGING_METHODS}")
+    if method == "logarithmic" or hybrid:
+        nonzero = od > 0.0
+        log_od = torch.where(nonzero,
+                             torch.log(torch.where(nonzero, od, 1.0)), 0.0)
+        out["sum_log"] = seg(log_od * w * nonzero)
+        out["sum_w_nz"] = seg(w * nonzero)
+        out["count_nz"] = seg(nonzero.to(dtype))
+    out["min"], out["max"] = _segment_min_max(ng, g_point, od)
+    return out
+
+
+def finalize_gpoint_partials(acc, averaging_method, pressure_fl=None):
+    """(od_fit, min_od, max_od), numpy (nz, ng), from fully combined
+    partial sums.
+
+    Host numpy, as in the JAX package: the output is tiny and this runs
+    once per profile, after the accumulation.  Semantics of
+    average_optical_depth.cpp:120-197, incl. the clamp-to-bounds and the
+    degenerate-bound widening at :139-163.
+    """
+    acc = {k: np.asarray(v) for k, v in acc.items()}
+    w_sum = acc["w_sum"]
+    safe = np.where(w_sum > 0.0, w_sum, 1.0)
+    method = averaging_method
+    clamp = (_TRANS_CLAMP if acc["w_sum"].dtype == np.float64
+             else 1.0 - 1.0e-6)
+
+    def trans_fit(scale):
+        mean = np.minimum(clamp, acc["num"] / safe)
+        return np.abs(-np.log1p(-mean) / (LW_DIFFUSIVITY * scale))
+
+    def log_fit():
+        count_nz, count_all = acc["count_nz"], acc["count"]
+        all_nz = count_nz >= count_all
+        none_nz = count_nz <= 0.0
+        denom = np.where(none_nz, 1.0,
+                         np.where(all_nz, safe, acc["sum_w_nz"]))
+        with np.errstate(over="ignore"):
+            fit = np.exp(acc["sum_log"] / denom)
+        fit = np.where(all_nz, fit,
+                       fit * count_nz / np.maximum(count_all, 1.0))
+        return np.where(none_nz, 0.0, fit)
+
+    if method == "linear":
+        fit = acc["num"] / safe
+    elif method in _METHOD_SCALE:
+        fit = trans_fit(_METHOD_SCALE[method])
+    elif method == "square-root":
+        mean = acc["num"] / safe
+        fit = mean * mean
+    elif method == "logarithmic":
+        fit = log_fit()
+    elif method == "hybrid-logarithmic-transmission-3":
+        if pressure_fl is None:
+            raise ValueError("hybrid method requires pressure_fl")
+        use_log = (np.asarray(pressure_fl) > 100.0e2)[:, None]
+        fit = np.where(use_log, log_fit(), trans_fit(3.0))
+    else:
+        raise ValueError(
+            f"averaging_method {method!r} not understood; choose from "
+            f"{GPOINT_AVERAGING_METHODS}")
+
+    empty = acc["count"][0] <= 0.0
+    min_od = np.where(empty[None, :] | ~np.isfinite(acc["min"]), 0.0,
+                      acc["min"])
+    max_od = np.where(empty[None, :] | ~np.isfinite(acc["max"]), 0.0,
+                      acc["max"])
+    fit = np.where(empty[None, :], 0.0, fit)
+    fit = np.maximum(min_od, np.minimum(fit, max_od))
+    degenerate = (min_od > 0.0) & (min_od >= max_od)
+    min_od = np.where(degenerate, min_od * 0.99, min_od)
+    max_od = np.where(degenerate, max_od * 1.01, max_od)
+    return fit, min_od, max_od
+
+
+def average_od_to_gpoints(ng, g_point, optical_depth, weight,
+                          averaging_method, pressure_fl=None,
+                          block_wav=1 << 20):
+    """Average spectral od into g-points: (od_fit, min_od, max_od), numpy
+    (nz, ng).  Ref average_optical_depth_to_g_point
+    (average_optical_depth.cpp:21-197) minus the molar-abs conversion
+    (:func:`od_to_molar_abs`).
+
+    The arrays are cut into blocks of ``block_wav`` wavenumbers and reduced
+    exactly as the streamed path reduces a profile read from disk
+    (:func:`~ecckd_tpu_torch.ops.streaming.streaming_average_od_to_gpoints`:
+    :func:`gpoint_block_partials` per block, one read-back, the blocks'
+    partials added in order on the host, :func:`finalize_gpoint_partials`),
+    so at the same block size the two give the same bits.
 
     Args:
       ng: number of g-points.
       g_point: (nwav,) integer tensor, wavenumber -> g-point (<0 =
         unassigned).
       optical_depth: (nz, nwav); weight: broadcastable to it.
-      averaging_method: linear/transmission[-2,-3,-10]/square-root/
-        logarithmic/hybrid-logarithmic-transmission-3.
-      pressure_fl: (nz,) tensor, required for the hybrid method.
+      averaging_method: any of :data:`GPOINT_AVERAGING_METHODS`.
+      pressure_fl: (nz,), required for the hybrid method.
     """
+    from .streaming import _block_accumulate, _combine
     od = optical_depth
-    nz, nwav = od.shape
-    dtype = od.dtype
+    nwav = od.shape[-1]
     w = torch.broadcast_to(weight, od.shape)
-    gp = g_point
-    g_range = torch.arange(ng, device=gp.device, dtype=gp.dtype)
-    chunk = min(nwav, 65536)
-
-    def seg_sum(v):
-        acc = torch.zeros((nz, ng), dtype=dtype, device=od.device)
-        for c0 in range(0, nwav, chunk):
-            onehot = (gp[c0:c0 + chunk, None] == g_range[None, :]).to(dtype)
-            acc = acc + v[:, c0:c0 + chunk] @ onehot
-        return acc
-
-    w_sum = seg_sum(w)
-    safe_w_sum = torch.where(w_sum > 0.0, w_sum, 1.0)
-
-    def mean_of(v):
-        return seg_sum(v * w) / safe_w_sum
-
-    def trans_fit(scale):
-        return _trans_od(mean_of(-torch.expm1(-od * (LW_DIFFUSIVITY * scale))),
-                         scale)
-
-    def log_fit():
-        nonzero = od > 0.0
-        log_od = torch.where(nonzero, torch.log(torch.where(nonzero, od, 1.0)),
-                             0.0)
-        sum_log = seg_sum(log_od * w * nonzero)
-        sum_w_nz = seg_sum(w * nonzero)
-        count_nz = seg_sum(nonzero.to(dtype))
-        count_all = seg_sum(torch.ones_like(od))
-        all_nz = count_nz >= count_all
-        none_nz = count_nz <= 0.0
-        denom = torch.where(none_nz, 1.0,
-                            torch.where(all_nz, safe_w_sum, sum_w_nz))
-        fit = torch.exp(sum_log / denom)
-        fit = torch.where(all_nz, fit,
-                          fit * count_nz / torch.clamp(count_all, min=1.0))
-        return torch.where(none_nz, 0.0, fit)
-
-    if averaging_method == "linear":
-        fit = mean_of(od)
-    elif averaging_method in _METHOD_SCALE:
-        fit = trans_fit(_METHOD_SCALE[averaging_method])
-    elif averaging_method == "square-root":
-        fit = mean_of(torch.sqrt(od))
-        fit = fit * fit
-    elif averaging_method == "logarithmic":
-        fit = log_fit()
-    elif averaging_method == "hybrid-logarithmic-transmission-3":
-        if pressure_fl is None:
-            raise ValueError("hybrid method requires pressure_fl")
-        use_log = (pressure_fl > 100.0e2)[:, None]
-        fit = torch.where(use_log, log_fit(), trans_fit(3.0))
-    else:
-        raise ValueError(
-            f"averaging_method {averaging_method!r} not understood")
-
-    # Per-(layer, g) min/max od over member wavenumbers: flattened
-    # segment reductions; empty segments keep the +/-inf identity
-    valid = gp >= 0
-    layer = ng * torch.arange(nz, device=gp.device, dtype=torch.int64)
-    seg_ids = torch.where(valid[None, :], gp.to(torch.int64)[None, :]
-                          + layer[:, None], nz * ng).reshape(-1)
-    flat = od.reshape(-1)
-    min_od = torch.full((nz * ng + 1,), float("inf"), dtype=dtype,
-                        device=od.device).scatter_reduce(
-        0, seg_ids, flat, "amin")[:-1].reshape(nz, ng)
-    max_od = torch.full((nz * ng + 1,), -float("inf"), dtype=dtype,
-                        device=od.device).scatter_reduce(
-        0, seg_ids, flat, "amax")[:-1].reshape(nz, ng)
-    count = seg_sum(torch.ones_like(od))
-    empty = (count[0] <= 0.0)[None, :]
-    min_od = torch.where(empty | ~torch.isfinite(min_od), 0.0, min_od)
-    max_od = torch.where(empty | ~torch.isfinite(max_od), 0.0, max_od)
-    fit = torch.where(empty, 0.0, fit)
-
-    # Clamp fit into [min, max]; widen degenerate bounds
-    # (ref average_optical_depth.cpp:139-163)
-    fit = torch.maximum(min_od, torch.minimum(fit, max_od))
-    degenerate = (min_od > 0.0) & (min_od >= max_od)
-    min_od = torch.where(degenerate, min_od * 0.99, min_od)
-    max_od = torch.where(degenerate, max_od * 1.01, max_od)
-    return fit, min_od, max_od
+    acc = None
+    for i0 in range(0, nwav, block_wav):
+        sl = slice(i0, i0 + block_wav)
+        part = _block_accumulate(ng, g_point[sl], od[:, sl], w[:, sl],
+                                 averaging_method)
+        acc = part if acc is None else _combine(acc, part)
+    if torch.is_tensor(pressure_fl):
+        pressure_fl = pressure_fl.cpu().numpy()
+    return finalize_gpoint_partials(acc, averaging_method,
+                                    pressure_fl=pressure_fl)
 
 
 def od_to_molar_abs(od_fit, pressure_hl, reference_surface_vmr):

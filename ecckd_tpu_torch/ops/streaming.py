@@ -1,0 +1,109 @@
+"""Streaming g-point averaging over wavenumber blocks.
+
+The port's counterpart of ``ecckd_tpu/ops/streaming.py``: a profile too
+large to hold (CKDMIP's ~5.6M wavenumbers x ~50 layers) is averaged into
+g-points block by block.  Each block is copied to the device, reduced to
+its partial sums there (:func:`~ecckd_tpu_torch.ops.average.
+gpoint_block_partials`), and its partials come back in one read-back; the
+host adds them up and applies the final transform.  Every averaging
+method of average_optical_depth.cpp:120-197 (including logarithmic
+zero-counting and the pressure-switched hybrid) decomposes this way.  The
+blocks are read one ahead on a background thread (io/prefetch.py), so the
+reads overlap the device's work.  The dense path
+(:func:`~ecckd_tpu_torch.ops.average.average_od_to_gpoints`) runs the same
+block reduction on arrays in memory.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .average import (GPOINT_AVERAGING_METHODS, finalize_gpoint_partials,
+                      gpoint_block_partials)
+
+
+def _to_device(a, device, dtype):
+    """``a`` (numpy or tensor) as a ``dtype`` tensor on ``device``: copied
+    in its own type and widened there.  A transposed view of C-ordered data
+    (a shard block) is copied as it lies in memory, without a host pass."""
+    if isinstance(a, np.ndarray):
+        if not a.flags.c_contiguous and a.T.flags.c_contiguous:
+            a = torch.from_numpy(a.T).T
+        else:
+            a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device).to(dtype=dtype)
+
+
+def _block_accumulate(ng, g_point_block, od_block, weight_block,
+                      averaging_method, device=None, dtype=None):
+    """Partial sums for one wavenumber block -> dict of (nz, ng) numpy
+    arrays.  ``od_block`` and ``weight_block`` (numpy or tensors) go to
+    ``device`` in ``dtype`` (by default where and how ``od_block`` lies);
+    ``g_point_block`` must be on ``device`` already."""
+    if device is not None:
+        od_block = _to_device(od_block, device, dtype)
+        weight_block = _to_device(weight_block, device, dtype)
+    out = gpoint_block_partials(ng, g_point_block, od_block, weight_block,
+                                averaging_method)
+    # One device->host copy for the whole (tiny) partials dict
+    stacked = torch.stack(list(out.values())).cpu().numpy()
+    return dict(zip(out, stacked))
+
+
+def _combine(acc, part):
+    """In-place combination of per-block partials: min/max by elementwise
+    extremum, every other key by addition."""
+    for key, v in part.items():
+        if key == "min":
+            acc[key] = np.minimum(acc[key], v)
+        elif key == "max":
+            acc[key] = np.maximum(acc[key], v)
+        else:
+            acc[key] = acc[key] + v
+    return acc
+
+
+def streaming_average_od_to_gpoints(reader, ng, g_point, weight_fn,
+                                    averaging_method,
+                                    block_wav: int = 1 << 16,
+                                    pressure_fl=None, device="cuda",
+                                    dtype=torch.float64):
+    """Average a profile's od into g-points, streaming wavenumber blocks.
+
+    Args:
+      reader: anything with ``iter_blocks(block_wav=...)`` yielding
+        (iwav0, (nz, nb) od): an io.shards.ShardReader or an
+        io.spectrum.ProfileBlocks.
+      g_point: (nwav,) map in the reader's wavenumber order.
+      weight_fn: callable (iwav0, nb) -> (nz, nb) or (nb,) weights (Planck
+        or SSI slice), numpy or a tensor.
+      averaging_method: any of ops.average.GPOINT_AVERAGING_METHODS.
+      pressure_fl: (nz,) full-level pressure, required for the hybrid
+        pressure-switched method.
+      device, dtype: where and in which type each block is reduced (the
+        card unless ``device="cpu"``; raises without one).
+
+    Returns (od_fit, min_od, max_od), numpy (nz, ng): the semantics of
+    ops.average.average_od_to_gpoints, and its bits at the same block size.
+    """
+    from ..io.prefetch import prefetch_iter
+    from ..tools.common import resolve_device
+    if averaging_method not in GPOINT_AVERAGING_METHODS:
+        raise ValueError(
+            f"streaming averaging does not support {averaging_method!r}; "
+            f"choose from {GPOINT_AVERAGING_METHODS}")
+    device = resolve_device(device)
+    gp = torch.as_tensor(g_point, device=device)
+    acc = None
+    # One block read ahead on a background thread: overlaps the reads (and
+    # a ProfileBlocks' host widening) with the device's reduction
+    for iwav0, od_block in prefetch_iter(
+            reader.iter_blocks(block_wav=block_wav), depth=2):
+        nb = od_block.shape[1]
+        part = _block_accumulate(ng, gp[iwav0:iwav0 + nb], od_block,
+                                 weight_fn(iwav0, nb), averaging_method,
+                                 device, dtype)
+        acc = part if acc is None else _combine(acc, part)
+    return finalize_gpoint_partials(acc, averaging_method,
+                                    pressure_fl=pressure_fl)

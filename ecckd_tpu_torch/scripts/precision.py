@@ -152,9 +152,10 @@ def _lut(profiles, ssi, gp, method, device, dtype):
     return model.single_gas_data[0].molar_abs
 
 
-def compare(kind, device="cpu"):
+def compare(kind, device="cuda"):
     """Hold the float32 chain against the float64 chain on the ``kind``
-    ('lw' or 'sw') rig on ``device``; returns (levels, failures)."""
+    ('lw' or 'sw') rig on ``device`` (the card unless ``device="cpu"``;
+    raises without one); returns (levels, failures)."""
     device = resolve_device(device)
     profiles, ssi, bands, hr_tol = small_rig(kind)
     bound = COST_BOUND[kind]

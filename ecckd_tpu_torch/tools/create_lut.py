@@ -7,8 +7,11 @@ concentrations, for a LUT gas), giving a ckd-definition file with min/max
 absorption bounds and the gpoint_fraction spectral mapping; a longwave
 model carries a Planck LUT, a shortwave one (``ssi`` given, SSI weights)
 the solar irradiance per g-point and per interval and its Rayleigh
-coefficients.  Not ported yet (ROADMAP): streaming from disk and sharded
-execution.
+coefficients.  A profile whose od and weights would exceed
+``streaming_memory_mb`` is averaged in wavenumber blocks streamed from its
+file (ref create_look_up_table.cpp:242-298 streams one profile at a time
+for the same reason); ``streaming=1`` or ``0`` forces the choice.  Not
+ported yet (ROADMAP): sharded execution over several cards.
 
 :func:`create_lut_core` works on arrays; :func:`create_lut` is the file
 tool around it (``python -m ecckd_tpu_torch.tools.create_lut key=value ...
@@ -27,9 +30,11 @@ import torch
 from .. import logs
 from ..config import Config
 from ..models import CkdModel, ConcDependence, GasData
+from ..io.spectrum import spectrum_blocks
 from ..ops.average import average_od_to_gpoints, od_to_molar_abs
 from ..ops.planck import planck_function
 from ..ops.segments import gpoint_onehot
+from ..ops.streaming import streaming_average_od_to_gpoints
 from .common import (find_file, read_string_list, resolve_device, setup,
                      tool_prologue)
 
@@ -48,8 +53,10 @@ class LutGas:
     ``tables`` holds one profile source per concentration of a LUT gas, or
     a single one: ``open_profile(iprof) -> (spectrum, reference_vmr)``,
     where ``spectrum`` has ``pressure_hl``, ``temperature_hl``,
-    ``wavenumber``, ``d_wavenumber``, ``optical_depth`` (nlay, nwav) and
-    ``ncol`` (the number of temperature profiles)."""
+    ``wavenumber``, ``d_wavenumber``, ``ncol`` (the number of temperature
+    profiles) and either ``optical_depth`` (nlay, nwav) or, as an
+    io.spectrum.ProfileBlocks has, ``iter_blocks`` and ``materialize``;
+    a spectrum with ``close`` is closed once it has been averaged."""
     name: str
     conc_dependence: ConcDependence
     tables: List[Callable]
@@ -57,6 +64,36 @@ class LutGas:
     reference_vmr: Optional[float] = None
     composite_molecules: str = ""
     composite_vmr: Optional[np.ndarray] = None
+
+
+class _Execution:
+    """Per-run choice of the averaging's execution path: the streaming half
+    of ``ecckd_tpu/tools/create_lut.py:_Execution``.
+
+    ``streaming``: "auto" streams wavenumber blocks from the profile's
+    source when one profile's od and weight in float64 exceed
+    ``memory_mb`` (CKDMIP spectra are ~5.6M wavenumbers, so the whole
+    array need not be resident); "1"/"yes"/"true" always, "0"/"no"/"false"
+    never.  ``block_wav`` is the block of the reduction on either path."""
+
+    def __init__(self, streaming="auto", block_wav=1 << 20,
+                 memory_mb=1024.0):
+        self.streaming = str(streaming).lower()
+        self.block_wav = int(block_wav)
+        self.memory_mb = float(memory_mb)
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "_Execution":
+        return cls(cfg.read_string("streaming", default="auto"),
+                   cfg.read_int("streaming_block_wav", default=1 << 20),
+                   cfg.read_float("streaming_memory_mb", default=1024.0))
+
+    def use_streaming(self, nlay: int, nwav: int) -> bool:
+        if self.streaming in ("1", "yes", "true"):
+            return True
+        if self.streaming in ("0", "no", "false"):
+            return False
+        return 2.0 * 8.0 * nlay * nwav > self.memory_mb * 1.0e6
 
 
 @dataclasses.dataclass
@@ -69,15 +106,35 @@ class SolarSpectrum:
     wavenumber: np.ndarray
 
 
-def _average_profile(ng, g_point, optical_depth, weight, averaging_method,
-                     pressure_fl, pressure_hl, reference_surface_vmr):
+def _average_profile(ng, g_point, source, weight_fn, averaging_method,
+                     pressure_fl, pressure_hl, reference_surface_vmr,
+                     execution, device, dtype, first):
     """One temperature profile -> (molar_abs, min, max), each (nlay, ng)
-    numpy."""
-    fit, mn, mx = average_od_to_gpoints(ng, g_point, optical_depth, weight,
-                                        averaging_method,
-                                        pressure_fl=pressure_fl)
+    numpy: streamed in wavenumber blocks from ``source`` where
+    ``execution`` says so (ref create_look_up_table.cpp:242-298), else
+    from its whole od in memory.  ``weight_fn(i0, nb)`` gives the Planck
+    or SSI weights of wavenumbers i0 to i0 + nb on the device."""
+    nlay, nwav = len(pressure_hl) - 1, len(source.wavenumber)
+    if execution.use_streaming(nlay, nwav):
+        if first:
+            logs.log(f"  Streaming {nwav} wavenumbers in blocks of "
+                     f"{execution.block_wav}")
+        blocks = (source if hasattr(source, "iter_blocks")
+                  else spectrum_blocks(source))
+        fit, mn, mx = streaming_average_od_to_gpoints(
+            blocks, ng, g_point, weight_fn, averaging_method,
+            block_wav=execution.block_wav, pressure_fl=pressure_fl,
+            device=device, dtype=dtype)
+    else:
+        od = (source.optical_depth if hasattr(source, "optical_depth")
+              else source.materialize().optical_depth)
+        fit, mn, mx = average_od_to_gpoints(
+            ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
+                                         device=device),
+            weight_fn(0, nwav), averaging_method, pressure_fl=pressure_fl,
+            block_wav=execution.block_wav)
     return tuple(od_to_molar_abs(a, pressure_hl, reference_surface_vmr)
-                 .cpu().numpy() for a in (fit, mn, mx))
+                 for a in (fit, mn, mx))
 
 
 def _planck_weight(temperature_fl, wavenumber, d_wavenumber):
@@ -160,16 +217,18 @@ def _remap_g_points(g_point, band_number, band_wn1, band_wn2,
 
 
 def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
-                temperature_stride, pressure_fl, device, dtype, ssi=None):
+                temperature_stride, pressure_fl, device, dtype, execution,
+                ssi=None):
     """Loop a gas's tables and temperature profiles, averaging each profile
-    to g-points (ref create_look_up_table.cpp:242-340, dense path) with
-    Planck weights, or with the solar irradiance ``ssi`` in the shortwave.
-    ``pressure_fl`` is that of the first profile of the first gas (None
-    before it is read).  Returns (k, kmin, kmax per table, temperature_fl,
-    pressure_fl, last spectrum)."""
+    to g-points (ref create_look_up_table.cpp:242-340) with Planck weights,
+    or with the solar irradiance ``ssi`` in the shortwave, each streamed or
+    in memory as ``execution`` decides.  ``pressure_fl`` is that of the
+    first profile of the first gas (None before it is read).  Returns (k,
+    kmin, kmax per table, temperature_fl, pressure_fl, last spectrum)."""
     gp = torch.as_tensor(g_point, device=device)
     as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                      device=device)
+    ssi_t = None if ssi is None else as_t(ssi)
     k_c, kmin_c, kmax_c = [], [], []
     t_fl = sp = None
     for open_profile in gas.tables:
@@ -178,21 +237,31 @@ def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
         icol = 0
         while icol < ncol:
             sp, ref_vmr = open_profile(icol * temperature_stride)
-            ncol = (sp.ncol + temperature_stride - 1) // temperature_stride
-            p_hl = np.asarray(sp.pressure_hl, np.float64)
-            if pressure_fl is None:
-                pressure_fl = 0.5 * (p_hl[:-1] + p_hl[1:])
-            t_x_p = np.asarray(sp.temperature_hl) * p_hl
-            t_fl_col = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl
-            t_l.append(t_fl_col)
-            if ssi is None:
-                weight = _planck_weight(as_t(t_fl_col), as_t(sp.wavenumber),
-                                        as_t(sp.d_wavenumber))
-            else:
-                weight = as_t(ssi)
-            k, kmin, kmax = _average_profile(
-                ng, gp, as_t(sp.optical_depth), weight, averaging_method,
-                as_t(pressure_fl), as_t(p_hl), ref_vmr)
+            try:
+                ncol = ((sp.ncol + temperature_stride - 1)
+                        // temperature_stride)
+                p_hl = np.asarray(sp.pressure_hl, np.float64)
+                if pressure_fl is None:
+                    pressure_fl = 0.5 * (p_hl[:-1] + p_hl[1:])
+                t_x_p = np.asarray(sp.temperature_hl) * p_hl
+                t_fl_col = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl
+                t_l.append(t_fl_col)
+                if ssi_t is None:
+                    t_t, wav_t, dwav_t = (as_t(t_fl_col), as_t(sp.wavenumber),
+                                          as_t(sp.d_wavenumber))
+
+                    def weight_fn(i0, nb):
+                        return _planck_weight(t_t, wav_t[i0:i0 + nb],
+                                              dwav_t[i0:i0 + nb])
+                else:
+                    def weight_fn(i0, nb):
+                        return ssi_t[i0:i0 + nb]
+                k, kmin, kmax = _average_profile(
+                    ng, gp, sp, weight_fn, averaging_method, pressure_fl,
+                    p_hl, ref_vmr, execution, device, dtype, icol == 0)
+            finally:
+                if hasattr(sp, "close"):
+                    sp.close()
             k_l.append(k)
             kmin_l.append(kmin)
             kmax_l.append(kmax)
@@ -210,7 +279,9 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
                     base_wavenumber_boundary=(), wavenumber_hr=None,
                     device="cuda", dtype=torch.float64, history="",
                     config="", solar: Optional[SolarSpectrum] = None,
-                    solar_irradiance=None) -> CkdModel:
+                    solar_irradiance=None, streaming="auto",
+                    streaming_block_wav=1 << 20,
+                    streaming_memory_mb=1024.0) -> CkdModel:
     """Array-level create_lut: the CkdModel of the given g-points.
 
     ``g_point`` is the merged per-wavenumber map of find_g_points and
@@ -219,7 +290,12 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
     With ``solar`` the averages are SSI-weighted on a 50 cm-1 interval
     grid; with ``solar_irradiance`` too (per g-point, from a SW g-point
     file) the model is shortwave.  The averages run on ``device``, the
-    card unless ``device="cpu"`` (raises without one)."""
+    card unless ``device="cpu"`` (raises without one).  ``streaming``
+    ("auto", or "1"/"0" to force it) chooses per profile between the
+    block-wise average of a source streamed from disk and the average of
+    its whole od in memory, by whether its od and weight in float64 would
+    exceed ``streaming_memory_mb``; both reduce blocks of
+    ``streaming_block_wav`` wavenumbers, and so give the same bits."""
     device = resolve_device(device)
     g_point = np.asarray(g_point, np.int64)
     band_wn1 = np.asarray(band_wn1, np.float64)
@@ -239,6 +315,8 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
         g_point, np.asarray(band_number, np.int64), band_wn1, band_wn2,
         base_wavenumber_boundary, wavenumber_hr, solar_irradiance, ssi)
     ng = len(band_number)
+    execution = _Execution(streaming, streaming_block_wav,
+                           streaming_memory_mb)
 
     single_gas_data = []
     temperature_fl = pressure_fl = sp = None
@@ -247,7 +325,7 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
         logs.log(f"  Averaging method = {averaging_method}")
         k_c, kmin_c, kmax_c, temperature_fl, pressure_fl, sp = _gas_tables(
             gas, ng, g_point, averaging_method, temperature_stride,
-            pressure_fl, device, dtype, ssi)
+            pressure_fl, device, dtype, execution, ssi)
         g = GasData(gas.name, gas.conc_dependence)
         if gas.conc_dependence == ConcDependence.LUT:
             g.molar_abs = np.stack(k_c)
@@ -331,19 +409,19 @@ def _file_gas(cfg: Config, gas_str: str) -> LutGas:
 
     def from_file(file_name, check_vmr=False):
         def open_profile(iprof):
-            with open_spectrum_profile(file_name, iprof) as pb:
-                if check_vmr and pb.reference_surface_vmr < 0.0:
-                    raise ValueError(
-                        "Invalid reference_surface_vmr for constructing "
-                        "VMR-dependent look-up table")
-                return pb.materialize(), pb.reference_surface_vmr
+            pb = open_spectrum_profile(file_name, iprof)
+            if check_vmr and pb.reference_surface_vmr < 0.0:
+                pb.close()
+                raise ValueError(
+                    "Invalid reference_surface_vmr for constructing "
+                    "VMR-dependent look-up table")
+            return pb, pb.reference_surface_vmr
         return open_profile
 
     if cd == ConcDependence.NONE:
         def open_merged(iprof):
-            with open_merged_spectrum_profile(cfg, iprof,
-                                              f"{gas_str}.") as pb:
-                return pb.materialize(), 1.0
+            return open_merged_spectrum_profile(cfg, iprof,
+                                                f"{gas_str}."), 1.0
         with open_merged_spectrum_profile(cfg, 0, f"{gas_str}.") as pb0:
             return LutGas(gas_str, cd, [open_merged],
                           composite_molecules=pb0.molecule,
@@ -374,12 +452,12 @@ def create_lut(cfg: Config, argv=()) -> str:
     from ..io import NcFile
 
     device, dtype = setup(cfg)
-    for key in ("streaming", "sharded"):
-        if str(cfg.read_string(key, default="auto")).lower() in (
-                "1", "yes", "true"):
-            raise NotImplementedError(
-                f"create_lut: {key} execution is not ported yet (ROADMAP: "
-                "rest of create_lut, multi-GPU)")
+    if str(cfg.read_string("sharded", default="auto")).lower() in (
+            "1", "yes", "true"):
+        raise NotImplementedError(
+            "create_lut: sharded execution is not ported yet (ROADMAP: "
+            "multi-GPU)")
+    execution = _Execution.from_config(cfg)
     output = cfg.read_string("output")
     input_file = find_file(cfg.read_string("input"))
     solar = None
@@ -415,7 +493,9 @@ def create_lut(cfg: Config, argv=()) -> str:
             "base_wavenumber_boundary", default=None) or (),
         wavenumber_hr=wavenumber_hr, device=device, dtype=dtype,
         history=history, config=config, solar=solar,
-        solar_irradiance=solar_irradiance)
+        solar_irradiance=solar_irradiance, streaming=execution.streaming,
+        streaming_block_wav=execution.block_wav,
+        streaming_memory_mb=execution.memory_mb)
     logs.log(f"Writing {output}")
     model.write(output, argv=list(argv) or ["create_lut"] + sys.argv[1:],
                 config_str=cfg.sprint())

@@ -4,7 +4,8 @@
 ``partition/equipartition.py`` and ``io`` instead of importing them; these
 tests hold each copy to the original: the same constants, the same config
 keys and values, the same equipartition bounds, g-point files that the
-JAX package reads back as it reads its own, and the same timer report.
+JAX package reads back as it reads its own, the same prefetch, shard
+header and shard loader, and the same timer report.
 (``io/lbl_fluxes.py`` is held to its original in
 ``tests/test_torch_optimize.py``.)
 """
@@ -160,12 +161,53 @@ def test_g_point_file_reads_back_through_jax_ncfile(tmp_path):
             assert raw[dim].attrs["CLASS"] == b"DIMENSION_SCALE", dim
 
 
-def test_spectrum_shards_not_read():
-    """The port reads NetCDF spectra; a .spbin shard path raises and names
-    the ROADMAP item instead of loading the JAX package's native loader."""
+def test_spectrum_shards_not_read(tmp_path):
+    """A .spbin path goes to the port's shard reader, never to NetCDF: a
+    shard that is not there raises FileNotFoundError from the native
+    loader, and a file that is not a shard raises ValueError, neither
+    falling back to another reader."""
     from ecckd_tpu_torch.io import read_spectrum
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        read_spectrum("ckdmip_h2o_000.spbin", 0)
+    with pytest.raises(FileNotFoundError):
+        read_spectrum(str(tmp_path / "ckdmip_h2o_000.spbin"), 0)
+    fake = tmp_path / "fake_000.spbin"
+    fake.write_bytes(b"\x04\x00\x00\x00\x00\x00\x00\x00{}  ")
+    with pytest.raises(ValueError, match="not a spectral shard"):
+        read_spectrum(str(fake), 0)
+
+
+def test_prefetch_and_shard_copies_equal_their_originals(tmp_path):
+    """io/prefetch.py's prefetch_iter, the shard format's magic and header
+    and csrc/shardloader.cpp's code are the JAX package's: the same
+    source, the same header bytes for the same spectrum, the same C++
+    below the file's comment."""
+    import inspect
+    from pathlib import Path
+    import ecckd_tpu.io.prefetch as jprefetch
+    import ecckd_tpu.io.shards as jshards
+    import ecckd_tpu_torch.io.prefetch as tprefetch
+    import ecckd_tpu_torch.io.shards as tshards
+    from ecckd_tpu_torch.io.spectrum import Spectrum
+    assert inspect.getsource(tprefetch.prefetch_iter) \
+        == inspect.getsource(jprefetch.prefetch_iter)
+    assert tshards._MAGIC == jshards._MAGIC == "ecckd_tpu-spbin-v1"
+    nlay, nwav = 3, 16
+    sp = Spectrum(np.linspace(100.0, 1e5, nlay + 1),
+                  np.linspace(200.0, 280.0, nlay + 1),
+                  np.linspace(1.0, 20.0, nwav), np.ones(nwav),
+                  np.arange(nlay * nwav, dtype=float).reshape(nlay, nwav),
+                  "h2o", 0.01, np.full(nlay, 0.01))
+    heads = []
+    for mod in (tshards, jshards):
+        path = mod.write_shard(str(tmp_path / f"{mod.__name__}.spbin"), sp)
+        raw = Path(path).read_bytes()
+        hlen = int.from_bytes(raw[:8], "little")
+        heads.append(raw[:8 + hlen])
+    assert heads[0] == heads[1]
+    root = Path(__file__).resolve().parents[1]
+    code = [(root / p).read_text().split("#include <atomic>", 1)[1]
+            for p in ("csrc/shardloader.cpp",
+                      "ecckd_tpu_torch/csrc/shardloader.cpp")]
+    assert code[0] == code[1]
 
 
 def test_timer_reports_the_same(monkeypatch):

@@ -743,7 +743,6 @@ def test_setup_device_and_dtype():
 
 @pytest.mark.parametrize("tool,keys", [
     ("find_g_points", {"sharded": "1"}),
-    ("create_lut", {"streaming": "1"}),
     ("create_lut", {"sharded": "1"}),
 ])
 def test_unported_options_raise(tool, keys):

@@ -172,3 +172,11 @@ def test_small_rig_is_the_synth_rig(kind, tmp_path):
         np.testing.assert_allclose(sp.optical_depth, prof.optical_depth,
                                    rtol=1e-7)
     assert (ssi is not None) == sw
+
+
+def test_compare_defaults_to_the_card(monkeypatch):
+    """compare() runs on the card unless asked for the CPU: without one it
+    raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
+        precision.compare("lw")
