@@ -6,7 +6,8 @@ on a machine with one NVIDIA Hopper card.  It needs neither jax nor h5py,
 and builds the port's CUDA kernels and its native shard loader from
 ``ecckd_tpu_torch/csrc`` at first use.
 
-Phases (every failed check raises; nothing is caught):
+Phases (every failed check raises; nothing is caught; phase 12 runs
+last):
   1. the card's name and power limit;
   2. the kernel build, the normal library and the checked one (index
      checks that trap, ``_build.checked()``) from one parallel nvcc run,
@@ -94,7 +95,30 @@ Phases (every failed check raises; nothing is caught):
       g-points (broadband fluxes within 1e-12 of each other and of the
       g-point fluxes' sum); seconds by stage, the shards' read rate, the
       device's idle share and the min/max reduction's device time in the
-      streamed create_lut.
+      streamed create_lut;
+  12. the whole workflow through the port's orchestrator
+      (``ecckd_tpu_torch.pipeline.orchestrator.build_pipeline``), every
+      file in the classic NetCDF container (``netcdf_format=classic``; h5py
+      is never imported), from float32 ``.spbin`` shards of the main
+      paths' profiles, in a temporary directory under ``build/``.  LW
+      (phase 5's configuration): reorder -> find_g_points -> create_lut,
+      the g-point ranks identical to phase 5's, the LUT identical to
+      phase 5's rounded to the file's float32, the kernels' launches equal
+      to phase 5's, K1 and K3 held against their plain versions on the
+      search's largest probe; then a training file (``training_fluxes``,
+      tests/synth.py's schema) and a scenario file, and optimize_lut (one
+      pass, at most 60 iterations, prior error 4) -> run_ckd ->
+      evaluate_ckd against the training file, the heating-rate error
+      beside phase 8's.  SW (phase 6's configuration, with an ssi file):
+      reorder -> find_g_points (total-transmission) -> create_lut
+      (transmission), the ranks identical and the launches equal to phase
+      6's; a training file of five zenith angles (``training_input``) and
+      profile 0's direct flux at full resolution (``scale_lblfile``),
+      scale_lut -> optimize_lut -> run_ckd.  (No SW
+      evaluate stage: evaluate_ckd reads ``flux_up_sw`` and
+      ``flux_dn_sw``, which run_ckd's SW output lacks in both packages.)
+      Then both workflows again, every step skipped, and with the
+      g-point file deleted only find_g_points again, to the same ranks.
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -1390,6 +1414,7 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     say(f"SW step f64: {cuda_ms(lambda: card.value_and_grad(x), 20):.3f} ms "
         "per value and gradient (CUDA events)")
     say(f"phase {time.perf_counter() - t_phase:.1f} s")
+    return after[0]
 
 
 def phase_experiment(checked=False):
@@ -2057,6 +2082,483 @@ def phase_ckdmip(smi, device="cuda"):
     say(f"phase {out['phase_seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 12
+WORKFLOW_STAGE1 = ("reorder_h2o", "find_g_points", "create_lut")
+SW_MU0 = (0.9, 0.7, 0.5, 0.3, 0.1)
+
+
+def write_classic(path, dims, variables, attributes=()):
+    """A classic NetCDF file (``NcWriter(format="classic")``) of ``dims``
+    {name: length}, ``variables`` {name: (type, dims, data)} and global
+    ``attributes`` {name: text}."""
+    from ecckd_tpu_torch.io.ncio import NcWriter
+    with NcWriter(path, format="classic") as w:
+        for name, length in dims.items():
+            w.define_dimension(name, length)
+        for name, (kind, var_dims, _) in variables.items():
+            w.define_variable(name, kind, *var_dims)
+        for name, (_, _, data) in variables.items():
+            w.write(data, name)
+        for name, value in dict(attributes).items():
+            w.write_attribute(value, name)
+    return path
+
+
+def write_scenario(path, profiles):
+    """The profiles as a run_ckd scenario, in the schema of
+    tests/synth.py:95-128 (h2o at 0.01)."""
+    nlay = profiles[0].optical_depth.shape[0]
+    p = np.stack([sp.pressure_hl for sp in profiles])
+    t = np.stack([sp.temperature_hl for sp in profiles])
+    return write_classic(
+        path, {"column": len(profiles), "half_level": nlay + 1,
+               "level": nlay},
+        {"pressure_hl": ("double", ("column", "half_level"), p),
+         "temperature_hl": ("double", ("column", "half_level"), t),
+         "h2o_mole_fraction_fl": ("double", ("column", "level"),
+                                  np.full((len(profiles), nlay), 0.01))},
+        {"experiment": "chip smoke workflow", "experiment_id": "smoke",
+         "sub_experiment": "", "sub_experiment_id": ""})
+
+
+def write_lw_training(path, lbl):
+    """LW training fluxes (an LblFluxes from :func:`training_fluxes`) in
+    the schema of tests/synth.py:195-256."""
+    ncol, nhl = lbl.pressure_hl.shape
+    ng = lbl.spectral_flux_dn.shape[-1]
+    col_hl = ("column", "half_level")
+    return write_classic(
+        path, {"column": ncol, "half_level": nhl, "level": nhl - 1,
+               "gas": 1, "g_point": ng},
+        {"pressure_hl": ("double", col_hl, lbl.pressure_hl),
+         "temperature_hl": ("double", col_hl, lbl.temperature_hl),
+         "mole_fraction_fl": ("double", ("column", "gas", "level"),
+                              lbl.vmr_fl),
+         "flux_dn_lw": ("double", col_hl, lbl.flux_dn),
+         "flux_up_lw": ("double", col_hl, lbl.flux_up),
+         "spectral_flux_dn_lw": ("double", col_hl + ("g_point",),
+                                 lbl.spectral_flux_dn),
+         "spectral_flux_up_lw": ("double", col_hl + ("g_point",),
+                                 lbl.spectral_flux_up)},
+        {"constituent_id": "h2o"})
+
+
+def write_sw_training(path, profiles, ssi, g_point, ng, dev):
+    """SW training fluxes of the profiles in the schema of
+    tests/synth.py:273-347, computed on the card as it computes them: the
+    direct beam and the no-Rayleigh upwelling (``rt_norayleigh_sw``) at
+    its five zenith angles over a surface albedo of 0.15, summed over the
+    spectrum and over each g-point."""
+    from ecckd_tpu_torch.ops import rt_norayleigh_sw
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device=dev)
+    gp = torch.as_tensor(np.asarray(g_point), dtype=torch.int64, device=dev)
+    onehot = (gp[:, None] == torch.arange(ng, device=dev)[None, :]).double()
+    ncol, nmu0 = len(profiles), len(SW_MU0)
+    nhl = profiles[0].optical_depth.shape[0] + 1
+    out = {k: np.zeros((ncol, nmu0, nhl) + ((ng,) if k[0] == "s" else ()))
+           for k in ("fd", "fu", "sfd", "sfu")}
+    for ic, sp in enumerate(profiles):
+        od = f(sp.optical_depth)
+        albedo = torch.full_like(od[0], 0.15)
+        for im, mu0 in enumerate(SW_MU0):
+            fd, fu = rt_norayleigh_sw(mu0, f(ssi), od, albedo)
+            for key, flux in (("fd", fd.sum(-1)), ("fu", fu.sum(-1)),
+                              ("sfd", fd @ onehot), ("sfu", fu @ onehot)):
+                out[key][ic, im] = flux.cpu().numpy()
+        del od
+    nlay = nhl - 1
+    cmh = ("column", "mu0", "half_level")
+    return write_classic(
+        path, {"column": ncol, "mu0": nmu0, "half_level": nhl,
+               "level": nlay, "gas": 1, "g_point": ng},
+        {"mu0": ("double", ("mu0",), np.asarray(SW_MU0)),
+         "pressure_hl": ("double", ("column", "half_level"),
+                         np.stack([sp.pressure_hl for sp in profiles])),
+         "temperature_hl": ("double", ("column", "half_level"),
+                            np.stack([sp.temperature_hl
+                                      for sp in profiles])),
+         "mole_fraction_fl": ("double", ("column", "gas", "level"),
+                              np.full((ncol, 1, nlay), 0.01)),
+         "flux_dn_direct_sw": ("double", cmh, out["fd"]),
+         "flux_up_sw": ("double", cmh, out["fu"]),
+         "spectral_flux_dn_direct_sw": ("double", cmh + ("g_point",),
+                                        out["sfd"]),
+         "spectral_flux_up_sw": ("double", cmh + ("g_point",), out["sfu"])},
+        {"constituent_id": "h2o"})
+
+
+def write_scale_lbl(path, sp, ssi, dev, mu0=0.5):
+    """scale_lut's line-by-line file: the direct beam of one profile at
+    full resolution (``rt_direct_sw`` at cosine zenith angle ``mu0``, as
+    phase 6b computes it), in the schema of tests/test_aux_tools.py:208-228."""
+    from ecckd_tpu_torch.ops.rt_sw import rt_direct_sw
+    flux = rt_direct_sw(mu0, torch.as_tensor(ssi, device=dev),
+                        torch.as_tensor(sp.optical_depth, device=dev))
+    nlay, nwav = sp.optical_depth.shape
+    return write_classic(
+        path, {"column": 1, "mu0": 1, "half_level": nlay + 1,
+               "level": nlay, "gas": 1, "wavenumber": nwav},
+        {"mu0": ("double", ("mu0",), np.array([mu0])),
+         "pressure_hl": ("double", ("column", "half_level"),
+                         sp.pressure_hl[None]),
+         "temperature_hl": ("double", ("column", "half_level"),
+                            sp.temperature_hl[None]),
+         "mole_fraction_fl": ("double", ("column", "gas", "level"),
+                              np.full((1, 1, nlay), 0.01)),
+         "spectral_flux_dn_direct_sw": (
+             "double", ("column", "half_level", "wavenumber"),
+             flux.cpu().numpy()[None])},
+        {"constituent_id": "h2o"})
+
+
+def write_ssi(path, wavenumber, ssi):
+    """The solar spectrum in the schema of tests/synth.py's
+    synth_ssi_file."""
+    return write_classic(
+        path, {"wavenumber": len(wavenumber)},
+        {"wavenumber": ("double", ("wavenumber",), wavenumber),
+         "solar_spectral_irradiance": ("double", ("wavenumber",), ssi),
+         "total_solar_irradiance": ("double", (), float(ssi.sum()))})
+
+
+def write_profile_shards(tmp, profiles):
+    """The profiles as float32 ``.spbin`` shards (h2o at 0.01); returns
+    the path of profile 0's, which names the set."""
+    import os
+    from ecckd_tpu_torch.io.shards import write_shard
+    from ecckd_tpu_torch.io.spectrum import Spectrum
+    nlay = profiles[0].optical_depth.shape[0]
+    paths = [write_shard(
+        os.path.join(tmp, f"h2o_{icol:03d}.spbin"),
+        Spectrum(sp.pressure_hl, sp.temperature_hl, sp.wavenumber,
+                 sp.d_wavenumber, sp.optical_depth, "h2o", 0.01,
+                 np.full(nlay, 0.01), len(profiles)), np.float32)
+        for icol, sp in enumerate(profiles)]
+    return paths[0]
+
+
+def run_steps(pipe, keep=None, device="cuda"):
+    """Run a pipeline (only the steps named in ``keep``, if given);
+    returns the steps that ran, each with its seconds."""
+    if keep is not None:
+        pipe.steps = [s for s in pipe.steps if s.name in keep]
+    ran = {}
+    for step in pipe.steps:
+        def timed(run=step.run, name=step.name):
+            t0 = time.perf_counter()
+            run()
+            sync(device)
+            ran[name] = time.perf_counter() - t0
+        step.run = timed
+    pipe.run()
+    return ran
+
+
+class probe_logging:
+    """Log every probe of the file tool's searches (``probe_log`` in the
+    cost options of ``find_g_points_core``) into ``probes``."""
+
+    def __init__(self, probes):
+        from ecckd_tpu_torch.tools import find_g_points as tool
+        self.tool, self.probes, self.real = tool, probes, None
+
+    def __enter__(self):
+        self.real = real = self.tool.find_g_points_core
+        probes = self.probes
+
+        def logged(*args, cost_options=None, **kwargs):
+            return real(*args, cost_options=dict(cost_options or {},
+                                                 probe_log=probes), **kwargs)
+        self.tool.find_g_points_core = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.tool.find_g_points_core = self.real
+
+
+def file_ranks(path):
+    """(rank1, rank2, g_point) of the h2o g-points in a g-point file."""
+    from ecckd_tpu_torch.io import NcFile
+    with NcFile(path) as f:
+        return tuple(np.asarray(f.read(n)) for n in
+                     ("h2o_rank1", "h2o_rank2", "g_point"))
+
+
+def same_ranks(path, gp):
+    r1, r2, g_point = file_ranks(path)
+    g = gp.gases[0]
+    return (np.array_equal(r1, g.rank1) and np.array_equal(r2, g.rank2)
+            and np.array_equal(g_point, gp.g_point))
+
+
+def lut_against(path, model, say, what):
+    """The molar absorption (and Planck) tables of a ckd-definition file,
+    stored as float32, against a model of the array cores rounded to
+    float32: (bit-identical, max abs diff, max rel diff)."""
+    from ecckd_tpu_torch.io import NcFile
+    names = [("h2o_molar_absorption_coeff",
+              model.single_gas_data[0].molar_abs)]
+    if model.planck_function is not None:
+        names.append(("planck_function", model.planck_function))
+    same, worst_abs, worst_rel = True, 0.0, 0.0
+    with NcFile(path) as f:
+        for name, want in names:
+            got = f.read(name)
+            want = np.asarray(want).astype(np.float32)
+            check(got.shape == want.shape and got.dtype == np.float32,
+                  f"{what}: {name} is float32 of shape {want.shape}")
+            same &= bool(np.array_equal(got.view(np.uint32),
+                                        want.view(np.uint32)))
+            diff = np.abs(got.astype(np.float64) - want)
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_rel = max(worst_rel, float(
+                (diff / np.maximum(np.abs(want), 1e-300)).max()))
+    say(f"{what}: the file's LUT against the array cores' rounded to "
+        f"float32: bit-identical {same}, max abs diff {worst_abs:.3e}, max "
+        f"rel diff {worst_rel:.3e}")
+    return same, worst_abs, worst_rel
+
+
+def check_resume(pipe_of, gpoints, gp, say, what, device):
+    """Every step skips on a second run; with the g-point file deleted only
+    find_g_points runs again (the JAX rule), to the same ranks."""
+    import os
+    ran = run_steps(pipe_of(), device=device)
+    check(not ran, f"{what}: a second run skips every step (ran {ran})")
+    os.remove(gpoints)
+    ran = run_steps(pipe_of(), device=device)
+    check(list(ran) == ["find_g_points"],
+          f"{what}: with the g-point file deleted only find_g_points runs "
+          f"again (ran {list(ran)})")
+    check(same_ranks(gpoints, gp), f"{what}: the rerun's ranks identical")
+    say(f"{what} resume: a second run skipped every step; with the g-point "
+        f"file deleted only find_g_points ran again "
+        f"({ran['find_g_points']:.2f} s), to the same ranks")
+
+
+def phase_workflow(smi, lw, sw, device="cuda"):
+    """Phase 12: the whole LW and SW workflow through the port's
+    orchestrator (``build_pipeline``), every file in the classic NetCDF
+    container, on the card.  ``lw`` and ``sw`` hold phases 5 and 6
+    (profiles, g-points, model, launches; SW its ssi; LW phase 8's
+    optimised heating-rate error)."""
+    import os
+    import shutil
+    import tempfile
+    from ecckd_tpu_torch.config import Config
+    from ecckd_tpu_torch.io import NcFile
+    from ecckd_tpu_torch.models import CkdModel
+    from ecckd_tpu_torch.ops.kernels import _build, reset_launch_counts
+    from ecckd_tpu_torch.pipeline.orchestrator import build_pipeline
+    say = lambda line: log(f"[workflow] {line}")
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    check("h5py" not in sys.modules, "h5py not imported")
+    secs, out = {}, {"card": smi}
+    root = _build.BUILD_DIR.parent
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root, prefix="workflow_") as tmp:
+        # ---- LW: the main path's configuration, from shards
+        t0 = time.perf_counter()
+        nwav = len(lw.profiles[0].wavenumber)
+        lw_dir = os.path.join(tmp, "lw")
+        os.makedirs(lw_dir)
+        shard = write_profile_shards(lw_dir, lw.profiles)
+        secs["lw_shards"] = time.perf_counter() - t0
+        work = os.path.join(tmp, "lw_work")
+        lw_cfg = Config({
+            "mode": "lw", "application": "smoke", "band_structure": "fsck",
+            "work_dir": work, "gases": "h2o", "tolerance": str(HR_TOL),
+            "averaging_method": "transmission", "device": device,
+            "netcdf_format": "classic", "h2o.input": shard,
+            "h2o.conc_dependence": "linear", "h2o.min_scaling": "0.5",
+            "h2o.max_scaling": "2.5", "optimize_passes": "1",
+            "pass1.gases": "h2o", "pass1.max_iterations": "60",
+            "pass1.prior_error": "4.0",
+            "pass1.convergence_criterion": "0.002",
+            "evaluation_input": write_scenario(
+                os.path.join(tmp, "lw_scenario.nc"), lw.profiles)})
+        probes = []
+        reset_launch_counts()
+        with probe_logging(probes):
+            ran = run_steps(build_pipeline(lw_cfg), WORKFLOW_STAGE1, device)
+        launches = launch_counts()
+        check(list(ran) == list(WORKFLOW_STAGE1),
+              f"LW stage 1 ran {list(ran)}")
+        out["lw_stage_seconds"] = dict(ran)
+        out["lw_launches"] = launches
+        say(f"LW stage 1 ({nwav} x {lw.profiles[0].optical_depth.shape[0]},"
+            f" {len(lw.profiles)} float32 shards written in "
+            f"{secs['lw_shards']:.2f} s): seconds "
+            f"{json.dumps({k: round(v, 3) for k, v in ran.items()})}; "
+            f"launches {launches} (phase 5: {lw.launches}) ({smi})")
+        for name in ("sweep_lw_intervals", "fused_interval_sum",
+                     "sweep_sw_intervals"):
+            check(launches[name] == lw.launches[name] or dev.type == "cpu",
+                  f"LW workflow: {name} launched as often as on the LW "
+                  "main path")
+        gpoints = os.path.join(work, "lw_gpoints_lw_smoke_fsck.h5")
+        raw = os.path.join(work, "lw_raw-ckd-definition_lw_smoke_fsck.nc")
+        for path in (gpoints, raw,
+                     os.path.join(work, "lw_order_smoke_h2o.h5")):
+            with open(path, "rb") as f:
+                check(f.read(4) == b"CDF\x02", f"{path} is classic CDF-2")
+        check(same_ranks(gpoints, lw.gp), "LW workflow: g-point ranks "
+              "identical to the LW main path's")
+        same, _, _ = lut_against(raw, lw.model, say, "LW workflow")
+        check(same, "LW workflow: the LUT identical to the LW main path's "
+              "(rounded to the file's float32)")
+        k, i1, i2, _ = max(probes, key=lambda p: (len(p[1]), int(p[2][-1])))
+        out["lw_probe_kernels"] = hold_probe_kernels(k, i1, i2, say)
+        del probes, k
+
+        # ---- LW stage 2: training file, optimize, run_ckd, evaluate
+        t0 = time.perf_counter()
+        g_point = file_ranks(gpoints)[2]
+        ng = int(g_point.max()) + 1
+        lbl = training_fluxes(lw.profiles, g_point, ng, dev)
+        training = write_lw_training(os.path.join(tmp, "lw_training.nc"),
+                                     lbl)
+        secs["lw_training"] = time.perf_counter() - t0
+        lw_cfg.set("pass1.training_input", training)
+        lw_cfg.set("lbl_evaluation_fluxes", training)
+        ran = run_steps(build_pipeline(lw_cfg), device=device)
+        check(list(ran) == ["optimize_pass1", "run_ckd_0", "evaluate_0"],
+              f"LW stage 2 ran {list(ran)}")
+        out["lw_stage_seconds"].update(ran)
+        final = os.path.join(work, "lw_ckd-definition_lw_smoke_fsck.nc")
+        with NcFile(final) as f:
+            history = f.attribute("history")
+            check(all(s in history for s in ("find_g_points", "create_lut",
+                                             "optimize_lut"))
+                  and not f.exist("h2o_molar_absorption_coeff_min"),
+                  "LW workflow: the final model's provenance, min/max "
+                  "removed")
+        with open(os.path.join(work, "lw_stats_lw_smoke_fsck_0.json")) as f:
+            stats = json.load(f)["models"][0]
+        out["lw_stats"] = stats
+        check(all(np.isfinite(v) for k, v in stats.items()
+                  if isinstance(v, float)), "LW stats finite")
+        before = flux_errors(CkdModel.read(raw), lbl, device)
+        after = flux_errors(CkdModel.read(final), lbl, device)
+        out["lw_hr_rms"] = [before[0], after[0]]
+        check(after[0] < before[0], "LW workflow: the optimised model's "
+              "heating-rate error below the raw model's")
+        say(f"LW stage 2 (training file in {secs['lw_training']:.2f} s): "
+            f"seconds {json.dumps({k: round(v, 3) for k, v in ran.items()})}"
+            f"; heating-rate RMS error (phase 8's measure) {before[0]:.6e} "
+            f"-> {after[0]:.6e} K/day (phase 8: {lw.hr_error:.6e}); "
+            f"evaluate_ckd {json.dumps(stats)} ({smi})")
+        if not 0.5 <= after[0] / lw.hr_error <= 2.0:
+            say(f"NOTE: the workflow's optimised heating-rate error is "
+                f"{after[0] / lw.hr_error:.3f}x phase 8's")
+
+        # ---- SW: phase 6's configuration, from shards
+        t0 = time.perf_counter()
+        sw_dir = os.path.join(tmp, "sw")
+        os.makedirs(sw_dir)
+        shard = write_profile_shards(sw_dir, sw.profiles)
+        ssi_file = write_ssi(os.path.join(tmp, "ssi.nc"),
+                             sw.profiles[0].wavenumber, sw.ssi)
+        secs["sw_shards"] = time.perf_counter() - t0
+        work = os.path.join(tmp, "sw_work")
+        code = "sw_smoke_two-band"
+        sw_cfg = Config({
+            "mode": "sw", "application": "smoke",
+            "band_structure": "two-band", "work_dir": work, "gases": "h2o",
+            "tolerance": str(HR_TOL_SW), "ssi": ssi_file,
+            "wavenumber1": " ".join(str(v) for v in SW_BANDS[0]),
+            "wavenumber2": " ".join(str(v) for v in SW_BANDS[1]),
+            "threshold_optical_depth": "0.25", "band_parallel": "off",
+            "averaging_method": "total-transmission", "device": device,
+            "netcdf_format": "classic", "h2o.input": shard,
+            "h2o.conc_dependence": "linear", "h2o.min_scaling": "0.5",
+            "h2o.max_scaling": "2.5", "optimize_passes": "1",
+            "pass1.gases": "h2o", "pass1.max_iterations": "60",
+            "pass1.prior_error": "4.0",
+            "pass1.convergence_criterion": "0.002",
+            "evaluation_input": write_scenario(
+                os.path.join(tmp, "sw_scenario.nc"), sw.profiles)})
+        reset_launch_counts()
+        # the search's averaging is total-transmission, the LUT's
+        # transmission, as phase 6 has them
+        ran = run_steps(build_pipeline(sw_cfg), WORKFLOW_STAGE1[:2], device)
+        sw_cfg.set("averaging_method", "transmission")
+        ran.update(run_steps(build_pipeline(sw_cfg), WORKFLOW_STAGE1[2:],
+                             device))
+        launches = launch_counts()
+        check(list(ran) == list(WORKFLOW_STAGE1),
+              f"SW stage 1 ran {list(ran)}")
+        out["sw_stage_seconds"] = dict(ran)
+        out["sw_launches"] = launches
+        say(f"SW stage 1 ({len(sw.profiles)} float32 shards and the ssi "
+            f"file written in {secs['sw_shards']:.2f} s): seconds "
+            f"{json.dumps({k: round(v, 3) for k, v in ran.items()})}; "
+            f"launches {launches} (phase 6: {sw.launches}) ({smi})")
+        for name in ("sweep_sw_intervals", "sweep_sw_with_upwelling",
+                     "fused_interval_sum", "sweep_lw_intervals"):
+            check(launches[name] == sw.launches[name] or dev.type == "cpu",
+                  f"SW workflow: {name} launched as often as on the SW "
+                  "main path")
+        sw_gpoints = os.path.join(work, f"sw_gpoints_{code}.h5")
+        check(same_ranks(sw_gpoints, sw.gp), "SW workflow: g-point ranks "
+              "identical to the SW main path's")
+        raw = os.path.join(work, f"sw_raw-ckd-definition_{code}.nc")
+        out["sw_lut_against_phase6"] = lut_against(raw, sw.model, say,
+                                                   "SW workflow")
+
+        # ---- SW stage 2: training file, scale_lut, optimize, run_ckd
+        t0 = time.perf_counter()
+        g_point = file_ranks(sw_gpoints)[2]
+        training = write_sw_training(os.path.join(tmp, "sw_training.nc"),
+                                     sw.profiles, sw.ssi, g_point,
+                                     int(g_point.max()) + 1, dev)
+        scale_lbl = write_scale_lbl(os.path.join(tmp, "sw_scale_lbl.nc"),
+                                    sw.profiles[0], sw.ssi, dev)
+        secs["sw_training"] = time.perf_counter() - t0
+        sw_cfg.set("scale_lblfile", scale_lbl)
+        sw_cfg.set("pass1.training_input", training)
+        ran = run_steps(build_pipeline(sw_cfg), device=device)
+        check(list(ran) == ["scale_lut", "optimize_pass1", "run_ckd_0"],
+              f"SW stage 2 ran {list(ran)}")
+        out["sw_stage_seconds"].update(ran)
+        with NcFile(os.path.join(work, f"sw_fluxes_{code}_0.nc")) as f:
+            fd = f.read("flux_dn_direct_sw")
+            sfd = f.read("spectral_flux_dn_direct_sw")
+        ncol, nhl = len(sw.profiles), sw.profiles[0].optical_depth.shape[0] + 1
+        check(fd.shape == (ncol, nhl) and sfd.shape[:2] == (ncol, nhl)
+              and np.all(np.isfinite(sfd)) and np.all(sfd >= 0),
+              "SW run_ckd fluxes finite, non-negative, of the scenario's "
+              "shape")
+        check(np.allclose(fd[:, 0], 1361.0 * 0.5, rtol=1e-6)
+              and np.all(np.diff(fd, axis=1) <= 0),
+              "SW direct flux: 1361 W m-2 x cos 60 deg at the top, falling "
+              "to the surface")
+        out["sw_surface_direct"] = fd[:, -1].tolist()
+        say(f"SW stage 2 (training file of 5 zenith angles and scale_lut's "
+            f"full-resolution direct flux of profile 0 in "
+            f"{secs['sw_training']:.2f} s): seconds "
+            f"{json.dumps({k: round(v, 3) for k, v in ran.items()})}; "
+            f"run_ckd's direct flux at the surface {fd[:, -1].tolist()} "
+            f"W m-2 ({smi})")
+
+        # ---- resume
+        t0 = time.perf_counter()
+        check_resume(lambda: build_pipeline(lw_cfg), gpoints, lw.gp, say,
+                     "LW", device)
+        sw_cfg.set("averaging_method", "total-transmission")
+        check_resume(lambda: build_pipeline(sw_cfg), sw_gpoints, sw.gp, say,
+                     "SW", device)
+        secs["resume"] = time.perf_counter() - t0
+    check("h5py" not in sys.modules, "h5py not imported")
+    out["seconds"] = secs
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    say(json.dumps(out, default=float))
+    say(f"phase {out['phase_seconds']:.1f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=res["max_abs_err"],
@@ -2087,13 +2589,18 @@ def main() -> int:
     sw_profiles, ssi, sw_gp, sw_model, sw_launches = phase_sw_main_path()
     phase_rest(lw_profiles, sw_profiles, ssi, sw_gp, sw_model)
     phase_profile(lw_profiles, sw_profiles, ssi)
-    phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
-                   sw_model)
+    lw_hr_error = phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles,
+                                 ssi, sw_gp, sw_model)
     lut_paths_at_main_size(lw_profiles, lw_gp, smi)
-    del lw_profiles, sw_profiles, lw_model, sw_model
     exp, exp_launches = phase_experiment()
     phase_checked(dev, times, exp)
     phase_ckdmip(smi)
+    phase_workflow(smi, SimpleNamespace(
+        profiles=lw_profiles, gp=lw_gp, model=lw_model, launches=lw_launches,
+        hr_error=lw_hr_error), SimpleNamespace(
+        profiles=sw_profiles, ssi=ssi, gp=sw_gp, model=sw_model,
+        launches=sw_launches))
+    del lw_profiles, sw_profiles, lw_model, sw_model
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     check(not jax_modules(), f"no module of jax or ecckd_tpu imported "
           f"(found {jax_modules()[:5]})")

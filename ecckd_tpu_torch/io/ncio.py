@@ -1,4 +1,4 @@
-"""NetCDF-4 file I/O over HDF5 (h5py).
+"""NetCDF file I/O: NetCDF-4 over HDF5 (h5py), or the classic container.
 
 TPU-native replacement for the reference's DataFile/OutputDataFile layer
 (src/include/DataFile.h:49-337, src/include/OutputDataFile.h:47-193,
@@ -18,17 +18,38 @@ Write-side parity features (ref OutputDataFile.cpp):
   ``history`` attribute (ref OutputDataFile.cpp:1005-1048)
 
 The port's own copy of ``ecckd_tpu/io/ncio.py``: the port imports nothing of
-the JAX package.
+the JAX package.  It adds the classic container, CDF-2 (64-bit offset),
+written and read through ``scipy.io.netcdf_file`` where h5py is missing;
+the reference's OutputDataFile writes it as well as NetCDF-4, and ecRad
+reads both.  NetCDF-4 stays the default: ``NcWriter(path,
+format="classic")`` (the tools' ``netcdf_format=classic``) asks for the
+other, and NetCDF-4 without h5py raises.  :class:`NcFile` tells the two
+apart by their first bytes.  h5py is imported only for NetCDF-4 and scipy
+only for classic.  The variables, dimensions and attributes, and so every
+number, are the same in both; the classic container has
+* one unlimited dimension, the leading one of each variable that uses it;
+* no string type: a ``string`` variable raises;
+* no compression: ``deflate`` is not written (logged once per process);
+* no ``_nc4_non_coord_`` names: a variable that shares a dimension's name
+  is stored under its own;
+* a cap of 4 GiB on one fixed-size variable (on one record of a record
+  variable), which raises;
+and ``scipy.io.netcdf_file`` keeps the whole file in memory until it is
+closed, which suits the workflow's artifacts, not a full-resolution
+spectrum.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import h5py
 import numpy as np
+
+from .. import logs
+
+FORMATS = ("netcdf4", "classic")
 
 _TYPE_MAP = {
     "double": np.float64,
@@ -40,6 +61,27 @@ _TYPE_MAP = {
 
 # Sentinel attribute h5py uses to mark "dimension without coordinate variable"
 _DIM_WITHOUT_VAR = b"This is a netCDF dimension but not a netCDF variable."
+
+
+def _import_h5py():
+    try:
+        import h5py
+    except ImportError as err:
+        raise ImportError(
+            "NetCDF-4 files need h5py, which is not installed; write the "
+            "classic container instead (netcdf_format=classic)") from err
+    return h5py
+
+
+def _container(path: str) -> str:
+    """The container of ``path``, from its first bytes: ``CDF\\x01`` or
+    ``CDF\\x02`` is ``"classic"``; anything else (``\\x89HDF``) is
+    ``"netcdf4"``, handed to h5py."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    return "classic" if magic in (b"CDF\x01", b"CDF\x02") else "netcdf4"
 
 
 def _decode(value):
@@ -55,13 +97,19 @@ def _decode(value):
 
 
 class NcFile:
-    """Read-only NetCDF-4/HDF5 file (DataFile equivalent)."""
+    """Read-only NetCDF file (DataFile equivalent): NetCDF-4/HDF5, or a
+    classic file, which opens as :class:`_ClassicFile`."""
+
+    def __new__(cls, path: str):
+        if cls is NcFile and _container(path) == "classic":
+            cls = _ClassicFile
+        return super().__new__(cls)
 
     def __init__(self, path: str):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         self.path = path
-        self._f = h5py.File(path, "r")
+        self._f = _import_h5py().File(path, "r")
 
     # -- queries ---------------------------------------------------------
     def _resolve(self, name: str) -> str:
@@ -75,7 +123,8 @@ class NcFile:
 
     def exist(self, name: str) -> bool:
         name = self._resolve(name)
-        if name not in self._f or not isinstance(self._f[name], h5py.Dataset):
+        if name not in self._f or not isinstance(self._f[name],
+                                                 _import_h5py().Dataset):
             return False
         ds = self._f[name]
         # A pure dimension scale with no data is not a netCDF variable
@@ -89,7 +138,8 @@ class NcFile:
         return tuple(self._f[self._resolve(name)].shape)
 
     def names(self) -> List[str]:
-        return [k for k in self._f.keys() if isinstance(self._f[k], h5py.Dataset)]
+        dataset = _import_h5py().Dataset
+        return [k for k in self._f.keys() if isinstance(self._f[k], dataset)]
 
     # -- data ------------------------------------------------------------
     def read(self, name: str, index: Optional[int] = None,
@@ -154,13 +204,26 @@ class NcFile:
 
 
 class NcWriter:
-    """NetCDF-4 writer (OutputDataFile equivalent).
+    """NetCDF writer (OutputDataFile equivalent): NetCDF-4 by default,
+    the classic container with ``format="classic"``
+    (:class:`_ClassicWriter`).
 
     Usage follows the reference two-phase define/data model loosely, but
     definitions and writes may be freely interleaved.
     """
 
-    def __init__(self, path: str, deflate_level: int = 0):
+    def __new__(cls, path: str, deflate_level: int = 0,
+                format: str = "netcdf4"):
+        if format not in FORMATS:
+            raise ValueError(f"NetCDF format {format!r} not understood; "
+                             f"choose from {list(FORMATS)}")
+        if cls is NcWriter and format == "classic":
+            cls = _ClassicWriter
+        return super().__new__(cls)
+
+    def __init__(self, path: str, deflate_level: int = 0,
+                 format: str = "netcdf4"):
+        h5py = _import_h5py()
         self.path = path
         self._f = h5py.File(path, "w")
         self._dims: Dict[str, Optional[int]] = {}
@@ -181,7 +244,7 @@ class NcWriter:
         self._dims[name] = length
         self._dim_order.append(name)
 
-    def _ensure_dim_dataset(self, name: str) -> h5py.Dataset:
+    def _ensure_dim_dataset(self, name: str):
         """Create the HDF5 dimension-scale dataset for dimension ``name``.
 
         If a coordinate variable with the same name was defined, that dataset
@@ -220,7 +283,7 @@ class NcWriter:
         if store_name in self._f:
             raise ValueError(f"Variable {name!r} already defined")
         if dtype == "string":
-            h5type: Any = h5py.string_dtype("utf-8")
+            h5type: Any = _import_h5py().string_dtype("utf-8")
         else:
             h5type = _TYPE_MAP[dtype]
         shape = tuple(self._dims[d] if self._dims[d] is not None else 0
@@ -340,10 +403,15 @@ class NcWriter:
         stamp = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S %z").strip()
         entry = f"{stamp}: {command_line_string(argv)}"
         prev = existing
-        if prev is None and "history" in self._f.attrs:
-            prev = _decode(self._f.attrs["history"])
+        if prev is None:
+            prev = self._global_attribute("history")
         history = f"{prev}\n{entry}" if prev else entry
         self.write_attribute(history, "history")
+
+    def _global_attribute(self, attr: str) -> Any:
+        if attr in self._f.attrs:
+            return _decode(self._f.attrs[attr])
+        return None
 
     def close(self):
         if self._pending_attach:
@@ -355,6 +423,224 @@ class NcWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# The classic container (CDF-2) through scipy.io.netcdf_file
+# ---------------------------------------------------------------------------
+
+_CLASSIC_TYPES = {"double": "d", "float": "f", "int": "i", "short": "h",
+                  "byte": "b"}
+# The largest variable (or record) of CDF-2: 2^32 - 4 bytes.
+_CDF2_MAX_BYTES = 2 ** 32 - 4
+_deflate_noted = False
+
+
+def _note_no_deflate():
+    global _deflate_noted
+    if not _deflate_noted:
+        _deflate_noted = True
+        logs.log("The classic NetCDF container has no compression: deflate "
+                 "is not written (the values are the same)")
+
+
+def _native(array) -> np.ndarray:
+    """A copy of ``array`` in native byte order: classic files are
+    big-endian, and a view would keep the file's memory map open."""
+    array = np.asarray(array)
+    return np.array(array, dtype=array.dtype.newbyteorder("="))
+
+
+def _classic_value(value: Any) -> Any:
+    """An attribute value as the classic container stores it: text as
+    UTF-8 bytes, a Python float as a double (scipy would write a float),
+    integers as int32 (CDF-2 has no 64-bit integer)."""
+    if isinstance(value, str):
+        return value.encode("utf-8")
+    if isinstance(value, bytes):
+        return value
+    array = np.asarray(value)
+    if array.dtype.kind in "iub":
+        if array.size and (array.min() < np.iinfo(np.int32).min
+                           or array.max() > np.iinfo(np.int32).max):
+            raise OverflowError(f"attribute {value!r} does not fit the "
+                                "classic container's 32-bit integers")
+        array = array.astype(np.int32)
+    elif array.dtype.kind == "f" and array.dtype.itemsize != 4:
+        array = array.astype(np.float64)
+    elif array.dtype.kind != "f":
+        raise TypeError(f"attribute of type {array.dtype} has no classic "
+                        "NetCDF type")
+    return array.reshape(-1) if array.ndim else array
+
+
+class _ClassicFile(NcFile):
+    """A classic (CDF-1 or CDF-2) file read through ``scipy.io.netcdf_file``.
+    Every array returned is a copy, so it outlives :meth:`close`."""
+
+    def __init__(self, path: str):
+        from scipy.io import netcdf_file
+        self.path = path
+        self._f = netcdf_file(path, "r", mmap=True)
+
+    def exist(self, name: str) -> bool:
+        return name in self._f.variables
+
+    def size(self, name: str) -> Tuple[int, ...]:
+        return tuple(self._f.variables[name].shape)
+
+    def names(self) -> List[str]:
+        return list(self._f.variables)
+
+    def read(self, name: str, index: Optional[int] = None,
+             index2: Optional[int] = None) -> np.ndarray:
+        data = self._f.variables[name].data
+        if data.shape == ():
+            return _decode(_native(data)[()])
+        if index is not None:
+            data = data[index] if index2 is None else data[index, index2]
+        if data.dtype.kind == "S":
+            return _decode(data)
+        return _native(data)
+
+    def read_slice(self, name: str, index: Optional[int],
+                   start: int, stop: int) -> np.ndarray:
+        data = self._f.variables[name].data
+        if index is not None:
+            data = data[index]
+        return _native(data[..., start:stop])
+
+    def attribute(self, attr: str, var: Optional[str] = None,
+                  default: Any = None) -> Any:
+        obj = self._f if var is None else self._f.variables[var]
+        if attr in obj._attributes:
+            value = obj._attributes[attr]
+            if isinstance(value, np.ndarray) and value.dtype.kind != "S":
+                return _native(value)
+            return _decode(value)
+        return default
+
+    def global_attributes(self) -> Dict[str, Any]:
+        return {k: self.attribute(k) for k in self._f._attributes
+                if not k.startswith("_")}
+
+
+class _ClassicWriter(NcWriter):
+    """A classic CDF-2 (64-bit offset) file written through
+    ``scipy.io.netcdf_file``: the same calls as the NetCDF-4 writer, within
+    the limits listed in the module docstring.  The data stays in memory
+    until :meth:`close` writes the file."""
+
+    def __init__(self, path: str, deflate_level: int = 0,
+                 format: str = "classic"):
+        from scipy.io import netcdf_file
+        self.path = path
+        self._f = netcdf_file(path, "w", version=2)
+        self._dims: Dict[str, Optional[int]] = {}
+        self._deflate = deflate_level
+        if deflate_level > 0:
+            _note_no_deflate()
+
+    def define_dimension(self, name: str, length: Optional[int] = None):
+        """Define a dimension; ``length=None`` means unlimited, of which the
+        classic container has one."""
+        if name in self._dims:
+            return
+        if length is None and None in self._dims.values():
+            raise ValueError(
+                f"Dimension {name!r}: the classic NetCDF container has one "
+                "unlimited dimension (use netcdf_format=netcdf4)")
+        self._f.createDimension(name, length)
+        self._dims[name] = length
+
+    def define_variable(self, name: str, dtype: str = "float",
+                        *dims: str, deflate: Optional[int] = None,
+                        chunks: Optional[Tuple[int, ...]] = None,
+                        fill_value: Optional[float] = None):
+        for d in dims:
+            if d not in self._dims:
+                raise ValueError(f"Dimension {d!r} not defined")
+        if name in self._f.variables:
+            raise ValueError(f"Variable {name!r} already defined")
+        if dtype == "string":
+            raise ValueError(
+                f"Variable {name!r}: the classic NetCDF container has no "
+                "string type (use netcdf_format=netcdf4)")
+        typecode = _CLASSIC_TYPES[dtype]
+        if any(self._dims[d] is None for d in dims[1:]):
+            raise ValueError(
+                f"Variable {name!r}: the unlimited dimension must be the "
+                "first of a classic NetCDF variable")
+        nbytes = np.dtype(typecode).itemsize * int(np.prod(
+            [self._dims[d] for d in dims if self._dims[d] is not None]))
+        if nbytes > _CDF2_MAX_BYTES:
+            raise ValueError(
+                f"Variable {name!r} holds {nbytes} bytes: the classic NetCDF "
+                "container (CDF-2) caps a variable at 4 GiB (use "
+                "netcdf_format=netcdf4)")
+        if (self._deflate if deflate is None else deflate) > 0:
+            _note_no_deflate()
+        var = self._f.createVariable(name, typecode, dims)
+        if not dims:
+            # scipy writes variables in the order of their shapes, which
+            # puts a scalar's () after the record variables, so that its
+            # data lands in their first record; a (0,) shape puts it with
+            # the fixed-size variables, and a scalar is never a record
+            var.__dict__["_shape"] = (0,)
+        # scipy leaves a new variable's memory as it finds it; HDF5 fills
+        # with zeros (or the fill value) until written
+        var.data[...] = 0 if fill_value is None else fill_value
+        if fill_value is not None:
+            var._attributes["_FillValue"] = np.asarray(
+                [fill_value], var.data.dtype)
+        return var
+
+    def write(self, data: Any, name: str, index: Optional[int] = None):
+        """As :meth:`NcWriter.write`; ``index`` past the last record grows
+        the unlimited dimension, zero-filling any records skipped."""
+        if name not in self._f.variables:
+            if isinstance(data, str):
+                raise ValueError(
+                    f"Variable {name!r}: the classic NetCDF container has "
+                    "no string type (use netcdf_format=netcdf4)")
+            arr = np.asarray(data)
+            if arr.ndim == 0:
+                dtype = {"f": "double" if arr.dtype.itemsize == 8 else
+                         "float"}.get(arr.dtype.kind, "int")
+                self.define_variable(name, dtype)
+                self._f.variables[name][()] = arr
+                return
+            raise ValueError(f"Variable {name!r} not defined")
+        var = self._f.variables[name]
+        arr = np.asarray(data)
+        if var.data.shape == ():
+            var[()] = arr
+        elif var.isrec:
+            # grown here, not by scipy, whose growth leaves the new records
+            # as it finds them
+            nrec = arr.shape[0] if index is None else index + 1
+            old = var.data
+            if nrec > old.shape[0]:
+                grown = np.zeros((nrec,) + old.shape[1:], old.dtype)
+                grown[:old.shape[0]] = old
+                var.__dict__["data"] = grown
+            var.data[slice(None, nrec) if index is None else index] = arr
+        elif index is None:
+            var[...] = arr
+        else:
+            var[index] = arr
+
+    def write_attribute(self, value: Any, attr: str,
+                        var: Optional[str] = None):
+        obj = self._f if var is None else self._f.variables[var]
+        obj._attributes[attr] = _classic_value(value)
+
+    def _global_attribute(self, attr: str) -> Any:
+        value = self._f._attributes.get(attr)
+        return None if value is None else _decode(value)
+
+    def close(self):
+        self._f.close()
 
 
 def write_standard_attributes(writer: NcWriter, title: str):

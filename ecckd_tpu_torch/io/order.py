@@ -33,11 +33,12 @@ class SpectralOrder:
 def write_order(file_name: str, argv: Sequence[str], molecule: str,
                 config_str: str, band_bound1, band_bound2, wavenumber,
                 d_wavenumber, iband, rank, column_optical_depth,
-                sorting_variable):
-    """Write an ordering NetCDF file with the reference's exact schema."""
+                sorting_variable, format: str = "netcdf4"):
+    """Write an ordering NetCDF file with the reference's exact schema, in
+    the container ``format`` (``netcdf4`` or ``classic``)."""
     nband = len(band_bound1)
     nwav = len(wavenumber)
-    w = NcWriter(file_name, deflate_level=0)
+    w = NcWriter(file_name, deflate_level=0, format=format)
     w.define_dimension("band", nband)
     w.define_dimension("wavenumber", nwav)
 

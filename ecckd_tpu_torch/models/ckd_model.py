@@ -483,12 +483,13 @@ class CkdModel:
         return model
 
     def write(self, file_name: str, argv: Sequence[str] = (),
-              config_str: str = ""):
+              config_str: str = "", format: str = "netcdf4"):
         """Write a ckd-definition file with the reference's exact variable
-        names, dimensions, types and attributes (ckd_model.cpp:288-641)."""
+        names, dimensions, types and attributes (ckd_model.cpp:288-641),
+        in the container ``format`` (``netcdf4`` or ``classic``)."""
         from ..io import NcWriter, write_standard_attributes
 
-        w = NcWriter(file_name)
+        w = NcWriter(file_name, format=format)
         w.define_dimension("temperature", self.nt)
         w.define_dimension("pressure", self.np_)
         w.define_dimension("g_point", self.ng)

@@ -4,6 +4,7 @@
 are the port's own copy of ``ecckd_tpu/tools/common.py:21-69`` (the port
 imports nothing of the JAX package); :func:`setup` replaces its
 ``setup_jax`` and fixes the device and dtype a tool computes in;
+:func:`netcdf_format` reads the container a tool writes;
 :class:`maybe_profile` traces with ``torch.profiler`` where the JAX one
 traces with ``jax.profiler``.
 """
@@ -17,6 +18,7 @@ import torch
 
 from .. import logs
 from ..config import Config
+from ..io.ncio import FORMATS
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 _search_path: List[str] = []
@@ -100,6 +102,19 @@ class maybe_profile:
             path = os.path.join(self.trace_dir, "trace.json")
             self.prof.export_chrome_trace(path)
             logs.log(f"Profile written to {path}")
+
+
+def netcdf_format(cfg: Optional[Config]) -> str:
+    """The NetCDF container a tool writes, from the ``netcdf_format`` key:
+    ``netcdf4`` (the default, through h5py) or ``classic`` (CDF-2, through
+    scipy, for a machine without h5py).  No tool picks classic by itself:
+    writing NetCDF-4 without h5py raises."""
+    fmt = "netcdf4" if cfg is None else cfg.read_string(
+        "netcdf_format", default="netcdf4")
+    if fmt not in FORMATS:
+        raise ValueError(f"netcdf_format={fmt!r} not understood; choose "
+                         f"from {list(FORMATS)}")
+    return fmt
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -35,8 +35,8 @@ from ..ops.average import average_od_to_gpoints, od_to_molar_abs
 from ..ops.planck import planck_function
 from ..ops.segments import gpoint_onehot
 from ..ops.streaming import streaming_average_od_to_gpoints
-from .common import (find_file, read_string_list, resolve_device, setup,
-                     tool_prologue)
+from .common import (find_file, netcdf_format, read_string_list,
+                     resolve_device, setup, tool_prologue)
 
 _CONC_DEPENDENCE = {
     "none": ConcDependence.NONE,
@@ -498,7 +498,7 @@ def create_lut(cfg: Config, argv=()) -> str:
         streaming_memory_mb=execution.memory_mb)
     logs.log(f"Writing {output}")
     model.write(output, argv=list(argv) or ["create_lut"] + sys.argv[1:],
-                config_str=cfg.sprint())
+                config_str=cfg.sprint(), format=netcdf_format(cfg))
     return output
 
 

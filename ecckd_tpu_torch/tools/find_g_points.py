@@ -43,8 +43,8 @@ from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
 from ..partition.band_parallel import BandKernelView, ProbeScheduler
-from .common import (find_file, read_string_list, resolve_device, setup,
-                     tool_prologue)
+from .common import (find_file, netcdf_format, read_string_list,
+                     resolve_device, setup, tool_prologue)
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
@@ -915,7 +915,7 @@ def write_g_points(output: str, result: GPoints, cfg: Config, argv):
     gases = result.gases
     ng = len(result.band_number)
     nwav = len(result.g_point)
-    w = NcWriter(output)
+    w = NcWriter(output, format=netcdf_format(cfg))
     w.define_dimension("band", len(result.wavenumber1_band))
     if ng > 0:
         w.define_dimension("g_point", ng)

@@ -28,7 +28,8 @@ from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
 from ..ops.streaming import _block_accumulate, _combine, _to_device
 from ..ops.average import finalize_gpoint_partials
-from .common import find_file, resolve_device, setup, tool_prologue
+from .common import (find_file, netcdf_format, resolve_device, setup,
+                     tool_prologue)
 
 
 @dataclasses.dataclass
@@ -185,7 +186,7 @@ def lw_spectra(cfg: Config, argv=()) -> str:
     ncol = 10000
     icol = 0 if iprofile is None else iprofile
     iout = 0
-    with NcWriter(output) as w:
+    with NcWriter(output, format=netcdf_format(cfg)) as w:
         while icol < ncol:
             logs.log(f"Profile {icol}")
             with open_merged_spectrum_profile(cfg, icol, "") as src:

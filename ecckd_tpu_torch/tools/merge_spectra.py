@@ -15,7 +15,7 @@ import numpy as np
 from .. import logs
 from ..config import Config
 from ..io.spectrum import read_merged_spectrum
-from .common import tool_prologue
+from .common import netcdf_format, tool_prologue
 
 
 def merge_spectra(cfg: Config, argv=()) -> str:
@@ -30,7 +30,7 @@ def merge_spectra(cfg: Config, argv=()) -> str:
     ncol = sp.ncol
 
     logs.log(f"Writing {output}")
-    w = NcWriter(output)
+    w = NcWriter(output, format=netcdf_format(cfg))
     w.define_dimension("column", ncol)
     w.define_dimension("level", nlay)
     w.define_dimension("half_level", nlay + 1)

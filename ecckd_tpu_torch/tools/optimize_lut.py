@@ -30,8 +30,8 @@ from ..models import CkdModel
 from ..optimize import MinimizerStatus, SolveResult, solve
 from ..optimize.cost_fn import build_scene, make_total_od_fn
 from ..optimize.solver import log_state_tree
-from .common import (find_file, maybe_profile, read_string_list,
-                     resolve_device, setup, tool_prologue)
+from .common import (find_file, maybe_profile, netcdf_format,
+                     read_string_list, resolve_device, setup, tool_prologue)
 
 
 def prepare_lbl(fluxes: LblFluxes, model: CkdModel,
@@ -231,7 +231,7 @@ def optimize_lut(cfg: Config, argv=()) -> int:
     if cfg.read_bool("remove_min_max", default=False):
         model.save_min_max = False
     model.write(output_file, argv=argv or sys.argv,
-                config_str=cfg.sprint())
+                config_str=cfg.sprint(), format=netcdf_format(cfg))
 
     if result.status == MinimizerStatus.INVALID_COST_FUNCTION:
         return 1

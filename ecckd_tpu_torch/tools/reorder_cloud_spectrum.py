@@ -22,7 +22,7 @@ import numpy as np
 
 from .. import logs
 from ..config import Config
-from .common import find_file, tool_prologue
+from .common import find_file, netcdf_format, tool_prologue
 
 
 def reorder_cloud_core(wavenumber, d_wavenumber, cloud_wavenumber,
@@ -112,7 +112,8 @@ def reorder_cloud_spectrum(cfg: Config, argv=()) -> str:
     write_order(output, argv or sys.argv, "cloud", cfg.sprint(),
                 order["wavenumber1_band"], order["wavenumber2_band"],
                 wavenumber, d_wavenumber, order["band_number"],
-                order["rank"], None, order["sorting_variable"])
+                order["rank"], None, order["sorting_variable"],
+                format=netcdf_format(cfg))
     return output
 
 

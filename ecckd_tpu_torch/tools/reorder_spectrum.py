@@ -27,7 +27,8 @@ from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from .common import find_file, resolve_device, setup, tool_prologue
+from .common import (find_file, netcdf_format, resolve_device, setup,
+                     tool_prologue)
 
 
 def _sorting_kernel(pressure_hl, wavenumber, d_wavenumber, od,
@@ -228,7 +229,8 @@ def reorder_spectrum(cfg: Config, argv=()) -> str:
     write_order(output_file, argv or sys.argv, molecule, cfg.sprint(),
                 out["wavenumber1_band"], out["wavenumber2_band"], wavenumber,
                 d_wavenumber, out["band_number"], out["rank"],
-                out["column_optical_depth"], out["sorting_variable"])
+                out["column_optical_depth"], out["sorting_variable"],
+                format=netcdf_format(cfg))
     return output_file
 
 

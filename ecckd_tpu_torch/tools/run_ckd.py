@@ -27,8 +27,8 @@ from ..constants import REFERENCE_COS_SZA
 from ..models import CkdModel, temperature_fl_from_hl
 from ..ops.rt_lw import rt_lw
 from ..ops.rt_sw import rt_direct_sw
-from .common import (find_file, read_string_list, resolve_device, setup,
-                     tool_prologue)
+from .common import (find_file, netcdf_format, read_string_list,
+                     resolve_device, setup, tool_prologue)
 
 SCALABLE_GASES = ("co2", "ch4", "n2o", "cfc11", "cfc12")
 
@@ -160,7 +160,7 @@ def run_ckd(cfg: Config, argv=()) -> str:
     ncol, nlev1 = temperature_hl.shape
     nlay = nlev1 - 1
     logs.log(f"Writing {output_file}")
-    w = NcWriter(output_file)
+    w = NcWriter(output_file, format=netcdf_format(cfg))
     w.define_dimension("column", ncol)
     w.define_dimension("level", nlay)
     w.define_dimension("half_level", nlay + 1)

@@ -30,7 +30,8 @@ import torch
 from .. import logs
 from ..config import Config
 from ..models import CkdModel
-from .common import find_file, resolve_device, setup, tool_prologue
+from .common import (find_file, netcdf_format, resolve_device, setup,
+                     tool_prologue)
 
 
 class ScaledLut(NamedTuple):
@@ -134,7 +135,7 @@ def scale_lut(cfg: Config, argv=()) -> str:
     result = scale_lut_core(model, g_point, mu0, pressure_hl, temperature_hl,
                             mole_fraction, molecules, flux, device=device)
     result.model.write(output_file, argv=argv or sys.argv,
-                       config_str=cfg.sprint())
+                       config_str=cfg.sprint(), format=netcdf_format(cfg))
     return output_file
 
 

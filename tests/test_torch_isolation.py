@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "ecckd_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -74,3 +76,42 @@ def test_port_imports_with_jax_and_the_jax_package_refused():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= len(modules) > 50
+
+
+WORKFLOW_MODULES = ["ecckd_tpu_torch.io.ncio",
+                    "ecckd_tpu_torch.pipeline.orchestrator",
+                    "ecckd_tpu_torch.pipeline.presets",
+                    "ecckd_tpu_torch.evaluate.metrics",
+                    "ecckd_tpu_torch.evaluate.plots",
+                    "ecckd_tpu_torch.tools.evaluate_ckd",
+                    "ecckd_tpu_torch.tools.plot_ckd"]
+
+_PROBE_NO_H5PY = r"""
+import importlib, sys
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if any(name == top or name.startswith(top + ".")
+               for top in ("jax", "ecckd_tpu", "h5py")):
+            raise ImportError(f"import of {name} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+importlib.import_module(sys.argv[1])
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("module", WORKFLOW_MODULES)
+def test_workflow_modules_import_without_jax_or_h5py(module):
+    """The orchestrator, its presets, the evaluation tools and the NetCDF
+    layer are scanned above, and import in a fresh interpreter that
+    refuses jax, the JAX package and h5py (the card's machine has none)."""
+    path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in SOURCES
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE_NO_H5PY, module],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
