@@ -6,7 +6,7 @@ on a machine with one NVIDIA Hopper card.  It needs neither jax nor h5py,
 and builds the port's CUDA kernels and its native shard loader from
 ``ecckd_tpu_torch/csrc`` at first use.
 
-Phases (every failed check raises; nothing is caught; phase 12 runs
+Phases (every failed check raises; nothing is caught; phase 13 runs
 last):
   1. the card's name and power limit;
   2. the kernel build, the normal library and the checked one (index
@@ -118,7 +118,29 @@ last):
       evaluate stage: evaluate_ckd reads ``flux_up_sw`` and
       ``flux_dn_sw``, which run_ckd's SW output lacks in both packages.)
       Then both workflows again, every step skipped, and with the
-      g-point file deleted only find_g_points again, to the same ranks.
+      g-point file deleted only find_g_points again, to the same ranks;
+  13. the on-device L-BFGS and the parallel paths, a mesh of 4 logical
+      shards of the card standing for 4 cards: ``solver=device`` on phase
+      8's model (at most 60 iterations; the final cost within 5% of phase
+      8's scipy cost, the errors falling, bounds and zeros kept;
+      evaluations and host reads an iteration); ``data_parallel`` over
+      the 4 shards (5 profiles, padded; value and gradient within 1e-10
+      of one shard and bit-identical in a repeat, 15 scipy iterations
+      within 1e-8 / 1e-6); the LW and SW main paths' searches sharded
+      (K1/K2 and K3 four times a probe; each shard's kernels held against
+      their plain versions with shifted bounds on the largest probe; its
+      costs within 1e-10 of one device with float32's transmission clamp
+      on both sides; ranks identical to the unsharded search, or, where
+      the float64 clamp moves a bound, the same g-point count, bounds
+      within 2 ranks and identical ranks with float32's clamp), the LW
+      one once more on the checked build; create_lut sharded, dense and
+      streamed in blocks of 2^18 (min and max bit-identical, molar
+      absorption within 1e-10 where the fit is well conditioned); and two
+      processes sharing the card over gloo (``--parallel-worker``, two
+      shards each): the LW search and the streamed multi-controller
+      averaging of profile 0 against the one-process 4-shard run (ranks
+      identical, costs and sums within 1e-12, min and max partials
+      bit-identical).
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -887,12 +909,13 @@ def fgp_run(gas, hr_tol, ssi=None, keep_log=False, cost_options=None,
             probes if keep_log else None)
 
 
-def cost_twin(k, dtype, use_prefix, fit_limits=None):
+def cost_twin(k, dtype, use_prefix, fit_limits=None, mesh=None):
     """A candidate-cost kernel over ``k``'s arrays in ``dtype``, with or
-    without the prefix path, with ``fit_limits``."""
+    without the prefix path, with ``fit_limits``, over ``mesh`` or on one
+    device."""
     from ecckd_tpu_torch.partition import CandidateCostLw, CandidateCostSw
     c = lambda name: getattr(k, name).to(dtype)
-    kw = dict(use_prefix=use_prefix, fit_limits=fit_limits)
+    kw = dict(use_prefix=use_prefix, fit_limits=fit_limits, mesh=mesh)
     if isinstance(k, CandidateCostLw):
         names = ("layer_weight", "pressure_hl", "surf_emissivity",
                  "surf_planck", "flux_dn_surf", "flux_up_toa", "planck_hl",
@@ -1344,6 +1367,7 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     # the chain: training fluxes, optimisation, evaluation before and after
     t0 = time.perf_counter()
     lbl = training_fluxes(lw_profiles, lw_gp.g_point, lw_model.ng, dev)
+    raw_lbl = copy.deepcopy(lbl)
     say(f"LW training fluxes of {lbl.ncol} profiles x "
         f"{lw_profiles[0].optical_depth.shape[1]} wavenumbers, "
         f"{lw_model.ng} g-points, on the card in "
@@ -1414,7 +1438,8 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     say(f"SW step f64: {cuda_ms(lambda: card.value_and_grad(x), 20):.3f} ms "
         "per value and gradient (CUDA events)")
     say(f"phase {time.perf_counter() - t_phase:.1f} s")
-    return after[0]
+    return SimpleNamespace(hr_error=after[0], lbl=raw_lbl, res=res,
+                           errors=(before, after))
 
 
 def phase_experiment(checked=False):
@@ -2559,6 +2584,654 @@ def phase_workflow(smi, lw, sw, device="cuda"):
     return out
 
 
+# ------------------------------------------------------------- phase 13
+
+PARALLEL_SHARDS = 4
+PARALLEL_BLOCK = 1 << 18
+
+
+def shard_probe_kernels(k, i1, i2, say, what):
+    """Each shard's K3 and sweep (K1, or K2 with the LOW scaling of a
+    total-transmission probe) on one probe of a sharded search, launched on
+    the probe's own inputs as ``costs()`` launches them (bounds padded to
+    the bucket and shifted into the shard's slice, the partition map of its
+    global ranks, the od fitted from the reduced sums), each held against
+    its plain version on the same inputs at phase 3's bar; returns the
+    worst errors."""
+    from ecckd_tpu_torch.ops.kernels import (fused_interval_sum,
+                                             sweep_lw_intervals,
+                                             sweep_lw_plain,
+                                             sweep_sw_intervals,
+                                             sweep_sw_plain)
+    from ecckd_tpu_torch.ops.segments import interval_sum_fused
+    from ecckd_tpu_torch.partition import CandidateCostLw
+    from ecckd_tpu_torch.partition.cost_kernel import _pad_to_bucket, _Probe
+    pad = _pad_to_bucket(len(i1)) - len(i1)
+    probe = _Probe(k, np.r_[np.zeros(pad, np.int32), i1],
+                   np.r_[np.zeros(pad, np.int32), i2])
+    lw = isinstance(k, CandidateCostLw)
+    rows = k._probe_rows
+    plain = [interval_sum_fused(sh._probe_parts, sh.npoints, b[2], b[3],
+                                dtype=k.dtype)[:rows]
+             for sh, b in zip(k._shards, probe.shards)]
+    sums = k.mesh.sum(plain, device=k.device)
+    od_fit = k._fit_finish(sums[:k._fit_rows], probe.i1, probe.i2)
+    if not lw and k.averaging_method == "total-transmission":
+        od_fit = od_fit * k.min_scaling
+    worst = dict(K3=(0.0, 0.0), sweep=(0.0, 0.0))
+    for j, (sh, b) in enumerate(zip(k._shards, probe.shards)):
+        got = fused_interval_sum(sh._probe_parts, sh.npoints, b[2], b[3],
+                                 dtype=k.dtype)[:rows]
+        errs = {"K3": [row_err(got, plain[j])]}
+        od = od_fit.to(sh.device).contiguous()
+        seg = probe.seg_of_wav(sh, j)
+        if lw:
+            args = (sh.planck_hl, sh.bg_od, od, seg, sh.surf_emissivity,
+                    sh.surf_planck, b[2], b[3])
+            pair = (sweep_lw_intervals(*args), sweep_lw_plain(*args))
+        else:
+            args = (sh.ssi, sh.bg_od, od, seg, b[2], b[3], k.cos_sza,
+                    sh.surf_albedo, k.with_upwelling)
+            pair = (sweep_sw_intervals(*args), sweep_sw_plain(*args))
+        errs["sweep"] = [row_err(g, w) for g, w in zip(*pair)]
+        sync(k.device)
+        for name, e in errs.items():
+            worst[name] = (max(worst[name][0], max(x[0] for x in e)),
+                           max(worst[name][1], max(x[1] for x in e)))
+    sweep = "K1" if lw else "K2"
+    say(f"{what}: each of {len(k._shards)} shards' K3 and {sweep} on the "
+        f"search's largest probe ({len(i1)} intervals; bounds shifted into "
+        f"slices of {k._shards[0].npoints} ranks) against their plain "
+        f"versions: K3 {worst['K3'][0]:.3e}, {sweep} {worst['sweep'][0]:.3e} "
+        f"(normwise per row, bar {BARS[k.dtype]:.0e}); max abs "
+        f"{worst['K3'][1]:.3e} / {worst['sweep'][1]:.3e}")
+    for name in worst:
+        check(worst[name][0] <= BARS[k.dtype], f"{what}: each shard's "
+              f"{name} within {BARS[k.dtype]} of its plain version")
+    return {"K3": worst["K3"][0], sweep: worst["sweep"][0]}
+
+
+def probe_costs_against_one_device(k, i1, i2, say, what):
+    """The costs of one probe of a sharded kernel against the same
+    kernel's arrays on one device: as searched, and with float32's
+    transmission clamp as ``fit_limits`` on both sides, where an opaque
+    interval's fit is well conditioned (-log1p(-mean) turns the sums' last
+    bits into the cost's leading digits at the float64 clamp, ROADMAP §3;
+    the sharded sums add in another order).  The clamped costs are held to
+    1e-10."""
+    one = cost_twin(k, k.dtype, False)
+    raw = normwise([k.costs(i1, i2)], [one.costs(i1, i2)])
+    limited = normwise(
+        [cost_twin(k, k.dtype, False, torch.float32,
+                   mesh=k.mesh).costs(i1, i2)],
+        [cost_twin(k, k.dtype, False, torch.float32).costs(i1, i2)])
+    del one
+    say(f"{what}: the largest probe's costs sharded against one device "
+        f"{raw:.3e} (normwise, as searched), {limited:.3e} with float32's "
+        "transmission clamp on both sides (bar 1e-10)")
+    check(limited <= 1e-10, f"{what}: sharded probe costs within 1e-10 of "
+          "one device")
+    return dict(costs=raw, clamped_costs=limited)
+
+
+def sharded_search(what, gas, hr_tol, mesh, base, say, ssi=None,
+                   out=None):
+    """One find_g_points_core over ``mesh`` (band_parallel off) against
+    the unsharded run of this phase (``fgp_run``'s result): K1 or K2
+    launched once a shard and sweep, and with as many probes K1/K2 and K3
+    four times as often as unsharded; each shard's kernels and the costs
+    on the largest probe."""
+    _, base_secs, base_calls, base_launches, _ = base
+    gp, secs, calls, launches, probes = fgp_run(
+        gas, hr_tol, ssi=ssi, keep_log=True, band_parallel="off", mesh=mesh,
+        device=mesh.devices[0])
+    # a probe sweeps once (LW) or twice (SW total-transmission's LOW and
+    # HIGH runs) on every shard
+    sweep, runs = (("sweep_lw_intervals", 1) if ssi is None
+                   else ("sweep_sw_intervals", 2))
+    card = mesh.devices[0].type == "cuda"     # the plain versions count none
+    check(launches[sweep] == PARALLEL_SHARDS * runs * calls or not card,
+          f"{what}: {sweep} launched {PARALLEL_SHARDS * runs}x per probe")
+    say(f"{what}: {calls} probes sharded, {base_calls} unsharded")
+    if calls == base_calls:
+        for name in (sweep, "sweep_sw_with_upwelling",
+                     "fused_interval_sum"):
+            check(launches[name] == PARALLEL_SHARDS * base_launches[name]
+                  and (launches[name] > 0 or name != sweep or not card),
+                  f"{what}: {name} launched {PARALLEL_SHARDS}x as often as "
+                  f"unsharded ({launches[name]} against "
+                  f"{base_launches[name]})")
+    k, i1, i2, _ = max(probes, key=lambda p: len(p[1]))
+    held = shard_probe_kernels(k, i1, i2, say, what)
+    held.update(probe_costs_against_one_device(k, i1, i2, say, what))
+    say(f"{what}: {calls} probes, {secs:.3f} s over {PARALLEL_SHARDS} "
+        f"logical shards of one card against {base_secs:.3f} s unsharded "
+        f"(host clock); launches {json.dumps(launches)}")
+    if out is not None:
+        out.update(seconds=secs, seconds_unsharded=base_secs, probes=calls,
+                   launches=launches, held=held)
+    return gp, probes
+
+
+def rank_moves(what, gas, hr_tol, mesh, gp, ref, probes, say, device,
+               ssi=None):
+    """A sharded search's ranks (``gp``, its probe log ``probes``) against
+    the unsharded run's (``ref``).  The sharded sums add in another order,
+    and a transmission fit at the float64 clamp turns their last bits into
+    a cost's leading digits (ROADMAP §3), which can move a bound.  So where
+    the ranks differ: the same g-point count and every bound within 2
+    ranks, each partition's interval costs on one device printed, and the
+    two searches again with float32's clamp as the fit's limit on both
+    sides, whose ranks must be identical."""
+    (a1, a2), (b1, b2) = ranks_of(gp), ranks_of(ref)
+    if (np.array_equal(a1, b1) and np.array_equal(a2, b2)
+            and np.array_equal(gp.g_point, ref.g_point)):
+        say(f"{what}: g-point ranks identical to the unsharded search")
+        return dict(identical=True)
+    same_n = len(a1) == len(b1)
+    shift = (int(max(np.abs(a1 - b1).max(), np.abs(a2 - b2).max()))
+             if same_n else None)
+    say(f"{what}: ranks differ from the unsharded search: rank1 "
+        f"{a1.tolist()} against {b1.tolist()}, rank2 {a2.tolist()} against "
+        f"{b2.tolist()}; largest shift {shift}")
+    check(same_n and shift <= 2, f"{what}: the same g-point count, bounds "
+          "within 2 ranks of the unsharded search")
+    kernels = {id(p[0]): p[0] for p in probes}
+    if len(kernels) == 1:
+        one = cost_twin(probes[0][0], torch.float64, False)
+        ca, cb = one.costs(a1, a2), one.costs(b1, b2)
+        say(f"{what}: interval costs on one device, sharded partition "
+            f"{ca.tolist()}, unsharded {cb.tolist()}; largest "
+            f"{ca.max():.12g} against {cb.max():.12g}")
+        del one
+    opts = dict(band_parallel="off", device=device,
+                cost_options={"fit_limits": torch.float32})
+    lim = [fgp_run(gas, hr_tol, ssi=ssi, **opts)[0],
+           fgp_run(gas, hr_tol, ssi=ssi, mesh=mesh, **opts)[0]]
+    (c1, c2), (d1, d2) = ranks_of(lim[0]), ranks_of(lim[1])
+    same32 = np.array_equal(c1, d1) and np.array_equal(c2, d2)
+    say(f"{what}: with float32's clamp as the fit's limit, sharded and "
+        f"unsharded ranks identical {same32} (rank1 {d1.tolist()})")
+    check(same32, f"{what}: identical ranks with float32's clamp on both "
+          "sides")
+    return dict(identical=False, largest_shift=shift, identical_f32_clamp=True)
+
+
+def ranks_of(gp):
+    g = gp.gases[0]
+    return np.asarray(g.rank1), np.asarray(g.rank2)
+
+
+def check_same_ranks(a, b, what):
+    """Identical g-point ranks, or a failure that shows the two
+    partitions."""
+    (a1, a2), (b1, b2) = ranks_of(a), ranks_of(b)
+    same = (np.array_equal(a1, b1) and np.array_equal(a2, b2)
+            and np.array_equal(a.g_point, b.g_point))
+    if not same:
+        log(f"[parallel] {what}: ranks differ: rank1 {a1.tolist()} against "
+            f"{b1.tolist()}, rank2 {a2.tolist()} against {b2.tolist()}")
+    check(same, f"{what}: identical g-point ranks")
+
+
+def well_conditioned(model, profiles):
+    """Per LUT entry of a transmission-averaged model, whether its fit is
+    well conditioned (kappa = m / ((1 - m) (-log1p(-m))) <= 100 for the
+    mean transmission m of its od, as phase 11 holds it)."""
+    from ecckd_tpu_torch.constants import LW_DIFFUSIVITY
+    from ecckd_tpu_torch.ops.average import od_to_molar_abs
+    k = model.single_gas_data[0].molar_abs
+    out = np.zeros(k.shape, bool)
+    for icol, sp in enumerate(profiles):
+        per_od = od_to_molar_abs(np.ones(k.shape[1:]), sp.pressure_hl, 0.01)
+        m = -np.expm1(-LW_DIFFUSIVITY * k[icol] / per_od)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            kappa = m / ((1.0 - m) * -np.log1p(-m))
+        out[icol] = (kappa <= 100.0) | (m == 0.0)
+    return out
+
+
+def sharded_luts(lw, mesh, say, device):
+    """create_lut_core over ``mesh``, dense and streamed in blocks of
+    2^18, against one device (this phase's dense run and phase 5's LUT):
+    min and max bit-identical, molar absorption within 1e-10 normwise
+    where the fit is well conditioned, seconds of each."""
+    from ecckd_tpu_torch.models import ConcDependence
+    from ecckd_tpu_torch.tools.create_lut import LutGas, create_lut_core
+    gas = LutGas("h2o", ConcDependence.LINEAR,
+                 [lambda icol: (lw.profiles[icol], 0.01)])
+    gp = lw.gp
+    run = lambda **kw: create_lut_core(
+        gp.g_point, gp.wavenumber1_band, gp.wavenumber2_band,
+        gp.band_number, [gas], averaging_method="transmission",
+        device=device, streaming_block_wav=PARALLEL_BLOCK, **kw)
+    secs, models = {}, {}
+    for tag, kw in (("one device dense", dict(streaming="0")),
+                    ("sharded dense", dict(streaming="0", mesh=mesh)),
+                    ("sharded streamed", dict(streaming="1", mesh=mesh))):
+        sync(device)
+        t0 = time.perf_counter()
+        models[tag] = run(**kw)
+        sync(device)
+        secs[tag] = time.perf_counter() - t0
+    want = lw.model.single_gas_data[0]
+    well = well_conditioned(lw.model, lw.profiles)
+    out = dict(seconds=secs)
+    for tag in ("sharded dense", "sharded streamed"):
+        g = models[tag].single_gas_data[0]
+        same = (np.array_equal(g.min_molar_abs, want.min_molar_abs)
+                and np.array_equal(g.max_molar_abs, want.max_molar_abs))
+        err = normwise([g.molar_abs[well]], [want.molar_abs[well]])
+        rest = ~well
+        worst = (float(np.max(np.abs(g.molar_abs[rest]
+                                     / want.molar_abs[rest] - 1.0)))
+                 if rest.any() else 0.0)
+        say(f"create_lut {tag} over {PARALLEL_SHARDS} shards: min and max "
+            f"bit-identical to phase 5's LUT {same}; molar absorption "
+            f"{err:.3e} normwise over {int(well.sum())} well-conditioned "
+            f"entries (bar 1e-10), {int(rest.sum())} towards the clamp "
+            f"worst {worst:.3e} relative")
+        check(same, f"create_lut {tag}: min and max bit-identical")
+        check(err <= 1e-10, f"create_lut {tag}: molar absorption within "
+              "1e-10 where well conditioned")
+        out[tag] = dict(min_max_identical=same, err=err, near=worst)
+    say(f"create_lut seconds (host clock): "
+        f"{json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    return out
+
+
+def device_solver_run(lw, opt, say, device):
+    """optimize_lut_core with solver=device on phase 8's LW model and
+    training fluxes: at most 60 iterations, prior error 4."""
+    import copy
+    from ecckd_tpu_torch.tools.optimize_lut import optimize_lut_core
+    model = copy.deepcopy(lw.model)
+    lbl = copy.deepcopy(opt.lbl)
+    res = optimize_lut_core(model, [lbl], gases=["h2o"], prior_error=4.0,
+                            max_iterations=60, convergence_criterion=0.002,
+                            solver="device", device=device)
+    before = flux_errors(lw.model, lbl, device)
+    after = flux_errors(model, lbl, device)
+    scipy_res = opt.res
+    g0, g1 = lw.model.single_gas_data[0], model.single_gas_data[0]
+    pos = g0.molar_abs > 0
+    bounded = (np.all(g1.molar_abs[pos] <= g0.max_molar_abs[pos]
+                      * (1 + 1e-9))
+               and np.all(g1.molar_abs[pos] >= g0.min_molar_abs[pos]
+                          * np.where(g0.min_molar_abs[pos] > 0,
+                                     1 - 1e-9, 0.0))
+               and np.all(g1.molar_abs[~pos] == 0.0))
+    n = max(res.n_iterations, 1)
+    say(f"device solver: {res.status.name}, {res.n_iterations} iterations, "
+        f"{res.n_evaluations} evaluations ({res.n_evaluations / n:.2f} an "
+        f"iteration), {res.host_reads} host reads ({res.host_reads / n:.2f} "
+        f"an iteration); cost {res.first_cost:.6g} -> {res.cost:.6g} "
+        f"(scipy in phase 8: {scipy_res.cost:.6g} after "
+        f"{scipy_res.n_iterations} iterations); heating-rate RMS error "
+        f"{before[0]:.6e} -> {after[0]:.6e} K/day, surface downwelling "
+        f"{before[1]:.9e} -> {after[1]:.9e} W m-2; bounds held and zeros "
+        f"kept {bounded}")
+    say(f"device solver {1e3 * res.seconds_per_iteration:.2f} ms an "
+        "iteration against scipy's "
+        f"{1e3 * scipy_res.seconds_per_iteration:.2f} ms in phase 8 (host "
+        "clock)")
+    check(res.cost <= scipy_res.cost * 1.05
+          and scipy_res.cost <= res.cost * 1.05,
+          "device solver's final cost within 5% of scipy's")
+    check(after[0] < before[0] and after[1] < before[1],
+          "device solver lowers the heating-rate and surface errors")
+    check(bounded, "device solver: bounds hold and zeros stay zero")
+    return dict(status=res.status.name, iterations=res.n_iterations,
+                evaluations=res.n_evaluations, host_reads=res.host_reads,
+                cost=res.cost, scipy_cost=scipy_res.cost,
+                ms_per_iteration=1e3 * res.seconds_per_iteration,
+                scipy_ms_per_iteration=1e3 * scipy_res.seconds_per_iteration,
+                hr_error=after[0])
+
+
+def data_parallel_run(lw, opt, mesh, say, device):
+    """data_parallel over ``mesh`` with phase 8's LW model and its 5
+    profiles (padded to 8 over 4 shards): value and gradient against one
+    shard and in a repeat, then 15 scipy iterations against one shard."""
+    import copy
+    from ecckd_tpu_torch.ops.cost import CostWeights
+    from ecckd_tpu_torch.optimize.solver import (TrainingCost,
+                                                 log_state_tree, ravel_tree)
+    from ecckd_tpu_torch.tools.optimize_lut import (optimize_lut_core,
+                                                    prepare_lbl)
+    model = copy.deepcopy(lw.model)
+    lbl = copy.deepcopy(opt.lbl)
+    model.set_active(["h2o"])
+    model.create_error_covariances(4.0)
+    prepare_lbl(lbl, model, 1.0e4)
+    x = ravel_tree(log_state_tree(model))
+    one = TrainingCost(model, [lbl], CostWeights(), device=device)
+    shd = TrainingCost(model, [lbl], CostWeights(), device=device,
+                       mesh=mesh)
+    (v1, g1), (v, g), (v2, g2) = one(x), shd(x), shd(x)
+    rel_v = abs(v / v1 - 1.0)
+    rel_g = float(np.linalg.norm(g - g1) / np.linalg.norm(g1))
+    same = v2 == v and np.array_equal(g2, g)
+    ms = {tag: cuda_ms(lambda c=c: c.value_and_grad(c.tensor(x)), 10)
+          if device.type == "cuda" else float("nan")
+          for tag, c in (("one", one), ("sharded", shd))}
+    say(f"data_parallel: {lbl.ncol} profiles over {mesh.size} shards; "
+        f"value {rel_v:.3e}, gradient {rel_g:.3e} (normwise) against one "
+        f"shard (bar 1e-10); repeat bit-identical {same}; "
+        f"{ms['sharded']:.3f} ms per value and gradient against "
+        f"{ms['one']:.3f} ms (CUDA events)")
+    check(rel_v <= 1e-10 and rel_g <= 1e-10, "data_parallel value and "
+          "gradient within 1e-10 of one shard")
+    check(same, "data_parallel: bit-identical repeat")
+    runs = {}
+    for tag, kw in (("one", dict(data_parallel=False)),
+                    ("sharded", dict(data_parallel=True, mesh=mesh))):
+        m = copy.deepcopy(lw.model)
+        res = optimize_lut_core(m, [copy.deepcopy(opt.lbl)], gases=["h2o"],
+                                prior_error=4.0, max_iterations=15,
+                                convergence_criterion=1e-12, device=device,
+                                **kw)
+        runs[tag] = (res, m.single_gas_data[0].molar_abs)
+    (r1, k1), (r, k) = runs["one"], runs["sharded"]
+    rel_cost = abs(r.cost / r1.cost - 1.0)
+    rel_lut = float(np.max(np.abs(k[k1 > 0] / k1[k1 > 0] - 1.0)))
+    say(f"data_parallel: 15 scipy iterations, cost {r.cost:.9g} against "
+        f"{r1.cost:.9g} ({rel_cost:.3e}, bar 1e-8), LUT worst {rel_lut:.3e} "
+        f"(bar 1e-6); {1e3 * r.seconds_per_iteration:.2f} ms an iteration "
+        f"against {1e3 * r1.seconds_per_iteration:.2f} (host clock)")
+    check(rel_cost <= 1e-8 and rel_lut <= 1e-6, "data_parallel: 15 "
+          "iterations within 1e-8 (cost) and 1e-6 (LUT) of one shard")
+    return dict(value=rel_v, gradient=rel_g, ms=ms, cost=rel_cost,
+                lut=rel_lut)
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def planck_weights(sp, device):
+    """The Planck weights of create_lut for profile ``sp``, on ``device``."""
+    from ecckd_tpu_torch.tools.create_lut import _planck_weight
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                                  device=device)
+    p = np.asarray(sp.pressure_hl)
+    t_x_p = np.asarray(sp.temperature_hl) * p
+    p_fl = 0.5 * (p[:-1] + p[1:])
+    t_fl = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / p_fl
+    return _planck_weight(t(t_fl), t(sp.wavenumber), t(sp.d_wavenumber))
+
+
+def write_parallel_inputs(work, sp, order, g_point):
+    """Profile 0 of the LW main path, its order and the sharded search's
+    g-point map as .npy files for the workers."""
+    import os
+    for name, a in (("optical_depth", sp.optical_depth),
+                    ("pressure_hl", sp.pressure_hl),
+                    ("temperature_hl", sp.temperature_hl),
+                    ("wavenumber", sp.wavenumber),
+                    ("d_wavenumber", sp.d_wavenumber),
+                    ("g_point", g_point)):
+        np.save(os.path.join(work, f"{name}.npy"), np.asarray(a))
+    np.savez(os.path.join(work, "order.npz"),
+             **{k: np.asarray(v) for k, v in order.items()})
+
+
+def read_parallel_inputs(work):
+    import os
+    load = lambda name: np.load(os.path.join(work, f"{name}.npy"),
+                                mmap_mode="r")
+    sp = SimpleNamespace(**{n: np.asarray(load(n)) for n in (
+        "pressure_hl", "temperature_hl", "wavenumber", "d_wavenumber")})
+    sp.optical_depth = load("optical_depth")
+    sp.ncol = 1
+    with np.load(os.path.join(work, "order.npz")) as f:
+        order = {k: f[k] for k in f.files}
+        for k, v in order.items():
+            if v.ndim == 0:
+                order[k] = v.item()
+    return sp, order, np.asarray(load("g_point"))
+
+
+def parallel_worker(work, device="cuda:0"):
+    """One of the two processes of phase 13's multi-controller run (run as
+    ``chip_smoke.py --parallel-worker DIR DEVICE`` with torchrun's
+    variables): 2 logical shards on ``device`` each, so the process-major
+    mesh has 4.  Runs
+    the LW main path's search and the streamed multi-controller averaging
+    of its profile 0 (each process its half of the wavenumbers), and
+    process 0 writes the ranks, every probe's costs (as searched and with
+    float32's clamp) and the averaging's partials to ``DIR``."""
+    import os
+    import torch.distributed as dist
+    from ecckd_tpu_torch.parallel import distributed, make_mesh
+    from ecckd_tpu_torch.parallel.sharded_average import (
+        streaming_sharded_average_od_to_gpoints_multihost)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    check(distributed.initialize_from_env(backend="gloo", timeout_s=600),
+          "initialize_from_env over gloo")
+    rank = dist.get_rank()
+    mesh = make_mesh(devices=[dev] * (PARALLEL_SHARDS // 2),
+                     data_parallel=1)
+    check(mesh.size == PARALLEL_SHARDS and mesh.process_count == 2,
+          "a process-major mesh of 4 shards over 2 processes")
+    sp, order, g_point = read_parallel_inputs(work)
+    t0 = time.perf_counter()
+    probes = []
+    gp = search(gas_input(order, sp), dev, HR_TOL, band_parallel="off",
+                mesh=mesh, cost_options=dict(probe_log=probes))
+    sync(dev)
+    secs = time.perf_counter() - t0
+    twins = {id(k): cost_twin(k, k.dtype, False, torch.float32, mesh=mesh)
+             for k, _, _, _ in probes}
+    limited = [twins[id(k)].costs(i1, i2) for k, i1, i2, _ in probes]
+    del twins
+    nwav = len(sp.wavenumber)
+    half = nwav // 2
+    lo = rank * half
+    w = planck_weights(sp, dev)
+    ng = int(g_point.max()) + 1
+    t0 = time.perf_counter()
+    acc = streaming_sharded_average_od_to_gpoints_multihost(
+        mesh, ng, g_point[lo:lo + half],
+        lambda i0, nb: sp.optical_depth[:, lo + i0:lo + i0 + nb], half,
+        lambda i0, nb: w[:, lo + i0:lo + i0 + nb], "transmission",
+        block_wav=PARALLEL_BLOCK, finalize=False)
+    avg_secs = time.perf_counter() - t0
+    if rank == 0:
+        r1, r2 = ranks_of(gp)
+        np.savez(os.path.join(work, "worker.npz"), rank1=r1, rank2=r2,
+                 g_point=gp.g_point,
+                 costs=np.concatenate([p[3] for p in probes]),
+                 limited=np.concatenate(limited),
+                 i1=np.concatenate([p[1] for p in probes]),
+                 i2=np.concatenate([p[2] for p in probes]),
+                 sizes=np.asarray([len(p[1]) for p in probes]),
+                 seconds=secs, avg_seconds=avg_secs,
+                 **{f"acc_{k}": v for k, v in acc.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    log(f"[parallel worker {rank}] search {secs:.3f} s, averaging "
+        f"{avg_secs:.3f} s")
+
+
+def multi_controller_run(lw, k, ref_gp, say, device):
+    """Two processes on ``device`` over gloo (:func:`parallel_worker`) against
+    this process's LW sharded search (``ref_gp``, its kernel ``k``, over
+    the same 4 shards in one process):
+    identical ranks, the probes' costs within 1e-12 (with float32's clamp
+    on both sides; as searched reported), the averaging's min and max
+    partials bit-identical and its sums within 1e-12."""
+    import os
+    import subprocess
+    import tempfile
+    from ecckd_tpu_torch.ops.kernels import _build
+    from ecckd_tpu_torch.parallel.sharded_average import (
+        streaming_sharded_average_od_to_gpoints)
+    sp = lw.profiles[0]
+    order = order_of(sp, device)
+    root = _build.BUILD_DIR.parent
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=root, prefix="parallel_") as work:
+        write_parallel_inputs(work, sp, order, ref_gp.g_point)
+        port = _free_port()
+        procs = []
+        t0 = time.perf_counter()
+        for rank in range(2):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                       WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-worker", work, str(device)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs_out = []
+        try:
+            for p in procs:
+                logs_out.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for rank, (p, text) in enumerate(zip(procs, logs_out)):
+            tail = "\n".join(text.splitlines()[-15:])
+            say(f"worker {rank} exit {p.returncode}; last lines:\n{tail}")
+            check(p.returncode == 0, f"multi-controller worker {rank} ran")
+        with np.load(os.path.join(work, "worker.npz")) as f:
+            got = {k: f[k] for k in f.files}
+    r1, r2 = ranks_of(ref_gp)
+    same = (np.array_equal(got["rank1"], r1)
+            and np.array_equal(got["rank2"], r2)
+            and np.array_equal(got["g_point"], ref_gp.g_point))
+    check(same, "multi-controller search: ranks identical to the one-process"
+          " 4-shard run")
+    # every probe of the workers' search on this process's 4-shard mesh
+    mesh = k.mesh
+    k_lim = cost_twin(k, k.dtype, False, torch.float32, mesh=mesh)
+    costs, limited = [], []
+    i0 = 0
+    for n in got["sizes"]:
+        i1, i2 = got["i1"][i0:i0 + n], got["i2"][i0:i0 + n]
+        i0 += n
+        costs.append(k.costs(i1, i2))
+        limited.append(k_lim.costs(i1, i2))
+    del k_lim
+    raw = normwise([got["costs"]], [np.concatenate(costs)])
+    lim = float(np.max(np.abs(got["limited"] / np.concatenate(limited)
+                              - 1.0)))
+    say(f"multi-controller search ({len(got['sizes'])} probes, "
+        f"{float(got['seconds']):.3f} s in worker 0, two processes "
+        f"{wall:.1f} s with start-up): ranks identical {same}; costs "
+        f"against one process {raw:.3e} normwise as searched, worst "
+        f"{lim:.3e} relative with float32's clamp (bar 1e-12)")
+    check(lim <= 1e-12, "multi-controller costs within 1e-12 of one "
+          "process")
+    # the averaging's partials against one process over the same shards
+    w = planck_weights(sp, device)
+    ng = int(ref_gp.g_point.max()) + 1
+
+    class Reader:
+        def iter_blocks(self, block_wav):
+            for j in range(0, sp.optical_depth.shape[1], block_wav):
+                yield j, sp.optical_depth[:, j:j + block_wav]
+
+    acc = streaming_sharded_average_od_to_gpoints(
+        mesh, Reader(), ng, ref_gp.g_point, lambda j, nb: w[:, j:j + nb],
+        "transmission", block_wav=PARALLEL_BLOCK, finalize=False)
+    same_mm = all(np.array_equal(got[f"acc_{m}"], acc[m])
+                  for m in ("min", "max"))
+    sums = [key for key in acc if key not in ("min", "max")]
+    worst = 0.0
+    for key in sums:
+        a, b = got[f"acc_{key}"], acc[key]
+        nz = b != 0
+        check(np.array_equal(a[~nz], b[~nz]), f"averaging {key}: zeros "
+              "identical")
+        worst = max(worst, float(np.max(np.abs(a[nz] / b[nz] - 1.0),
+                                        initial=0.0)))
+    say(f"multi-controller averaging of profile 0 (blocks of "
+        f"{PARALLEL_BLOCK}, {float(got['avg_seconds']):.3f} s in worker 0):"
+        f" min and max partials bit-identical {same_mm}; sums {sums} worst "
+        f"{worst:.3e} relative (bar 1e-12)")
+    check(same_mm, "multi-controller min and max partials bit-identical")
+    check(worst <= 1e-12, "multi-controller sums within 1e-12")
+    out.update(ranks_identical=same, costs=raw, clamped_costs=lim,
+               sums=worst, seconds=float(got["seconds"]), wall=wall)
+    return out
+
+
+def phase_parallel(smi, lw, sw, opt, device="cuda"):
+    """Phase 13: the device solver and the parallel paths on one card.
+    A mesh of 4 logical shards on cuda:0 stands for 4 cards; the
+    multi-controller run is two processes on cuda:0 over gloo."""
+    from ecckd_tpu_torch.ops.kernels import _build
+    from ecckd_tpu_torch.parallel import make_mesh
+    say = lambda line: log(f"[parallel] {line}")
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * PARALLEL_SHARDS, data_parallel=1)
+    out = {"mesh": repr(mesh)}
+
+    out["device_solver"] = device_solver_run(lw, opt, say, dev)
+    out["data_parallel"] = data_parallel_run(lw, opt, mesh, say, dev)
+
+    # find_g_points sharded: LW and SW main paths, and LW once checked
+    lw_gas = gas_input(order_of(lw.profiles[0], dev), lw.profiles[0])
+    base = fgp_run(lw_gas, HR_TOL, band_parallel="off", device=dev)
+    check_same_ranks(base[0], lw.gp, "LW search in phase 13 and phase 5")
+    out["lw_search"] = {}
+    lw_gp, probes = sharded_search("LW sharded search", lw_gas, HR_TOL,
+                                   mesh, base, say, out=out["lw_search"])
+    out["lw_search"]["ranks"] = rank_moves(
+        "LW sharded search", lw_gas, HR_TOL, mesh, lw_gp, base[0], probes,
+        say, dev)
+    lw_kernel = probes[0][0]
+    del probes
+    sw_gas = gas_input(order_of(sw.profiles[0], dev, sw=True,
+                                bands=SW_BANDS), sw.profiles[0])
+    base = fgp_run(sw_gas, HR_TOL_SW, ssi=sw.ssi, band_parallel="off",
+                   device=dev)
+    check_same_ranks(base[0], sw.gp, "SW search in phase 13 and phase 6")
+    out["sw_search"] = {}
+    sw_gp, probes = sharded_search("SW sharded search", sw_gas, HR_TOL_SW,
+                                   mesh, base, say, ssi=sw.ssi,
+                                   out=out["sw_search"])
+    out["sw_search"]["ranks"] = rank_moves(
+        "SW sharded search", sw_gas, HR_TOL_SW, mesh, sw_gp, base[0],
+        probes, say, dev, ssi=sw.ssi)
+    del probes
+    t0 = time.perf_counter()
+    with _build.checked():
+        checked_gp = fgp_run(lw_gas, HR_TOL, band_parallel="off",
+                             mesh=mesh, device=dev)[0]
+        sync(dev)
+    check_same_ranks(checked_gp, lw_gp, "LW sharded search on the checked "
+                     "build against the normal build")
+    say(f"LW sharded search on the checked build in "
+        f"{time.perf_counter() - t0:.2f} s: no index out of range, ranks "
+        "identical")
+    del lw_gas, sw_gas, base, checked_gp
+
+    out["create_lut"] = sharded_luts(lw, mesh, say, dev)
+    out["multi_controller"] = multi_controller_run(lw, lw_kernel, lw_gp,
+                                                   say, dev)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    say(json.dumps(out, default=float))
+    say(f"phase {out['phase_seconds']:.1f} s ({smi})")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, res):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=res["max_abs_err"],
@@ -2589,18 +3262,19 @@ def main() -> int:
     sw_profiles, ssi, sw_gp, sw_model, sw_launches = phase_sw_main_path()
     phase_rest(lw_profiles, sw_profiles, ssi, sw_gp, sw_model)
     phase_profile(lw_profiles, sw_profiles, ssi)
-    lw_hr_error = phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles,
-                                 ssi, sw_gp, sw_model)
+    opt = phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi,
+                         sw_gp, sw_model)
     lut_paths_at_main_size(lw_profiles, lw_gp, smi)
     exp, exp_launches = phase_experiment()
     phase_checked(dev, times, exp)
     phase_ckdmip(smi)
-    phase_workflow(smi, SimpleNamespace(
-        profiles=lw_profiles, gp=lw_gp, model=lw_model, launches=lw_launches,
-        hr_error=lw_hr_error), SimpleNamespace(
-        profiles=sw_profiles, ssi=ssi, gp=sw_gp, model=sw_model,
-        launches=sw_launches))
-    del lw_profiles, sw_profiles, lw_model, sw_model
+    lw = SimpleNamespace(profiles=lw_profiles, gp=lw_gp, model=lw_model,
+                         launches=lw_launches, hr_error=opt.hr_error)
+    sw = SimpleNamespace(profiles=sw_profiles, ssi=ssi, gp=sw_gp,
+                         model=sw_model, launches=sw_launches)
+    phase_workflow(smi, lw, sw)
+    phase_parallel(smi, lw, sw, opt)
+    del lw, sw, lw_profiles, sw_profiles, lw_model, sw_model
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")
     check(not jax_modules(), f"no module of jax or ecckd_tpu imported "
           f"(found {jax_modules()[:5]})")
@@ -2648,4 +3322,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

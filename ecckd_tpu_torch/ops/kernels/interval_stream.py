@@ -152,7 +152,8 @@ def _state(i1, i2):
 
 
 _BOUNDS: "OrderedDict[int, _Bounds]" = OrderedDict()
-_BOUNDS_KEPT = 8
+# A sharded probe uploads its bounds once a shard, global and shifted
+_BOUNDS_KEPT = 32
 
 
 def _remember(i1, i2, host):

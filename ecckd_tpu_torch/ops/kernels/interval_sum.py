@@ -43,7 +43,8 @@ class RowTable(NamedTuple):
 
 
 _ROW_TABLES: "OrderedDict[tuple, RowTable]" = OrderedDict()
-_ROW_TABLES_KEPT = 8
+# Every shard of a sharded kernel has row tables of its own
+_ROW_TABLES_KEPT = 32
 
 
 def _operand_device(parts, i1):

@@ -56,14 +56,16 @@ class SceneArrays(NamedTuple):
 
 @dataclasses.dataclass
 class SceneMeta:
-    """Static per-scene metadata (the JAX package's ``profile_weight``,
-    which weights the padding copies of its profile sharding, is not
-    ported with that sharding)."""
+    """Static per-scene metadata.  ``profile_weight`` (ncol,) weights each
+    profile's cost: zero for the padding copies of a profile shard
+    (:func:`~ecckd_tpu_torch.parallel.mesh.profile_slices`), None for a
+    scene of real profiles only."""
     is_sw: bool
     gas_mapping: np.ndarray       # CKD gas index -> LBL vmr index
     band_onehot: np.ndarray       # (ng, nband)
     with_upwelling: bool = True   # SW only
     spectral_boundary_weights: Optional[np.ndarray] = None   # SW (ng,)
+    profile_weight: Optional[np.ndarray] = None   # (ncol,), 0 = padding
 
 
 def _exp_state(log_table):
@@ -73,13 +75,24 @@ def _exp_state(log_table):
 
 def build_scene(model, lbl, pressure_weight_power=0.5,
                 erythemal_weight=0.0, relative_fluxes=None, device="cuda",
-                dtype=torch.float64) -> (SceneArrays, SceneMeta):
+                dtype=torch.float64, profiles=None,
+                profile_weight=None) -> (SceneArrays, SceneMeta):
     """Prepare a training scene's tensors on ``device`` (the card unless
     ``device="cpu"``) and its static metadata from a CkdModel and an
-    LblFluxes (host side, done once)."""
+    LblFluxes (host side, done once).
+
+    ``profiles`` (indices, repeats allowed) takes those profiles of the
+    LblFluxes only, and ``profile_weight`` weights their costs: one shard
+    of the data-parallel cost (:class:`~.solver.TrainingCost`)."""
     dev = resolve_device(device)
     t = lambda a: (None if a is None else
                    torch.as_tensor(np.asarray(a), dtype=dtype, device=dev))
+    if profiles is not None:
+        rows = np.asarray(profiles, np.int64)
+        # Only the per-profile arrays are cut: ssi_g and albedo_g are per
+        # g-point whatever their length
+        t_all = t
+        t = lambda a: t_all(None if a is None else np.asarray(a)[rows])
 
     nspec = lbl.nspec()
     iband = lbl.iband_per_g
@@ -122,6 +135,8 @@ def build_scene(model, lbl, pressure_weight_power=0.5,
     if relative_fluxes is not None:
         rel_dn, rel_up = relative_fluxes
 
+    t_g = lambda a: (None if a is None else
+                     torch.as_tensor(np.asarray(a), dtype=dtype, device=dev))
     pressure_hl, temperature_fl = t(lbl.pressure_hl), t(t_fl)
     vmr_fl = t(lbl.vmr_fl)
     interpolation = []
@@ -148,8 +163,8 @@ def build_scene(model, lbl, pressure_weight_power=0.5,
         surf_planck=t(surf_planck),
         surf_emissivity_g=t(surf_emis_g),
         mu0=t(mu0),
-        ssi_g=t(ssi_g),
-        albedo_g=t(albedo_g),
+        ssi_g=t_g(ssi_g),
+        albedo_g=t_g(albedo_g),
         spectral_flux_dn_surf=t(lbl.spectral_flux_dn_surf),
         spectral_flux_up_toa=t(lbl.spectral_flux_up_toa),
         relative_flux_dn=t(rel_dn),
@@ -159,7 +174,9 @@ def build_scene(model, lbl, pressure_weight_power=0.5,
     meta = SceneMeta(is_sw=lbl.is_sw, gas_mapping=lbl.gas_mapping,
                      band_onehot=band_onehot,
                      with_upwelling=with_upwelling,
-                     spectral_boundary_weights=sbw)
+                     spectral_boundary_weights=sbw,
+                     profile_weight=(None if profile_weight is None else
+                                     np.asarray(profile_weight, np.float64)))
     return arrays, meta
 
 
@@ -226,16 +243,28 @@ def make_cost_fn(model, scenes, weights, negative_od_penalty=1.0e4):
                                     device=scene.pressure_hl.device)
                     for scene, meta in scenes]
 
+    profile_weights = [None if meta.profile_weight is None else
+                       torch.as_tensor(meta.profile_weight,
+                                       dtype=scene.pressure_hl.dtype,
+                                       device=scene.pressure_hl.device)
+                       for scene, meta in scenes]
+
     def cost(tree):
         total = 0.0
-        for (scene, meta), od_fn, band_onehot in zip(scenes, od_fns,
-                                                     band_onehots):
+        for (scene, meta), od_fn, band_onehot, pw in zip(
+                scenes, od_fns, band_onehots, profile_weights):
             od = od_fn(tree, scene)
             # Negative-od quadratic penalty (ref solve_adept.cpp:107-116);
             # minimum/maximum split the gradient at od == 0 as JAX does
             zero = torch.zeros((), dtype=od.dtype, device=od.device)
             neg = torch.minimum(od, zero)
-            total = total + negative_od_penalty * torch.sum(neg * neg)
+            if pw is None:
+                total = total + negative_od_penalty * torch.sum(neg * neg)
+            else:
+                # A padding copy adds no penalty either (JAX's padded
+                # copies do, ROADMAP §3)
+                total = total + negative_od_penalty * torch.sum(
+                    torch.sum(neg * neg, dim=(1, 2)) * pw)
             od = torch.maximum(od, zero)
 
             if not meta.is_sw:
@@ -263,6 +292,10 @@ def make_cost_fn(model, scenes, weights, negative_od_penalty=1.0e4):
                     spectral_flux_dn_surf=scene.spectral_flux_dn_surf,
                     relative_flux_dn=scene.relative_flux_dn,
                     relative_flux_up=scene.relative_flux_up)
+            if pw is not None:
+                # Zero-weight profiles are the padding copies of a profile
+                # shard; they run but contribute nothing
+                per_profile = per_profile * pw
             total = total + torch.sum(per_profile)
         return total
 

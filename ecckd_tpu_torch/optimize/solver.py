@@ -4,15 +4,21 @@ PyTorch counterpart of ``ecckd_tpu/optimize/solver.py`` (ref solve_adept,
 src/ecckd/solve_adept.cpp:309-419): the state is log(k) per active gas
 (MIN_X sentinel holding exact zeros at zero), bounds come from the min/max
 LUT arrays with the reference's zero-min fixups, and each evaluation runs
-the value and gradient of the full training cost on the device while scipy's
-L-BFGS-B, the reference's exact bounded behaviour, steps on the host.
+the value and gradient of the full training cost on the device.  Two
+minimisers: scipy's L-BFGS-B on the host (``solver="scipy"``, and "auto"),
+the reference's exact bounded behaviour, and the projected L-BFGS of the
+JAX package's ``solver="device"``, whose whole loop runs on tensors on the
+device (:mod:`.lbfgs`).
 
 The state is flattened in the JAX package's ``ravel_pytree`` order (gases
 sorted by name, each LUT in C order), so the bounds list, the L-BFGS-B
-vector and the checkpoints match JAX's element for element.  One
+vector and the checkpoints match JAX's element for element.  One scipy
 evaluation copies the state to the device once and its value and gradient
-back once.  Not ported (ROADMAP): the on-device L-BFGS (``solver="device"``)
-and sharding the profiles over several cards.
+back once.  With ``data_parallel`` the profiles are split over the shards
+of a mesh (:func:`~ecckd_tpu_torch.parallel.mesh.profile_slices`): each
+shard evaluates its own against a copy of the state, and the values and
+gradients are summed in shard order, then over the processes of
+``torch.distributed``, where every process runs the same minimiser.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import torch
 from .. import logs
 from ..logs import Timer
 from ..ops.cost import CostWeights
+from ..parallel.mesh import make_mesh, profile_slices
 from ..tools.common import resolve_device
+from . import lbfgs
 from .cost_fn import MIN_X, build_scene, make_cost_fn, make_prior_fn
 
 
@@ -161,44 +169,50 @@ def _load_checkpoint(path: str, expect_tree):
     return tree, n_iter
 
 
-def check_one_device(data_parallel, device: torch.device):
-    """``data_parallel`` shards the profiles over every card where there
-    are several (the JAX package's ``_shard_scene_profiles``), which the
-    port does not do yet: raise there.  With one card, or on the CPU, it
-    changes nothing."""
-    if (data_parallel and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            "optimize_lut: data_parallel over "
-            f"{torch.cuda.device_count()} cards (the profiles sharded "
-            "over the cards) is not ported yet (ROADMAP: multi-GPU); set "
-            "data_parallel=0 to run on one card")
-
-
 class TrainingCost:
     """The training cost (data and prior) of a model's active LUTs against
-    its training fluxes, as a function of the flat log-state, on one
-    device.
+    its training fluxes, as a function of the flat log-state.
 
-    ``value_and_grad(x)`` takes and returns tensors on the device;
-    calling the object with a float64 numpy vector returns scipy's
-    (value, gradient) with one copy each way."""
+    ``value_and_grad(x)`` takes and returns tensors on ``device``; calling
+    the object with a float64 numpy vector returns scipy's (value,
+    gradient) with one copy each way.  With a ``mesh`` of more than one
+    shard the profiles of every training scene are split over its shards
+    (:func:`~ecckd_tpu_torch.parallel.mesh.profile_slices`, padding copies
+    of weight zero), each shard's data cost and gradient are evaluated on
+    its device against a copy of the state, and both are summed with the
+    mesh's collective, in shard order and then over the processes; the
+    prior is added on ``device``."""
 
     def __init__(self, model, training_data, weights: CostWeights,
                  negative_od_penalty=1.0e4, pressure_weight_power=0.5,
                  erythemal_weight=0.0, relative_fluxes=None, device="cuda",
-                 dtype=torch.float64):
+                 dtype=torch.float64, mesh=None):
         self.device = resolve_device(device)
         self.dtype = dtype
-        scenes = []
-        for ilbl, lbl in enumerate(training_data):
-            rel = None if relative_fluxes is None else relative_fluxes[ilbl]
-            scenes.append(build_scene(
-                model, lbl, pressure_weight_power=pressure_weight_power,
-                erythemal_weight=erythemal_weight, relative_fluxes=rel,
-                device=self.device, dtype=dtype))
-        self.data_cost = make_cost_fn(model, scenes, weights,
-                                      negative_od_penalty=negative_od_penalty)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        scene_args = dict(pressure_weight_power=pressure_weight_power,
+                          erythemal_weight=erythemal_weight, dtype=dtype)
+        rel = [None if relative_fluxes is None else relative_fluxes[i]
+               for i in range(len(training_data))]
+        if self.mesh is None:
+            scenes = [build_scene(model, lbl, relative_fluxes=r,
+                                  device=self.device, **scene_args)
+                      for lbl, r in zip(training_data, rel)]
+            self.data_cost = make_cost_fn(
+                model, scenes, weights,
+                negative_od_penalty=negative_od_penalty)
+        else:
+            slices = [profile_slices(self.mesh, lbl.pressure_hl.shape[0])
+                      for lbl in training_data]
+            self.shards = []
+            for k, (_, dev) in enumerate(self.mesh.local_shards()):
+                scenes = [build_scene(model, lbl, relative_fluxes=r,
+                                      device=dev, profiles=sl[k][1],
+                                      profile_weight=sl[k][2], **scene_args)
+                          for lbl, r, sl in zip(training_data, rel, slices)]
+                self.shards.append((dev, make_cost_fn(
+                    model, scenes, weights,
+                    negative_od_penalty=negative_od_penalty)))
         self.prior_cost = make_prior_fn(model, self.device, dtype)
         # The prior background is the model state as read, not a resumed
         # checkpoint (ckd_model.cpp:838-877 semantics)
@@ -212,11 +226,27 @@ class TrainingCost:
     def total_cost(self, tree):
         return self.data_cost(tree) + self.prior_cost(tree, self.prior_tree)
 
-    def value_and_grad(self, x):
+    def _value_and_grad_of(self, fn, x):
         x = x.detach().requires_grad_(True)
-        value = self.total_cost(self.state.unravel(x))
+        value = fn(self.state.unravel(x))
+        if not torch.is_tensor(value) or not value.requires_grad:
+            return torch.as_tensor(value, dtype=x.dtype,
+                                   device=x.device), torch.zeros_like(x)
         (grad,) = torch.autograd.grad(value, x)
         return value.detach(), grad
+
+    def value_and_grad(self, x):
+        if self.mesh is None:
+            return self._value_and_grad_of(self.total_cost, x)
+        packed = []
+        for dev, data_cost in self.shards:
+            v, g = self._value_and_grad_of(data_cost, x.to(dev))
+            packed.append(torch.cat([v.reshape(1), g]))
+        # One collective for the value and the gradient of every shard
+        data = self.mesh.sum(packed, device=self.device)
+        pv, pg = self._value_and_grad_of(
+            lambda tree: self.prior_cost(tree, self.prior_tree), x)
+        return data[0] + pv, data[1:] + pg
 
     def __call__(self, x_flat):
         value, grad = self.value_and_grad(self.tensor(x_flat))
@@ -237,6 +267,7 @@ class SolveResult:
     first_cost: float = float("nan")
     device_seconds: float = 0.0     # cost function + gradient, host clock
     minimizer_seconds: float = 0.0
+    host_reads: int = 0             # solver="device": packed flag reads
 
 
 def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
@@ -247,26 +278,37 @@ def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
           relative_fluxes=None, data_parallel=False,
           solver="auto", checkpoint_file=None,
           checkpoint_every=0, device="cuda",
-          dtype=torch.float64) -> SolveResult:
+          dtype=torch.float64, mesh=None) -> SolveResult:
     """Optimise the active gases' LUTs against LBL training fluxes.
 
     ``training_data`` is a list of LblFluxes; the model is updated in place.
     The cost and its gradient run on ``device`` (the card unless
-    ``device="cpu"``; raises without one).  ``solver``: "scipy" or "auto"
-    (host L-BFGS-B around the device value and gradient); "device" raises
-    NotImplementedError (ROADMAP).  ``data_parallel`` changes nothing on
-    one card and raises NotImplementedError (ROADMAP) where the card has
-    others beside it (:func:`check_one_device`).
+    ``device="cpu"``; raises without one).  ``solver``: "scipy" (host
+    L-BFGS-B around the device value and gradient, the reference's exact
+    bounded behaviour), "device" (the whole projected L-BFGS on the device,
+    :func:`.lbfgs.minimize`; bounds by projection) or "auto", which is
+    scipy: JAX's rule off a TPU (``ecckd_tpu/optimize/solver.py:305-306``).
+
+    ``data_parallel`` splits the profiles over the shards of ``mesh`` (by
+    default a mesh over every visible card, or none on the CPU); with one
+    shard it changes nothing.  Under ``torch.distributed`` every process
+    runs the same minimiser on the all-reduced value and gradient.
     """
     from scipy.optimize import minimize
 
-    if solver == "device":
-        raise NotImplementedError(
-            "optimize_lut: solver=device (the on-device L-BFGS) is not "
-            "ported yet (ROADMAP: on-device L-BFGS)")
-    if solver not in ("auto", "scipy"):
-        raise ValueError(f"solver={solver!r} not understood; choose scipy")
-    check_one_device(data_parallel, resolve_device(device))
+    if solver == "auto":
+        solver = "scipy"
+    if solver not in ("scipy", "device"):
+        raise ValueError(f"solver={solver!r} not understood; choose auto, "
+                         "scipy or device")
+    device = resolve_device(device)
+    if not data_parallel:
+        mesh = None
+    elif mesh is None and device.type == "cuda":
+        mesh = make_mesh()
+    if mesh is not None and mesh.size > 1:
+        device = mesh.devices[0]
+        logs.log(f"  Profiles split over {mesh.size} shards (data_parallel)")
 
     weights = CostWeights(
         flux_weight=flux_weight, flux_profile_weight=flux_profile_weight,
@@ -277,7 +319,7 @@ def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
                         pressure_weight_power=pressure_weight_power,
                         erythemal_weight=erythemal_weight,
                         relative_fluxes=relative_fluxes, device=device,
-                        dtype=dtype)
+                        dtype=dtype, mesh=mesh)
 
     x0_tree = log_state_tree(model)
     # Resume a long optimisation from its periodic state checkpoint.  The
@@ -301,6 +343,11 @@ def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
 
     x0_flat = ravel_tree(x0_tree)
     sentinel_mask = x0_flat <= MIN_X
+    if solver == "device":
+        return _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
+                             max_iterations, max_local, it_offset,
+                             convergence_criterion, _maybe_checkpoint,
+                             checkpoint_file)
 
     bounds = None
     if is_bounded:
@@ -402,3 +449,66 @@ def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
         first_cost=float(first_val[0]),
         device_seconds=timer.total("cost function + gradient (device)"),
         minimizer_seconds=timer.total("minimizer"))
+
+
+def _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
+                  max_iterations, max_local, it_offset, gtol, checkpoint,
+                  checkpoint_file) -> SolveResult:
+    """``solve``'s on-device branch (``ecckd_tpu/optimize/solver.py:
+    362-407``): the projected L-BFGS of :mod:`.lbfgs` in chunks of 100
+    iterations, checkpoints at chunk boundaries, JAX's status mapping."""
+    t = cost.tensor
+    lo = hi = None
+    if is_bounded:
+        lo_tree, hi_tree = state_bounds(model)
+        lo, hi = t(ravel_tree(lo_tree)), t(ravel_tree(hi_tree))
+        logs.log("  Minimization is bounded (projection on device)")
+    logs.log(f"Optimizing coefficients with ON-DEVICE L-BFGS: max "
+             f"iterations = {max_iterations}, convergence criterion = "
+             f"{gtol}")
+    stats = lbfgs.Stats()
+    first = []
+
+    def value_and_grad(x):
+        value, grad = cost.value_and_grad(x)
+        if not first:
+            first.append(value)
+        return value, grad
+
+    def on_chunk(params, n_iter, value):
+        tree = cost.state.unravel(params.to(torch.float64).cpu().numpy())
+        checkpoint(tree, n_iter + it_offset, value)
+
+    t0 = time.perf_counter()
+    x, value, n_local, gnorm = lbfgs.minimize(
+        value_and_grad, t(x0_flat), lo, hi,
+        torch.as_tensor(sentinel_mask, device=cost.device), max_local, gtol,
+        on_chunk=on_chunk if checkpoint_file else None, stats=stats)
+    x = x.to(torch.float64).cpu().numpy()
+    wall = time.perf_counter() - t0
+    n_iter = n_local + it_offset
+    tree_final = cost.state.unravel(x)
+    model.set_active_lut_pytree({
+        mol: np.where(v > MIN_X, np.exp(v), 0.0)
+        for mol, v in tree_final.items()})
+    if not np.isfinite(value):
+        status = MinimizerStatus.INVALID_COST_FUNCTION
+    elif gnorm <= gtol:
+        status = MinimizerStatus.SUCCESS
+    elif n_local >= max_local:
+        status = MinimizerStatus.MAX_ITERATIONS_REACHED
+    else:
+        status = MinimizerStatus.FAILED
+    per_iter = wall / max(n_local, 1)
+    logs.log(f"Final cost function = {value:.6g} after {n_iter} "
+             f"iterations, {stats.evaluations} evaluations, "
+             f"{stats.host_reads} host reads, {wall:.1f} s "
+             f"({per_iter:.4f} s/iter)")
+    if status == MinimizerStatus.SUCCESS and checkpoint_file:
+        _remove_checkpoint(checkpoint_file)
+    return SolveResult(
+        status=status, cost=float(value), n_iterations=n_iter,
+        n_evaluations=stats.evaluations, gradient_norm=float(gnorm),
+        wall_time=wall, seconds_per_iteration=per_iter,
+        first_cost=float(first[0]) if first else float("nan"),
+        host_reads=stats.host_reads)

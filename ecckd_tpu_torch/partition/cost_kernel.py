@@ -13,6 +13,13 @@ With ``use_prefix`` the fit and truth rows' double-float prefix sums are
 built once per kernel (:func:`~ecckd_tpu_torch.ops.segments.
 build_prefix_sums`) and each probe's interval sums are gathers from them:
 a probe then launches no K3, only its sweep.  Off by default.
+
+With ``mesh`` (a :class:`~ecckd_tpu_torch.parallel.mesh.Mesh`) the band's
+wavenumber axis is split over the mesh's spectral shards: every shard
+launches K3 and the sweep on its own slice with rank-shifted bounds, and
+only the (rows, nseg) interval sums and the (2 (nlay+1), nseg) flux
+partials are reduced over the shards, two collectives a sweep
+(``ecckd_tpu/partition/cost_kernel.py:189-276``, ``:378-430``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..ops.kernels.sweep_lw import sweep_lw_intervals
 from ..ops.kernels.sweep_sw import sweep_sw_intervals
 from ..ops.segments import (build_prefix_sums, interval_sum_from_prefix,
                              part_of)
+from ..parallel.mesh import slice_wavenumbers, spectral_slices
 from .equipartition import Equipartition
 
 
@@ -78,27 +86,96 @@ def _truth_parts(hr, flux_dn_surf, flux_up_toa):
     return [part_of(hr), part_of(flux_dn_surf), part_of(flux_up_toa)]
 
 
-def _as_bounds(i1, i2, device):
-    return (torch.as_tensor(np.asarray(i1, np.int32), device=device),
-            torch.as_tensor(np.asarray(i2, np.int32), device=device))
+class _Shard:
+    """One spectral shard of a kernel in mesh mode: the slice of ranks
+    ``[offset, offset + npoints)`` of the band (zero past its end, the JAX
+    package's ``_pad_wav`` rule), its arrays on its device, and the parts
+    built from them.  Its partition map searches global ranks."""
+
+    def __init__(self, device, offset, npoints, dtype):
+        self.device, self.offset = device, offset
+        self.npoints, self.dtype = npoints, dtype
+        self._ranks = (torch.arange(npoints, dtype=torch.int32, device=device)
+                       + offset)
+
+    def _device_seg_of_wav(self, i1):
+        return _seg_of_wav(i1, self._ranks)
+
+
+def _seg_of_wav(i1, ranks):
+    """Per-rank partition map from the sorted, front-padded lower bounds:
+    the last interval with i1 <= rank carries each rank's fitted od (the
+    device form of the JAX package's CkdEquipartition._seg_of_wav)."""
+    seg = torch.searchsorted(i1, ranks, right=True, out_int32=True) - 1
+    return torch.clamp(seg, min=0)
+
+
+class _Probe:
+    """The bounds of one probe, uploaded with their host copy
+    (:func:`device_bounds`), so that no launch reads them back: global on
+    the kernel's device, and in mesh mode per shard both global (for its
+    partition map) and shifted into its slice (for its launches).  The
+    partition maps are kept for the probe's sweeps."""
+
+    def __init__(self, kernel, i1, i2):
+        i1 = np.asarray(i1, np.int64)
+        i2 = np.asarray(i2, np.int64)
+        self.i1, self.i2 = device_bounds(i1, i2, kernel.device)
+        self.shards = None
+        self._seg = {}
+        if kernel._shards is not None:
+            glob = {kernel.device: (self.i1, self.i2)}
+            self.shards = []
+            for sh in kernel._shards:
+                if sh.device not in glob:
+                    glob[sh.device] = device_bounds(i1, i2, sh.device)
+                self.shards.append(glob[sh.device] + device_bounds(
+                    i1 - sh.offset, i2 - sh.offset, sh.device))
+
+    def seg_of_wav(self, holder, k=None):
+        """The partition map of ``holder``, the kernel (``k`` None) or its
+        shard ``k``."""
+        if k not in self._seg:
+            i1 = self.i1 if k is None else self.shards[k][0]
+            self._seg[k] = holder._device_seg_of_wav(i1)
+        return self._seg[k]
 
 
 class _CandidateCostBase:
-    """Binding checks, the partition map and the bucket contract shared by
-    the LW and SW kernels; a subclass defines ``_kernel(i1, i2)`` and
-    ``_truth_sets(i1, i2)``.
+    """Binding checks, the partition map, the bucket contract and mesh mode
+    shared by the LW and SW kernels; a subclass defines ``_kernel(probe)``
+    and ``_truth_sets(probe)``.
 
-    Both kernels take three keywords besides their arrays: ``fit_limits``,
+    Both kernels take four keywords besides their arrays: ``fit_limits``,
     a float dtype whose transmission clamp and range the interval fit takes
     in place of its own (:func:`~ecckd_tpu_torch.ops.average.fit_parts_lw`),
     ``probe_log``, a list to which :meth:`costs` appends each call as
-    (kernel, i1, i2, costs), and ``use_prefix``, whether the rows that
+    (kernel, i1, i2, costs), ``use_prefix``, whether the rows that
     :meth:`costs` reduces are summed once into prefix sums at construction
-    (``ecckd_tpu/partition/cost_kernel.py:135-158``; off by default).  The
-    prefix holds the rows of a probe's K3 launch in the same order, so the
-    sums of the first rows are a slice of it."""
+    (``ecckd_tpu/partition/cost_kernel.py:135-158``; off by default), and
+    ``mesh``, a :class:`~ecckd_tpu_torch.parallel.mesh.Mesh` over whose
+    spectral shards the band's ranks are split.  The prefix holds the rows
+    of a probe's K3 launch in the same order, so the sums of the first rows
+    are a slice of it.
+
+    Mesh mode (``ecckd_tpu/partition/cost_kernel.py:189-276``): each shard
+    holds its slice of the wavenumber arrays on its device; per probe it
+    launches K3 and the sweep (K1 or K2) on its slice with the bounds
+    shifted into it (a shifted bound may lie outside the slice: the
+    kernels' tables clamp it, the plain versions' membership excludes it),
+    and its partition map of its global ranks.  The interval sums are
+    reduced over the shards with the mesh's collective, then the fit and
+    the cost use the global bounds (the logarithmic fit takes lengths from
+    ``i2 - i1 + 1``), and each sweep's flux partials are reduced the same
+    way: two collectives a sweep.  Across processes each process holds the
+    whole band and computes its own shards' slices.  The prefix path is
+    off in mesh mode, as in JAX."""
 
     _prefix = None
+    _shards = None
+    mesh = None
+    # Arrays over layers or levels, copied whole to each shard
+    _REPLICATED = ("layer_weight", "pressure_hl")
 
     def _build_prefix(self, parts):
         """Keep the prefix sums of ``parts`` and log their size."""
@@ -108,27 +185,60 @@ class _CandidateCostBase:
                  f"({2 * hi.numel() * hi.element_size() / 1e9:.3f} GB on "
                  f"{hi.device})")
 
+    def _use_prefix(self, use_prefix):
+        if use_prefix and self._shards is not None:
+            logs.log("    Prefix sums are off in mesh mode")
+        return bool(use_prefix) and self._shards is None
+
+    def _holders(self):
+        """Where the parts are built: the kernel, or each of its shards."""
+        return [self] if self._shards is None else self._shards
+
     def interval_sums(self, i1: np.ndarray, i2: np.ndarray):
         """The sums over each interval of a probe's fit and truth rows,
         (rows, nseg) on the kernel's device, as :meth:`costs` reduces
-        them: gathers from the prefix sums with ``use_prefix``, else one
-        K3 launch."""
-        return self._row_sums(self._probe_parts, self._probe_rows,
-                              *_as_bounds(i1, i2, self.device))
+        them: gathers from the prefix sums with ``use_prefix``, else K3
+        (one launch, or one a shard and a reduction in mesh mode)."""
+        return self._row_sums(lambda ns: ns._probe_parts, self._probe_rows,
+                              _Probe(self, i1, i2))
 
-    def _row_sums(self, parts, nrows, i1, i2):
-        """Sums over [i1, i2] of the first ``nrows`` rows of the probe
-        stack, whose parts are ``parts``: gathers from the prefix sums where
-        they hold those rows, else one launch of K3."""
+    def _row_sums(self, parts_of, nrows, probe):
+        """Sums over the probe's intervals of the first ``nrows`` rows of
+        the probe stack, whose parts are ``parts_of(holder)``: gathers from
+        the prefix sums where they hold those rows, else K3."""
+        if self._shards is not None:
+            return self.mesh.sum(
+                [fused_interval_sum(parts_of(sh), sh.npoints, b[2], b[3],
+                                    dtype=self.dtype)
+                 for sh, b in zip(self._shards, probe.shards)],
+                device=self.device)
         if self._prefix is not None and nrows <= self._prefix[0].shape[0]:
             hi, lo = self._prefix
-            return interval_sum_from_prefix(hi[:nrows], lo[:nrows], i1, i2)
-        return fused_interval_sum(parts, self.npoints, i1, i2,
-                                  dtype=self.dtype)
+            return interval_sum_from_prefix(hi[:nrows], lo[:nrows],
+                                            probe.i1, probe.i2)
+        return fused_interval_sum(parts_of(self), self.npoints, probe.i1,
+                                  probe.i2, dtype=self.dtype)
 
-    def _bind(self, arrays, like):
+    def _sweep(self, sweep, od_fit, probe):
+        """(flux_dn, flux_up) of the probe's intervals from
+        ``sweep(holder, od_fit, seg_of_wav, i1, i2)``: one launch, or in
+        mesh mode one a shard, the partials reduced in one collective."""
+        if self._shards is None:
+            return sweep(self, od_fit.contiguous(), probe.seg_of_wav(self),
+                         probe.i1, probe.i2)
+        outs = []
+        for k, (sh, b) in enumerate(zip(self._shards, probe.shards)):
+            dn, up = sweep(sh, od_fit.to(sh.device).contiguous(),
+                           probe.seg_of_wav(sh, k), b[2], b[3])
+            outs.append(torch.cat([dn, up]))
+        out = self.mesh.sum(outs, device=self.device)
+        nlev = out.shape[0] // 2
+        return out[:nlev], out[nlev:]
+
+    def _bind(self, arrays, like, mesh=None):
         """Check that every array is a tensor of ``like``'s device and
-        dtype and keep it as an attribute."""
+        dtype and keep it as an attribute; with a ``mesh``, also cut the
+        wavenumber arrays into its spectral shards."""
         self.device = like.device
         self.dtype = like.dtype
         self.npoints = int(like.shape[-1])
@@ -144,15 +254,22 @@ class _CandidateCostBase:
             setattr(self, name, a)
         self._ranks = torch.arange(self.npoints, dtype=torch.int32,
                                    device=self.device)
+        if mesh is None:
+            return
+        self.mesh = mesh
+        self._shards = []
+        for dev, offset, nloc in spectral_slices(mesh, self.npoints):
+            sh = _Shard(dev, offset, nloc, self.dtype)
+            for name, a in arrays.items():
+                setattr(sh, name, a.to(dev) if name in self._REPLICATED
+                        else slice_wavenumbers(a, offset, nloc, dev))
+            self._shards.append(sh)
+        logs.log(f"    Candidate sweeps over {len(self._shards)} spectral "
+                 f"shards of {self._shards[0].npoints} ranks "
+                 f"({mesh.shape['spectral']} in the mesh)")
 
     def _device_seg_of_wav(self, i1):
-        """Per-rank partition map from the sorted, front-padded lower
-        bounds: the last interval with i1 <= rank carries each rank's
-        fitted od (the device form of the JAX package's
-        CkdEquipartition._seg_of_wav)."""
-        seg = torch.searchsorted(i1, self._ranks, right=True,
-                                 out_int32=True) - 1
-        return torch.clamp(seg, min=0)
+        return _seg_of_wav(i1, self._ranks)
 
     def costs(self, i1: np.ndarray, i2: np.ndarray) -> np.ndarray:
         """Candidate costs (float64 numpy) for sorted, non-overlapping
@@ -168,7 +285,7 @@ class _CandidateCostBase:
         i1p[pad:] = i1
         i2p = np.zeros(nb, np.int32)
         i2p[pad:] = i2
-        out = self._kernel(*device_bounds(i1p, i2p, self.device))
+        out = self._kernel(_Probe(self, i1p, i2p))
         out = out.cpu().numpy()[pad:].astype(np.float64)
         if self.probe_log is not None:
             self.probe_log.append((self, np.array(i1), np.array(i2), out))
@@ -178,7 +295,7 @@ class _CandidateCostBase:
         """Per interval, the cost (float64 numpy) of a fit whose fluxes
         are all zero: the scale of the fluxes whose differences make up
         :meth:`costs`, averaged over the same runs."""
-        sets = self._truth_sets(*_as_bounds(i1, i2, self.device))
+        sets = self._truth_sets(_Probe(self, i1, i2))
         cost = 0.0
         for hr, fd, fu in sets:
             cost = cost + torch.sqrt(sum(_cost_terms(
@@ -198,7 +315,8 @@ class CandidateCostLw(_CandidateCostBase):
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, pressure_hl, surf_emissivity, surf_planck,
                  flux_dn_surf, flux_up_toa, planck_hl, bg_od, metric, hr,
-                 fit_limits=None, probe_log=None, use_prefix=False):
+                 fit_limits=None, probe_log=None, use_prefix=False,
+                 mesh=None):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
         self.probe_log = probe_log
@@ -206,18 +324,21 @@ class CandidateCostLw(_CandidateCostBase):
                         surf_emissivity=surf_emissivity,
                         surf_planck=surf_planck, flux_dn_surf=flux_dn_surf,
                         flux_up_toa=flux_up_toa, planck_hl=planck_hl,
-                        bg_od=bg_od, metric=metric, hr=hr), metric)
+                        bg_od=bg_od, metric=metric, hr=hr), metric, mesh)
         self.nlay = hr.shape[0]
         # The fit operands never change between probes, so the parts are
         # built once; fit and truth rows share one K3 pass per call.
-        parts, rows, finish = fit_parts_lw(averaging_method, planck_hl,
-                                           metric, fit_limits)
-        self._parts = parts + _truth_parts(hr, flux_dn_surf, flux_up_toa)
+        for ns in self._holders():
+            parts, rows, finish = fit_parts_lw(averaging_method,
+                                               ns.planck_hl, ns.metric,
+                                               fit_limits)
+            ns._parts = parts + _truth_parts(ns.hr, ns.flux_dn_surf,
+                                             ns.flux_up_toa)
+            ns._probe_parts = ns._parts
         self._fit_rows = rows
         self._fit_finish = finish
-        self._probe_parts = self._parts
         self._probe_rows = rows + self.nlay + 2
-        self.use_prefix = bool(use_prefix)
+        self.use_prefix = self._use_prefix(use_prefix)
         if self.use_prefix:
             self._build_prefix(self._parts)
 
@@ -228,17 +349,17 @@ class CandidateCostLw(_CandidateCostBase):
         return (sums[rows:rows + nlay], sums[rows + nlay],
                 sums[rows + nlay + 1])
 
-    def _truth_sets(self, i1, i2):
-        return [self._truth_of(self._row_sums(self._parts, self._probe_rows,
-                                              i1, i2))]
+    def _truth_sets(self, probe):
+        return [self._truth_of(self._row_sums(lambda ns: ns._parts,
+                                              self._probe_rows, probe))]
 
-    def _kernel(self, i1, i2):
-        seg_of_wav = self._device_seg_of_wav(i1)
-        sums = self._row_sums(self._parts, self._probe_rows, i1, i2)
-        od_fit = self._fit_finish(sums[:self._fit_rows], i1, i2)
-        flux_dn, flux_up = sweep_lw_intervals(
-            self.planck_hl, self.bg_od, od_fit.contiguous(), seg_of_wav,
-            self.surf_emissivity, self.surf_planck, i1, i2)
+    def _kernel(self, probe):
+        sums = self._row_sums(lambda ns: ns._parts, self._probe_rows, probe)
+        od_fit = self._fit_finish(sums[:self._fit_rows], probe.i1, probe.i2)
+        flux_dn, flux_up = self._sweep(
+            lambda ns, od, seg, i1, i2: sweep_lw_intervals(
+                ns.planck_hl, ns.bg_od, od, seg, ns.surf_emissivity,
+                ns.surf_planck, i1, i2), od_fit, probe)
         return _candidate_cost_from_fluxes(
             self.pressure_hl, self.layer_weight, self.flux_weight,
             flux_dn, flux_up, *self._truth_of(sums))
@@ -262,7 +383,8 @@ class CandidateCostSw(_CandidateCostBase):
     def __init__(self, averaging_method: str, flux_weight: float,
                  layer_weight, cos_sza, pressure_hl, ssi, surf_albedo,
                  flux_dn_surf, flux_up_toa, bg_od, metric, hr, extras=None,
-                 fit_limits=None, probe_log=None, use_prefix=False):
+                 fit_limits=None, probe_log=None, use_prefix=False,
+                 mesh=None):
         self.averaging_method = averaging_method
         self.flux_weight = float(flux_weight)
         self.probe_log = probe_log
@@ -285,65 +407,67 @@ class CandidateCostSw(_CandidateCostBase):
             arrays.update({f"{v}_{tag}": extras[f"{v}_{tag}"]
                            for tag in ("low", "high")
                            for v in ("hr", "flux_dn_surf", "flux_up_toa")})
-        self._bind(arrays, metric)
+        self._bind(arrays, metric, mesh)
         self.with_upwelling = bool(torch.any(self.surf_albedo > 0.0))
         self.nlay = hr.shape[0]
-        # Fit and truth rows share one K3 pass per call; the truth is that
-        # of the two scaled runs for total-transmission.
-        if total_trans:
-            parts, rows, finish = total_trans_fit_parts(ssi, bg_od, metric,
-                                                        fit_limits)
-            truth = [_truth_parts(self.hr_low, self.flux_dn_surf_low,
-                                  self.flux_up_toa_low),
-                     _truth_parts(self.hr_high, self.flux_dn_surf_high,
-                                  self.flux_up_toa_high)]
-        else:
-            parts, rows, finish = fit_parts_sw(averaging_method, ssi, metric,
-                                               fit_limits)
-            truth = []
-        self._fit_parts = parts
-        self._truth = truth + [_truth_parts(hr, flux_dn_surf, flux_up_toa)]
-        self._fit_rows = rows
-        self._fit_finish = finish
         # The rows of a probe: the fit and the truth of its runs (for
         # total-transmission LOW and HIGH, not the unscaled MID that only
         # ``components`` reads)
         ntruth = len(self._runs())
-        self._probe_parts = self._fit_parts + [
-            p for t in self._truth[:ntruth] for p in t]
+        # Fit and truth rows share one K3 pass per call; the truth is that
+        # of the two scaled runs for total-transmission.
+        for ns in self._holders():
+            if total_trans:
+                parts, rows, finish = total_trans_fit_parts(
+                    ns.ssi, ns.bg_od, ns.metric, fit_limits)
+                truth = [_truth_parts(ns.hr_low, ns.flux_dn_surf_low,
+                                      ns.flux_up_toa_low),
+                         _truth_parts(ns.hr_high, ns.flux_dn_surf_high,
+                                      ns.flux_up_toa_high)]
+            else:
+                parts, rows, finish = fit_parts_sw(averaging_method, ns.ssi,
+                                                   ns.metric, fit_limits)
+                truth = []
+            ns._fit_parts = parts
+            ns._truth = truth + [_truth_parts(ns.hr, ns.flux_dn_surf,
+                                              ns.flux_up_toa)]
+            ns._probe_parts = ns._fit_parts + [
+                p for t in ns._truth[:ntruth] for p in t]
+        self._fit_rows = rows
+        self._fit_finish = finish
         self._probe_rows = rows + ntruth * (self.nlay + 2)
-        self.use_prefix = bool(use_prefix)
+        self.use_prefix = self._use_prefix(use_prefix)
         if self.use_prefix:
             self._build_prefix(self._probe_parts)
 
-    def _sums(self, i1, i2, ntruth):
+    def _sums(self, probe, ntruth):
         """Fitted od (nlay, nseg) and the first ``ntruth`` truth sets, each
         (hr (nlay, nseg), flux_dn_surf (nseg,), flux_up_toa (nseg,)), from
-        one K3 launch or the prefix sums."""
+        one K3 launch (one a shard in mesh mode) or the prefix sums."""
         nlay = self.nlay
-        truth = self._truth[:ntruth]
         sums = self._row_sums(
-            self._fit_parts + [p for t in truth for p in t],
-            self._fit_rows + ntruth * (nlay + 2), i1, i2)
+            lambda ns: ns._fit_parts + [p for t in ns._truth[:ntruth]
+                                        for p in t],
+            self._fit_rows + ntruth * (nlay + 2), probe)
         rows = self._fit_rows
-        od_fit = self._fit_finish(sums[:rows], i1, i2)
+        od_fit = self._fit_finish(sums[:rows], probe.i1, probe.i2)
         sets = []
-        for k in range(len(truth)):
+        for k in range(ntruth):
             t = sums[rows + k * (nlay + 2):rows + (k + 1) * (nlay + 2)]
             sets.append((t[:nlay], t[nlay], t[nlay + 1]))
         return od_fit, sets
 
-    def _truth_sets(self, i1, i2):
-        return self._sums(i1, i2, len(self._runs()))[1]
+    def _truth_sets(self, probe):
+        return self._sums(probe, len(self._runs()))[1]
 
     def linear_fallback(self, i1: np.ndarray, i2: np.ndarray) -> np.ndarray:
         """Per interval, whether the total-transmission fit falls back to
         the linear fit (some level flux of the interval is not positive);
         False for every other method."""
-        t1, t2 = _as_bounds(i1, i2, self.device)
         if self.averaging_method != "total-transmission":
-            return np.zeros(len(t1), bool)
-        sums = self._row_sums(self._fit_parts, self._fit_rows, t1, t2)
+            return np.zeros(len(i1), bool)
+        sums = self._row_sums(lambda ns: ns._fit_parts, self._fit_rows,
+                              _Probe(self, i1, i2))
         return total_trans_fallback(sums, self.nlay).cpu().numpy()
 
     def _runs(self):
@@ -352,12 +476,12 @@ class CandidateCostSw(_CandidateCostBase):
             return (("LOW", self.min_scaling), ("HIGH", self.max_scaling))
         return (("MID", 1.0),)
 
-    def _cost_with(self, od_fit, seg_of_wav, i1, i2, truth,
-                   want_components=False):
+    def _cost_with(self, od_fit, probe, truth, want_components=False):
         hr_true, fd_surf_true, fu_toa_true = truth
-        flux_dn, flux_up = sweep_sw_intervals(
-            self.ssi, self.bg_od, od_fit.contiguous(), seg_of_wav, i1, i2,
-            self.cos_sza, self.surf_albedo, self.with_upwelling)
+        flux_dn, flux_up = self._sweep(
+            lambda ns, od, seg, i1, i2: sweep_sw_intervals(
+                ns.ssi, ns.bg_od, od, seg, i1, i2, self.cos_sza,
+                ns.surf_albedo, self.with_upwelling), od_fit, probe)
         # The SW heating rate uses downwelling only
         # (calc_cost_function_sw.cpp:93)
         hr_fit = heating_rate(self.pressure_hl, flux_dn)
@@ -374,11 +498,10 @@ class CandidateCostSw(_CandidateCostBase):
                     hr_fit=hr_fit, cf_hr=torch.sqrt(cf_hr2),
                     cf_flux=torch.sqrt(cf_flux2))
 
-    def _kernel(self, i1, i2):
-        seg_of_wav = self._device_seg_of_wav(i1)
+    def _kernel(self, probe):
         runs = self._runs()
-        od_fit, truth = self._sums(i1, i2, len(runs))
-        costs = [self._cost_with(od_fit * scale, seg_of_wav, i1, i2, t)
+        od_fit, truth = self._sums(probe, len(runs))
+        costs = [self._cost_with(od_fit * scale, probe, t)
                  for (_, scale), t in zip(runs, truth)]
         if len(costs) == 1:
             return costs[0]
@@ -394,15 +517,14 @@ class CandidateCostSw(_CandidateCostBase):
         MID's truth is not in the prefix sums, so total-transmission's
         components are reduced by K3 with ``use_prefix`` too, as the JAX
         package's are (``ecckd_tpu/partition/cost_kernel.py:639-695``)."""
-        i1, i2 = _as_bounds(i1, i2, self.device)
-        seg_of_wav = self._device_seg_of_wav(i1)
+        probe = _Probe(self, i1, i2)
         runs = self._runs()
         if len(runs) > 1:
             runs = runs + (("MID", 1.0),)
-        od_fit, truth = self._sums(i1, i2, len(runs))
+        od_fit, truth = self._sums(probe, len(runs))
         out = {}
         for (tag, scale), t in zip(runs, truth):
-            comps = self._cost_with(od_fit * scale, seg_of_wav, i1, i2, t,
+            comps = self._cost_with(od_fit * scale, probe, t,
                                     want_components=True)
             out[tag] = {k: v.cpu().numpy().astype(np.float64)
                         for k, v in comps.items()}

@@ -151,3 +151,35 @@ def setup(cfg: Optional[Config] = None) -> Tuple[torch.device, torch.dtype]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev, _DTYPES[precision]
+
+
+def sharded_mesh(value, device: torch.device, tool: str):
+    """The spectral mesh of a tool's ``sharded`` key, or None (the JAX
+    tools' rule, ``ecckd_tpu/tools/find_g_points.py:301-316`` and
+    ``create_lut.py:88-97``, with cards for its devices): "0"/"no"/"false"
+    never; "auto" (the default) a mesh over every visible card where that
+    makes more than one shard, never on the CPU; "1"/"yes"/"true" a mesh
+    over the visible cards, one shard with one card.  On the CPU
+    ``sharded=1`` raises: a mesh of logical CPU shards is given to the
+    array cores (``mesh=make_mesh(devices=[...])``).  Under
+    ``torch.distributed`` the mesh spans every process's card."""
+    from ..parallel.mesh import make_mesh
+    key = str(value).lower()
+    if key in ("0", "no", "false"):
+        return None
+    if key not in ("1", "yes", "true", "auto"):
+        raise ValueError(f"{tool}: sharded={value!r} not understood; choose "
+                         "auto, 1 or 0")
+    if device.type != "cuda":
+        if key == "auto":
+            return None
+        raise ValueError(f"{tool}: sharded=1 shards over cards, and device "
+                         f"is {device}; on the CPU pass a mesh of logical "
+                         "shards to the array core instead")
+    mesh = make_mesh(data_parallel=1)
+    if key == "auto" and mesh.size < 2:
+        return None
+    logs.log(f"Sharding over {mesh.shape['spectral']} spectral shards "
+             f"({mesh.size} in the mesh, {mesh.process_count} processes)")
+    return mesh
+

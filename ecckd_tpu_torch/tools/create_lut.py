@@ -1,4 +1,4 @@
-"""create_lut (dense per-profile path): build a raw CKD look-up table.
+"""create_lut: build a raw CKD look-up table.
 
 PyTorch counterpart of ``ecckd_tpu/tools/create_lut.py``
 (ref create_look_up_table.cpp:27-606).  Line-by-line optical depths of each
@@ -10,8 +10,10 @@ the solar irradiance per g-point and per interval and its Rayleigh
 coefficients.  A profile whose od and weights would exceed
 ``streaming_memory_mb`` is averaged in wavenumber blocks streamed from its
 file (ref create_look_up_table.cpp:242-298 streams one profile at a time
-for the same reason); ``streaming=1`` or ``0`` forces the choice.  Not
-ported yet (ROADMAP): sharded execution over several cards.
+for the same reason); ``streaming=1`` or ``0`` forces the choice.  With a
+mesh (``sharded``; :mod:`ecckd_tpu_torch.parallel`) each profile, or each
+streamed block, is split over the mesh's spectral shards and its g-point
+partials combined over them; the two compose.
 
 :func:`create_lut_core` works on arrays; :func:`create_lut` is the file
 tool around it (``python -m ecckd_tpu_torch.tools.create_lut key=value ...
@@ -35,8 +37,10 @@ from ..ops.average import average_od_to_gpoints, od_to_molar_abs
 from ..ops.planck import planck_function
 from ..ops.segments import gpoint_onehot
 from ..ops.streaming import streaming_average_od_to_gpoints
+from ..parallel.sharded_average import (
+    sharded_average_od_to_gpoints, streaming_sharded_average_od_to_gpoints)
 from .common import (find_file, netcdf_format, read_string_list,
-                     resolve_device, setup, tool_prologue)
+                     resolve_device, setup, sharded_mesh, tool_prologue)
 
 _CONC_DEPENDENCE = {
     "none": ConcDependence.NONE,
@@ -67,26 +71,34 @@ class LutGas:
 
 
 class _Execution:
-    """Per-run choice of the averaging's execution path: the streaming half
-    of ``ecckd_tpu/tools/create_lut.py:_Execution``.
+    """Per-run choice of the averaging's execution path
+    (``ecckd_tpu/tools/create_lut.py:_Execution``).
 
     ``streaming``: "auto" streams wavenumber blocks from the profile's
     source when one profile's od and weight in float64 exceed
     ``memory_mb`` (CKDMIP spectra are ~5.6M wavenumbers, so the whole
     array need not be resident); "1"/"yes"/"true" always, "0"/"no"/"false"
-    never.  ``block_wav`` is the block of the reduction on either path."""
+    never.  ``block_wav`` is the block of the reduction on either path.
+    ``mesh``: the spectral mesh each profile or block is split over, or
+    None (the tool's ``sharded`` key, :func:`.common.sharded_mesh`)."""
 
     def __init__(self, streaming="auto", block_wav=1 << 20,
-                 memory_mb=1024.0):
+                 memory_mb=1024.0, mesh=None):
         self.streaming = str(streaming).lower()
         self.block_wav = int(block_wav)
         self.memory_mb = float(memory_mb)
+        self.mesh = mesh
 
     @classmethod
-    def from_config(cls, cfg: Config) -> "_Execution":
+    def from_config(cls, cfg: Config, device=None) -> "_Execution":
+        """The keys of a run on ``device``, its mesh resolved there (none
+        without a device)."""
+        mesh = None if device is None else sharded_mesh(
+            cfg.read_string("sharded", default="auto"), device, "create_lut")
         return cls(cfg.read_string("streaming", default="auto"),
                    cfg.read_int("streaming_block_wav", default=1 << 20),
-                   cfg.read_float("streaming_memory_mb", default=1024.0))
+                   cfg.read_float("streaming_memory_mb", default=1024.0),
+                   mesh)
 
     def use_streaming(self, nlay: int, nwav: int) -> bool:
         if self.streaming in ("1", "yes", "true"):
@@ -112,27 +124,43 @@ def _average_profile(ng, g_point, source, weight_fn, averaging_method,
     """One temperature profile -> (molar_abs, min, max), each (nlay, ng)
     numpy: streamed in wavenumber blocks from ``source`` where
     ``execution`` says so (ref create_look_up_table.cpp:242-298), else
-    from its whole od in memory.  ``weight_fn(i0, nb)`` gives the Planck
-    or SSI weights of wavenumbers i0 to i0 + nb on the device."""
+    from its whole od in memory, each split over ``execution.mesh`` where
+    there is one (``ecckd_tpu/tools/create_lut.py:88-112``).
+    ``weight_fn(i0, nb)`` gives the Planck or SSI weights of wavenumbers i0
+    to i0 + nb on the device."""
     nlay, nwav = len(pressure_hl) - 1, len(source.wavenumber)
+    mesh = execution.mesh
     if execution.use_streaming(nlay, nwav):
         if first:
             logs.log(f"  Streaming {nwav} wavenumbers in blocks of "
                      f"{execution.block_wav}")
         blocks = (source if hasattr(source, "iter_blocks")
                   else spectrum_blocks(source))
-        fit, mn, mx = streaming_average_od_to_gpoints(
-            blocks, ng, g_point, weight_fn, averaging_method,
-            block_wav=execution.block_wav, pressure_fl=pressure_fl,
-            device=device, dtype=dtype)
+        if mesh is not None:
+            fit, mn, mx = streaming_sharded_average_od_to_gpoints(
+                mesh, blocks, ng, g_point, weight_fn, averaging_method,
+                block_wav=execution.block_wav, pressure_fl=pressure_fl,
+                dtype=dtype)
+        else:
+            fit, mn, mx = streaming_average_od_to_gpoints(
+                blocks, ng, g_point, weight_fn, averaging_method,
+                block_wav=execution.block_wav, pressure_fl=pressure_fl,
+                device=device, dtype=dtype)
     else:
         od = (source.optical_depth if hasattr(source, "optical_depth")
               else source.materialize().optical_depth)
-        fit, mn, mx = average_od_to_gpoints(
-            ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
-                                         device=device),
-            weight_fn(0, nwav), averaging_method, pressure_fl=pressure_fl,
-            block_wav=execution.block_wav)
+        if mesh is not None:
+            if torch.is_tensor(pressure_fl):
+                pressure_fl = pressure_fl.cpu().numpy()
+            fit, mn, mx = sharded_average_od_to_gpoints(
+                mesh, ng, g_point, np.asarray(od), weight_fn(0, nwav),
+                averaging_method, pressure_fl=pressure_fl, dtype=dtype)
+        else:
+            fit, mn, mx = average_od_to_gpoints(
+                ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
+                                             device=device),
+                weight_fn(0, nwav), averaging_method,
+                pressure_fl=pressure_fl, block_wav=execution.block_wav)
     return tuple(od_to_molar_abs(a, pressure_hl, reference_surface_vmr)
                  for a in (fit, mn, mx))
 
@@ -281,7 +309,7 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
                     config="", solar: Optional[SolarSpectrum] = None,
                     solar_irradiance=None, streaming="auto",
                     streaming_block_wav=1 << 20,
-                    streaming_memory_mb=1024.0) -> CkdModel:
+                    streaming_memory_mb=1024.0, mesh=None) -> CkdModel:
     """Array-level create_lut: the CkdModel of the given g-points.
 
     ``g_point`` is the merged per-wavenumber map of find_g_points and
@@ -295,7 +323,11 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
     block-wise average of a source streamed from disk and the average of
     its whole od in memory, by whether its od and weight in float64 would
     exceed ``streaming_memory_mb``; both reduce blocks of
-    ``streaming_block_wav`` wavenumbers, and so give the same bits."""
+    ``streaming_block_wav`` wavenumbers, and so give the same bits.  With
+    ``mesh`` (:func:`ecckd_tpu_torch.parallel.make_mesh`) each profile in
+    memory, or each streamed block, is split over the mesh's spectral
+    shards (the JAX tool's ``sharded``): the same min and max, the sums in
+    another order."""
     device = resolve_device(device)
     g_point = np.asarray(g_point, np.int64)
     band_wn1 = np.asarray(band_wn1, np.float64)
@@ -316,7 +348,7 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
         base_wavenumber_boundary, wavenumber_hr, solar_irradiance, ssi)
     ng = len(band_number)
     execution = _Execution(streaming, streaming_block_wav,
-                           streaming_memory_mb)
+                           streaming_memory_mb, mesh)
 
     single_gas_data = []
     temperature_fl = pressure_fl = sp = None
@@ -452,12 +484,7 @@ def create_lut(cfg: Config, argv=()) -> str:
     from ..io import NcFile
 
     device, dtype = setup(cfg)
-    if str(cfg.read_string("sharded", default="auto")).lower() in (
-            "1", "yes", "true"):
-        raise NotImplementedError(
-            "create_lut: sharded execution is not ported yet (ROADMAP: "
-            "multi-GPU)")
-    execution = _Execution.from_config(cfg)
+    execution = _Execution.from_config(cfg, device)
     output = cfg.read_string("output")
     input_file = find_file(cfg.read_string("input"))
     solar = None
@@ -495,7 +522,7 @@ def create_lut(cfg: Config, argv=()) -> str:
         history=history, config=config, solar=solar,
         solar_irradiance=solar_irradiance, streaming=execution.streaming,
         streaming_block_wav=execution.block_wav,
-        streaming_memory_mb=execution.memory_mb)
+        streaming_memory_mb=execution.memory_mb, mesh=execution.mesh)
     logs.log(f"Writing {output}")
     model.write(output, argv=list(argv) or ["create_lut"] + sys.argv[1:],
                 config_str=cfg.sprint(), format=netcdf_format(cfg))

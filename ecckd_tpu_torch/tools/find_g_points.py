@@ -1,4 +1,4 @@
-"""find_g_points (one device): partition reordered spectra into g-points.
+"""find_g_points: partition reordered spectra into g-points.
 
 PyTorch counterpart of ``ecckd_tpu/tools/find_g_points.py``
 (ref find_g_points.cpp:430-1662).  Per gas and band an equipartition search
@@ -15,8 +15,9 @@ pseudo-gas, ``debug_partition``, ``band_parallel`` (every band's search on
 its own thread against one gas-level kernel,
 :mod:`~ecckd_tpu_torch.partition.band_parallel`), the cost kernels'
 prefix path (``cost_options={"use_prefix": True}``), the hypercube gas
-overlap and the g-point NetCDF schema.  Not ported yet: ``sharded``
-sweeps (multi-GPU).
+overlap and the g-point NetCDF schema, and ``sharded`` sweeps: with a
+mesh (:mod:`ecckd_tpu_torch.parallel`) every candidate-cost kernel splits
+its band's wavenumbers over the mesh's spectral shards.
 
 :func:`find_g_points_core` works on arrays; :func:`find_g_points` is the
 file tool around it (``python -m ecckd_tpu_torch.tools.find_g_points
@@ -44,7 +45,7 @@ from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
 from ..partition.band_parallel import BandKernelView, ProbeScheduler
 from .common import (find_file, netcdf_format, read_string_list,
-                     resolve_device, setup, tool_prologue)
+                     resolve_device, setup, sharded_mesh, tool_prologue)
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
@@ -490,7 +491,7 @@ def _search_bands(kernel, band_ranges, search, mode):
 def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight, min_pressure, block_wav,
                 device, dtype, sw: Optional[_Shortwave],
-                debug_partition, cost_options, band_parallel
+                debug_partition, cost_options, band_parallel, mesh=None
                 ) -> SingleGasData:
     """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455);
     shortwave where ``sw`` is given."""
@@ -622,7 +623,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight,
                 surf_emissivity=torch.ones_like(band(surf_planck)),
                 surf_planck=band(surf_planck), planck_hl=band(planck_hl),
-                **state, **cost_options)
+                mesh=mesh, **state, **cost_options)
         band_extras = None
         if extras is not None:
             band_extras = {k: band(v) for k, v in extras.items()}
@@ -631,7 +632,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         return CandidateCostSw(
             averaging_method, flux_weight, cos_sza=sw.cos_sza,
             ssi=to_dev(ssi_reorder[sl]), surf_albedo=albedo,
-            extras=band_extras, **state, **cost_options)
+            extras=band_extras, mesh=mesh, **state, **cost_options)
 
     def search(jband, kernel):
         return _search_band(
@@ -784,7 +785,8 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
                        cloud: Optional[CloudInput] = None,
                        max_no_rayleigh_wavenumber=10000.0,
                        debug_partition=False,
-                       cost_options=None, band_parallel="auto") -> GPoints:
+                       cost_options=None, band_parallel="auto",
+                       mesh=None) -> GPoints:
     """Array-level find_g_points: search every gas, then overlap them
     (Hogan 2010) into merged g-points and their per-wavenumber map.
 
@@ -801,7 +803,10 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
     probes in one dispatch of one gas-level kernel), "serial" (that
     kernel, one band after another), "off" (or 0: a kernel per band) or
     "auto" (the default: "parallel" on the card, "off" on the CPU); a
-    gas of one band and ``debug_partition`` are always "off"."""
+    gas of one band and ``debug_partition`` are always "off".  With
+    ``mesh`` (:func:`ecckd_tpu_torch.parallel.make_mesh`) every kernel
+    splits its band's wavenumbers over the mesh's spectral shards, the
+    prefix path off (the JAX tool's ``sharded``)."""
     device = resolve_device(device)
     hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
     sw = None
@@ -822,7 +827,8 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
         single_gas_data.append(_search_gas(
             gas, hr_tol, tolerance_tolerance, max_iterations,
             averaging_method, flux_weight, min_pressure, block_wav, device,
-            dtype, sw, debug_partition, cost_options or {}, band_parallel))
+            dtype, sw, debug_partition, cost_options or {}, band_parallel,
+            mesh))
         band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
         logs.log("")
     logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
@@ -1018,10 +1024,8 @@ def find_g_points(cfg: Config, argv=()) -> str:
     g-point file."""
     device, dtype = setup(cfg)
     band_parallel = cfg.read_string("band_parallel", default="auto")
-    sharded = str(cfg.read_string("sharded", default="auto")).lower()
-    if sharded in ("1", "yes", "true"):
-        raise NotImplementedError("find_g_points: sharded sweeps are not "
-                                  "ported yet (ROADMAP: multi-GPU)")
+    mesh = sharded_mesh(cfg.read_string("sharded", default="auto"), device,
+                        "find_g_points")
     ssi = None
     ssi_file_name = cfg.read_string("ssi", default=None)
     if ssi_file_name:
@@ -1051,7 +1055,7 @@ def find_g_points(cfg: Config, argv=()) -> str:
         max_no_rayleigh_wavenumber=cfg.read_float(
             "max_no_rayleigh_wavenumber", default=10000.0),
         debug_partition=cfg.read_bool("debug_partition", default=False),
-        band_parallel=band_parallel)
+        band_parallel=band_parallel, mesh=mesh)
     logs.log(f"Writing {output}")
     write_g_points(output, result, cfg, argv)
     return output

@@ -10,9 +10,13 @@ forcing (relative-to) mode.
 :func:`optimize_lut_core` works on a model and training fluxes in memory;
 :func:`optimize_lut` is the file tool around it (``python -m
 ecckd_tpu_torch.tools.optimize_lut key=value ... [device=cuda|cpu]
-[precision=float64|float32]``).  Not ported (ROADMAP): ``solver=device``,
-and ``data_parallel`` (on by default, as in the JAX tool) over more than
-one card; both raise.
+[precision=float64|float32]``).  ``solver`` is "scipy" (host L-BFGS-B),
+"device" (the projected L-BFGS on the card) or "auto" (scipy, JAX's rule
+off a TPU); ``data_parallel`` (on by default, as in the JAX tool) splits
+the profiles over every visible card, and changes nothing with one card
+or on the CPU.  Under ``torch.distributed``
+(:func:`ecckd_tpu_torch.parallel.distributed.initialize_from_env`) every
+process runs the same minimiser on the all-reduced value and gradient.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def optimize_lut_core(model: CkdModel, training_data: Sequence[LblFluxes],
                       is_bounded=True, data_parallel=False, solver="auto",
                       checkpoint_file=None,
                       checkpoint_every=0, profile_dir=None, device="cuda",
-                      dtype=torch.float64) -> SolveResult:
+                      dtype=torch.float64, mesh=None) -> SolveResult:
     """Array-level optimize_lut: optimise ``model`` (updated in place)
     against the training fluxes, which are prepared here (and, with
     ``relative_to``, taken relative to those fluxes first).
@@ -90,7 +94,8 @@ def optimize_lut_core(model: CkdModel, training_data: Sequence[LblFluxes],
     ``band_mapping`` is the tool's key of that name, given to
     ``LblFluxes.read``; here it only says whether fluxes per band may
     differ in number from the g-points.  The cost and its gradient run on
-    ``device``, the card unless ``device="cpu"`` (raises without one)."""
+    ``device``, the card unless ``device="cpu"`` (raises without one);
+    ``solver``, ``data_parallel`` and ``mesh`` go to :func:`solve`."""
     device = resolve_device(device)
     if gases is not None:
         gas_list = list(gases)
@@ -139,8 +144,10 @@ def optimize_lut_core(model: CkdModel, training_data: Sequence[LblFluxes],
             negative_od_penalty=negative_od_penalty,
             pressure_weight_power=pressure_weight_power,
             is_bounded=is_bounded, relative_fluxes=relative_list,
-            data_parallel=data_parallel, solver=solver, checkpoint_file=checkpoint_file,
-            checkpoint_every=checkpoint_every, device=device, dtype=dtype)
+            data_parallel=data_parallel, solver=solver,
+            checkpoint_file=checkpoint_file,
+            checkpoint_every=checkpoint_every, device=device, dtype=dtype,
+            mesh=mesh)
     logs.log(f"Convergence status: {result.status.describe()}")
     return result
 

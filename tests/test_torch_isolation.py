@@ -37,6 +37,10 @@ def test_sources_import_nothing_of_jax_or_the_jax_package():
             found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                       for n in names if _forbidden(n)]
     assert len(SOURCES) > 30
+    # the parallel package and the smoke's parallel phase are scanned too
+    assert {"mesh.py", "distributed.py", "sharded_average.py"} <= {
+        p.name for p in SOURCES if p.parent.name == "parallel"}
+    assert "def phase_parallel" in (ROOT / "chip_smoke.py").read_text()
     assert not found, found
 
 

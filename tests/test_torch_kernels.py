@@ -746,12 +746,13 @@ def test_setup_device_and_dtype():
     ("create_lut", {"sharded": "1"}),
 ])
 def test_unported_options_raise(tool, keys):
-    """Options of the JAX tools that the port does not have yet raise
-    before any file is read."""
+    """Every option of the JAX tools is ported; ``sharded=1`` shards over
+    cards, so on the CPU it raises before any file is read (the array
+    cores take a mesh of logical CPU shards instead)."""
     import importlib
     from ecckd_tpu_torch.config import Config
     mod = importlib.import_module(f"ecckd_tpu_torch.tools.{tool}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh of logical shards"):
         getattr(mod, tool)(Config({"device": "cpu", "output": "x.h5",
                                    **keys}))
 
@@ -919,3 +920,250 @@ def test_ablation_resident_warps(bytes_, regs, warps):
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
            f"loads\nptxas info    : Used {regs} registers, 384 bytes cmem[0]\n")
     assert e1_resident_warps(50, bytes_, log) == warps
+
+
+# ------------------------------------------ shifted bounds and logical shards
+
+# Bounds of a probe over 20000 ranks: front-padded bucket columns, and
+# intervals that end before, start after, or straddle the slices below
+_SHIFT_I1 = [0, 0, 0, 3000, 4999, 5000, 9000, 15001]
+_SHIFT_I2 = [0, 0, 2999, 4998, 4999, 8999, 15000, 19999]
+_SLICES = [(0, 5000), (5000, 5000), (10000, 5000), (15000, 5000)]
+
+
+def test_interval_table_takes_shifted_bounds():
+    """A shard's launch takes the probe's bounds shifted into its slice
+    as they are, below 0 and past its end: the table clamps them to the
+    slice, gives an interval outside it no slot, and the checked build's
+    validation accepts it."""
+    from ecckd_tpu_torch.ops.kernels.interval_stream import validate_table
+    i1, i2 = np.asarray(_SHIFT_I1), np.asarray(_SHIFT_I2)
+    for offset, n in _SLICES:
+        for chunk in (CHUNK, 128):
+            tab = interval_table(i1 - offset, i2 - offset, n, chunk)
+            validate_table(tab, n, chunk, len(i1))
+            nch = len(tab.table) - 2 * len(i1)
+            count = tab.table[nch:].reshape(-1, 2)[:, 1]
+            inside = (np.minimum(i2 - offset, n - 1)
+                      >= np.maximum(i1 - offset, 0))
+            assert np.array_equal(count > 0, inside)
+
+
+def _shard_of(args, offset, n):
+    """The sweep operands of one slice of ranks, the bounds shifted into
+    it and the partition map of its global ranks."""
+    planck, bg_od, od_fit, seg, emis, surfp, i1, i2 = args
+    sl = slice(offset, offset + n)
+    return (planck[:, sl].contiguous(), bg_od[:, sl].contiguous(), od_fit,
+            seg[sl].contiguous(), emis[sl].contiguous(),
+            surfp[sl].contiguous(), (i1 - offset).contiguous(),
+            (i2 - offset).contiguous())
+
+
+def _shifted_sums(args, device, dtype):
+    """Per slice, (K1, K2, K3 outputs) on ``device`` of the shifted
+    launches, and the same of the plain versions."""
+    out = []
+    for offset, n in _SLICES:
+        sh = _shard_of(args, offset, n)
+        parts = _fit_parts(sh[0], sh[1], sh[4])
+        out.append((
+            (sweep_lw_intervals(*sh), sweep_lw_plain(*sh)),
+            (sweep_sw_intervals(*_sw_args(sh)), sweep_sw_plain(
+                *_sw_args(sh))),
+            ((fused_interval_sum(parts, n, sh[6], sh[7], dtype=dtype),),
+             (interval_sum_fused(parts, n, sh[6], sh[7], dtype=dtype),))))
+    return out
+
+
+def test_plain_versions_take_shifted_bounds():
+    """On the CPU the wrappers run the plain versions; per slice they take
+    the shifted bounds, and the slices' sums add up to the whole axis's."""
+    args = _to(_inputs(6, 20000, _SHIFT_I1, _SHIFT_I2, seed=4), "cpu",
+               torch.float64)
+    per_slice = _shifted_sums(args, "cpu", torch.float64)
+    whole = (sweep_lw_plain(*args), sweep_sw_plain(*_sw_args(args)),
+             (interval_sum_fused(_fit_parts(args[0], args[1], args[4]),
+                                 20000, args[6], args[7]),))
+    for k in range(3):
+        for j, w in enumerate(whole[k]):
+            total = sum(s[k][1][j] for s in per_slice)
+            assert _row_err(total, w) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("checked", [False, True])
+def test_kernels_take_shifted_bounds(cuda, dtype, checked):
+    """K1, K2 and K3 on each slice with the probe's bounds shifted into it
+    (below 0, past the end) against their plain versions, on the normal
+    and the checked build."""
+    args = _to(_inputs(12, 20000, _SHIFT_I1, _SHIFT_I2, seed=4), cuda,
+               dtype)
+    with _build.checked() if checked else _nothing():
+        per_slice = _shifted_sums(args, cuda, dtype)
+        torch.cuda.synchronize()
+    for kernels in per_slice:
+        for got, want in kernels:
+            for g, w in zip(got, want):
+                assert _row_err(g, w) <= RTOL[dtype]
+
+
+class _nothing:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _sw_band(nwav=2003, nlay=9, seed=6):
+    """The arrays of a total-transmission SW kernel, from a seed."""
+    from test_torch_multihost import _lw_band
+    rng = np.random.default_rng(seed)
+    band = _lw_band(nwav, nlay, seed)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)
+    out = {k: band[k] for k in ("layer_weight", "pressure_hl",
+                                "flux_dn_surf", "flux_up_toa", "bg_od",
+                                "metric", "hr")}
+    out.update(ssi=t(np.abs(rng.normal(1.0, 0.1, nwav))),
+               surf_albedo=t(np.where(np.arange(nwav) < nwav // 3, 0.15,
+                                      0.0)))
+    extras = dict(hr_low=t(rng.normal(0.0, 1e-5, (nlay, nwav))),
+                  hr_high=t(rng.normal(0.0, 1e-5, (nlay, nwav))),
+                  min_scaling=0.5, max_scaling=2.5)
+    for tag, scale in (("low", 0.2), ("high", 0.15)):
+        extras[f"flux_dn_surf_{tag}"] = t(np.abs(rng.normal(scale, 0.02,
+                                                            nwav)))
+        extras[f"flux_up_toa_{tag}"] = t(np.abs(rng.normal(0.05, 0.01,
+                                                           nwav)))
+    return out, extras
+
+
+def _sharded_cost_pairs(device, nshard=4):
+    """(one-device kernel, kernel over a mesh of ``nshard`` logical shards
+    of ``device``) for an LW transmission and an SW total-transmission
+    band, and probes for them."""
+    from ecckd_tpu_torch.parallel import make_mesh
+    from ecckd_tpu_torch.partition import CandidateCostLw, CandidateCostSw
+    from test_torch_multihost import _lw_band
+    mesh = make_mesh(devices=[device] * nshard, data_parallel=1)
+    to = lambda d: {k: v.to(device) if torch.is_tensor(v) else v
+                    for k, v in d.items()}
+    lw = to(_lw_band(2003))
+    sw, extras = _sw_band()
+    sw, extras = to(sw), to(extras)
+    pairs = []
+    for m in (None, mesh):
+        pairs.append((CandidateCostLw("transmission", 0.02, mesh=m, **lw),
+                      CandidateCostSw("total-transmission", 0.02,
+                                      cos_sza=0.5, extras=extras, mesh=m,
+                                      **sw)))
+    probes = [(np.array([0, 400, 1200], np.int32),
+               np.array([399, 1199, 2002], np.int32)),
+              (np.array([10, 501, 1700], np.int32),
+               np.array([500, 1000, 1701], np.int32))]
+    return list(zip(*pairs)), probes
+
+
+def test_sharded_costs_against_one_device():
+    """Mesh mode over 4 logical CPU shards against the one-device kernel
+    (1e-10 of the batch's largest cost)."""
+    pairs, probes = _sharded_cost_pairs(torch.device("cpu"))
+    for one, sharded in pairs:
+        for i1, i2 in probes:
+            got, want = sharded.costs(i1, i2), one.costs(i1, i2)
+            assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.gpu
+def test_sharded_costs_on_card(cuda):
+    """Phase 13's sharded search at a small size: mesh mode over 4
+    logical shards of the card against the one-device kernel (1e-10),
+    each probe launching K1 or K2 and K3 once a shard, bit-identical in a
+    repeat; and on the checked build."""
+    pairs, probes = _sharded_cost_pairs(cuda)
+    for one, sharded in pairs:
+        for i1, i2 in probes:
+            want = one.costs(i1, i2)
+            reset_launch_counts()
+            got = sharded.costs(i1, i2)
+            sweeps = (sweep_lw_intervals.launches
+                      + sweep_sw_intervals.launches)
+            runs = 1 if sharded.averaging_method == "transmission" else 2
+            assert sweeps == 4 * runs
+            assert fused_interval_sum.launches == 4
+            assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+            assert np.array_equal(sharded.costs(i1, i2), got)
+            with _build.checked():
+                assert np.array_equal(sharded.costs(i1, i2), got)
+
+
+def _average_inputs(nz=7, nwav=30011, ng=9, seed=2):
+    rng = np.random.default_rng(seed)
+    od = 10.0 ** rng.uniform(-4, 0.2, (nz, nwav))
+    od[:, rng.integers(0, nwav, 40)] = 0.0
+    weight = np.abs(rng.normal(1.0, 0.2, nwav))
+    return od, weight, rng.integers(-1, ng, nwav), ng
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.gpu)])
+def test_sharded_average_against_one_device(device):
+    """Phase 13's sharded create_lut at a small size: dense and streamed
+    over 4 logical shards against the one-device average: min and max
+    identical, fits within 1e-10."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from ecckd_tpu_torch.ops.average import average_od_to_gpoints
+    from ecckd_tpu_torch.parallel import make_mesh, sharded_average as sa
+    dev = torch.device(device)
+    mesh = make_mesh(devices=[dev] * 4, data_parallel=1)
+    od, weight, gp, ng = _average_inputs()
+
+    class Reader:
+        def iter_blocks(self, block_wav):
+            for i0 in range(0, od.shape[1], block_wav):
+                yield i0, od[:, i0:i0 + block_wav]
+
+    w = torch.as_tensor(weight, device=dev)
+    want = average_od_to_gpoints(ng, torch.as_tensor(gp, device=dev),
+                                 torch.as_tensor(od, device=dev), w,
+                                 "transmission")
+    for got in (sa.sharded_average_od_to_gpoints(mesh, ng, gp, od, w,
+                                                 "transmission"),
+                sa.streaming_sharded_average_od_to_gpoints(
+                    mesh, Reader(), ng, gp, lambda i0, nb: w[i0:i0 + nb],
+                    "transmission", block_wav=8192)):
+        assert np.array_equal(got[1], want[1])
+        assert np.array_equal(got[2], want[2])
+        rel = np.linalg.norm(got[0] - want[0]) / np.linalg.norm(want[0])
+        assert rel <= 1e-10
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.gpu)])
+def test_data_parallel_cost_against_one_device(device):
+    """Phase 13's data_parallel at a small size: a training cost of 5
+    profiles over 4 logical shards (padded to 8) against one shard, value
+    and gradient within 1e-12, bit-identical in a repeat."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from ecckd_tpu_torch.ops.cost import CostWeights
+    from ecckd_tpu_torch.optimize.solver import (TrainingCost,
+                                                 log_state_tree, ravel_tree)
+    from ecckd_tpu_torch.parallel import make_mesh
+    from ecckd_tpu_torch.scripts.train_step import (synthetic_model,
+                                                    training_fluxes)
+    dev = torch.device(device)
+    model = synthetic_model(ng=8, nt=4, npress=10)
+    lbl = training_fluxes(model, ncol=5, nlay=12)
+    x = ravel_tree(log_state_tree(model))
+    v1, g1 = TrainingCost(model, [lbl], CostWeights(), device=dev)(x)
+    cost = TrainingCost(model, [lbl], CostWeights(), device=dev,
+                        mesh=make_mesh(devices=[dev] * 4, data_parallel=1))
+    v, g = cost(x)
+    assert abs(v / v1 - 1.0) <= 1e-12
+    assert np.linalg.norm(g - g1) <= 1e-12 * np.linalg.norm(g1)
+    v2, g2 = cost(x)
+    assert v2 == v and np.array_equal(g2, g)

@@ -697,21 +697,25 @@ def test_bounds_respected(rig, tmp_path, remove_min_max):
 
 
 def test_unported_options_raise(rig, tmp_path, monkeypatch):
-    """solver=device raises and names ROADMAP; data_parallel (the tool's
-    default) is nothing on one device and raises where several cards would
-    share the profiles."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every solver option of the JAX tool is ported: solver=device runs
+    (tests/test_torch_device_solver.py holds it to JAX's), data_parallel
+    (the tool's default) changes nothing on the CPU, and only a solver
+    that neither package has raises."""
+    with pytest.raises(ValueError, match="not understood"):
         toptimize.optimize_lut(Config(_opt_cfg(
-            rig, str(tmp_path / "o.nc"), max_iterations=2, solver="device",
+            rig, str(tmp_path / "o.nc"), max_iterations=2, solver="newton",
             **CPU)), argv=["optimize_lut"])
-    cuda = torch.device("cuda")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    tsolver.check_one_device(True, cuda)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    tsolver.check_one_device(False, cuda)
-    tsolver.check_one_device(True, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolver.check_one_device(True, cuda)
+    res = _recorded(monkeypatch, toptimize)
+    for tag, extra in (("dev", {"solver": "device"}),
+                       ("dp0", {"data_parallel": 0}), ("dp1", {})):
+        rc = toptimize.optimize_lut(Config(_opt_cfg(
+            rig, str(tmp_path / f"{tag}.nc"), max_iterations=3,
+            convergence_criterion="1e-12", **extra, **CPU)),
+            argv=["optimize_lut"])
+        assert rc == 0
+    assert res[0].n_iterations == 3 and res[0].host_reads > 0
+    assert res[1].cost == res[2].cost
+    assert res[1].n_evaluations == res[2].n_evaluations
 
 
 def test_checkpoint_resume(rig, tmp_path, monkeypatch):

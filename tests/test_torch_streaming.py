@@ -563,7 +563,9 @@ def test_create_lut_core_streams_arrays():
 
 
 def test_sharded_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``sharded=1`` shards over cards: with device=cpu it raises, streamed
+    or not, before any file is read."""
+    with pytest.raises(ValueError, match="mesh of logical shards"):
         create_lut(Config({"device": "cpu", "output": "x.nc",
                            "streaming": "1", "sharded": "1"}))
 
