@@ -65,13 +65,21 @@ last):
      ``lw_spectra_core`` with the chain's g-points), then
      ``optimize_lut_core`` (scipy L-BFGS-B, at most 60 iterations, prior
      error 4) on its model and ``run_ckd_core`` before and after: the cost
-     and the heating-rate and surface-downwelling errors must fall; the
-     training step at bench.py's production size (ng 64, nt 6, np 53, 48
-     columns, 50 layers, an o3 gas in LUT mode added) and the SW main
-     path's model with Rayleigh active: value and gradient on the card
-     within 1e-10 of the CPU (float64) and bit-identical in a repeat,
-     float32 within PARITY.md's 1e-3, with milliseconds, kernel launches
-     and the device's idle share per evaluation;
+     and the heating-rate and surface-downwelling errors must fall, and
+     the same run once more with every evaluation eager (the same
+     iterations, evaluations, final cost and LUT); the training step of
+     that model, at bench.py's production size (ng 64, nt 6, np 53, 48
+     columns, 50 layers, an o3 gas in LUT mode added; float64 and float32)
+     and of the SW main path's model with Rayleigh active, each captured as
+     a CUDA graph (``optimize/graphs.py``) and held against its eager code:
+     value and gradient bit-identical (or within 1e-12, reported), the
+     capture and its replays under ``torch.cuda.set_sync_debug_mode(
+     "error")``, the graph pool's bytes, each way's milliseconds (CUDA
+     events), and the host's launches, the kernels run on the card and its
+     idle share (graphed; eager too at production size); the graphed
+     steps on the card within 1e-10 of the CPU (float64) and bit-identical
+     in a repeat, float32 within PARITY.md's 1e-3, and scipy's evaluation
+     with its pinned copies timed;
   9. the experiment path of ``scripts/exp_kernels.py`` as ported
      (``ecckd_tpu_torch.scripts.exp_kernels.main``, all three variants, at
      2^20 x 50 x 64 in float32 and float64): E1 (LW sweep by scans across
@@ -119,28 +127,30 @@ last):
       ``flux_dn_sw``, which run_ckd's SW output lacks in both packages.)
       Then both workflows again, every step skipped, and with the
       g-point file deleted only find_g_points again, to the same ranks;
-  13. the on-device L-BFGS and the parallel paths, a mesh of 4 logical
-      shards of the card standing for 4 cards: ``solver=device`` on phase
-      8's model (at most 60 iterations; the final cost within 5% of phase
-      8's scipy cost, the errors falling, bounds and zeros kept;
-      evaluations and host reads an iteration); ``data_parallel`` over
-      the 4 shards (5 profiles, padded; value and gradient within 1e-10
-      of one shard and bit-identical in a repeat, 15 scipy iterations
-      within 1e-8 / 1e-6); the LW and SW main paths' searches sharded
-      (K1/K2 and K3 four times a probe; each shard's kernels held against
-      their plain versions with shifted bounds on the largest probe; its
-      costs within 1e-10 of one device with float32's transmission clamp
-      on both sides; ranks identical to the unsharded search, or, where
-      the float64 clamp moves a bound, the same g-point count, bounds
-      within 2 ranks and identical ranks with float32's clamp), the LW
-      one once more on the checked build; create_lut sharded, dense and
-      streamed in blocks of 2^18 (min and max bit-identical, molar
+  13. the on-device L-BFGS and the parallel paths, a mesh of 4 logical shards
+      of the card standing for 4 cards: ``solver=device`` on phase 8's model,
+      its step one CUDA graph (at most 60 iterations; the final cost within 5%
+      of phase 8's scipy cost, the errors falling, bounds and zeros kept;
+      evaluations, masked evaluations and host reads an iteration, one read
+      every ``STEPS_PER_READ`` evaluations), and its state machine graphed
+      against eager on the card (12 iterations in chunks of 6: chunk
+      boundaries, values and parameters bit for bit); ``data_parallel`` over
+      the 4 shards (5 profiles, padded; the shards' graphs against their eager
+      code as in phase 8, value and gradient within 1e-10 of one shard and
+      bit-identical in a repeat, 15 scipy iterations within 1e-8 / 1e-6); the
+      LW and SW main paths' searches sharded (K1/K2 and K3 four times a probe;
+      each shard's kernels held against their plain versions with shifted
+      bounds on the largest probe; its costs within 1e-10 of one device with
+      float32's transmission clamp on both sides; ranks identical to the
+      unsharded search, or, where the float64 clamp moves a bound, the same
+      g-point count, bounds within 2 ranks and identical ranks with float32's
+      clamp), the LW one once more on the checked build; create_lut sharded,
+      dense and streamed in blocks of 2^18 (min and max bit-identical, molar
       absorption within 1e-10 where the fit is well conditioned); and two
-      processes sharing the card over gloo (``--parallel-worker``, two
-      shards each): the LW search and the streamed multi-controller
-      averaging of profile 0 against the one-process 4-shard run (ranks
-      identical, costs and sums within 1e-12, min and max partials
-      bit-identical).
+      processes sharing the card over gloo (``--parallel-worker``, two shards
+      each): the LW search and the streamed multi-controller averaging of
+      profile 0 against the one-process 4-shard run (ranks identical, costs and
+      sums within 1e-12, min and max partials bit-identical).
 Launch counts are set to 0 just before each main path and read just after.
 No module of jax or of the JAX package ``ecckd_tpu`` may be imported.  The
 last line is a JSON object with "ok" and the device; the line before it
@@ -1305,13 +1315,17 @@ def flux_errors(model, lbl, device="cuda"):
     return float(err_hr), float(err_dn)
 
 
-def card_against_cpu(what, cost_of, x0, card="cuda"):
+def card_against_cpu(what, cost_of, x0, card="cuda", profile_eager=False):
     """The value and gradient of one training cost on the card against the
-    same code on the CPU (float64, normwise 1e-10), and a repeat on the
-    card bit for bit.  ``cost_of(device)`` builds the TrainingCost."""
+    same code on the CPU (float64, normwise 1e-10), its graphs against its
+    eager code (:func:`graph_against_eager`), and a repeat on the card bit
+    for bit.  ``cost_of(device)`` builds the TrainingCost; returns it and
+    the graph check's numbers."""
     card, cpu = cost_of(card), cost_of("cpu")
-    v, g = card.value_and_grad(card.tensor(x0))
-    v2, g2 = card.value_and_grad(card.tensor(x0))
+    x = card.tensor(x0)
+    graphs = graph_against_eager(what, card, x, profile_eager=profile_eager)
+    v, g = (t.clone() for t in card.value_and_grad(x))
+    v2, g2 = (t.clone() for t in card.value_and_grad(card.tensor(x0)))
     vc, gc = cpu.value_and_grad(cpu.tensor(x0))
     rel_v = abs(float(v) - float(vc)) / abs(float(vc))
     rel_g = float((g.cpu() - gc).norm() / gc.norm())
@@ -1322,35 +1336,124 @@ def card_against_cpu(what, cost_of, x0, card="cuda"):
     check(rel_v <= 1e-10 and rel_g <= 1e-10,
           f"{what}: card within 1e-10 of the CPU")
     check(same, f"{what}: value and gradient bit-identical in a repeat")
-    return card
+    return card, graphs
 
 
-def step_launches(cost, x, reps):
-    """(kernels and copies launched per value and gradient, the device's
-    busy milliseconds per evaluation) from ``torch.profiler``."""
+# The runtime calls by which the host launches work on the card
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def step_launches(fn, reps):
+    """Per call of ``fn``, from ``torch.profiler``: the launches the host
+    makes (kernels, graphs, copies and sets), the kernels and the copies
+    that run on the card, and the card's busy milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cost.value_and_grad(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            cost.value_and_grad(x)
+            fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    host = sum(e.count for e in events if e.device_type == DeviceType.CPU
+               and e.key in HOST_LAUNCHES)
+    rows = [e for e in events if e.device_type == DeviceType.CUDA]
     copies = sum(e.count for e in rows if e.key.startswith(("Memcpy",
                                                              "Memset")))
     kernels = sum(e.count for e in rows) - copies
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    return kernels / reps, copies / reps, busy_ms / reps
+    return dict(host_launches=host / reps, kernels=kernels / reps,
+                copies=copies / reps, busy_ms=busy_ms / reps)
+
+
+def graph_against_eager(what, cost, x, reps=20, profile_eager=False):
+    """A TrainingCost's captured value and gradient at ``x`` against its
+    eager code (``value_and_grad_eager``) on the card: bit for bit, or a
+    difference within 1e-12 normwise that is reported; the capture and its
+    replays under ``torch.cuda.set_sync_debug_mode("error")``; the bytes
+    the capture took (``max_memory_allocated`` over the eager state, the
+    graphs' pools); ms (CUDA events) of each way, and the host launches,
+    kernels run and idle share of the graphed way and, with
+    ``profile_eager``, of the eager one (its profile takes seconds)."""
+    t_all = time.perf_counter()
+    ev, eg = (t.clone() for t in cost.value_and_grad_eager(x))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gv, gg = (t.clone() for t in cost.value_and_grad(x))
+        for _ in range(3):
+            cost.value_and_grad(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    out = dict(capture_s=time.perf_counter() - t0,
+               pool_bytes=torch.cuda.max_memory_allocated() - base,
+               pool_reserved_bytes=torch.cuda.memory_reserved() - reserved)
+    same = torch.equal(gv, ev) and torch.equal(gg, eg)
+    err = max(abs(float(gv) - float(ev)) / abs(float(ev)),
+              float((gg - eg).double().norm() / eg.double().norm()))
+    out.update(identical=same, err=err, compared=1 + eg.numel())
+    for tag, fn, n in (("eager", cost.value_and_grad_eager, reps // 2),
+                       ("graphed", cost.value_and_grad, reps)):
+        ms = cuda_ms(lambda: fn(x), n)
+        out[tag] = dict(ms=ms, host_launches=float("nan"),
+                        kernels=float("nan"), copies=float("nan"),
+                        busy_ms=float("nan"))
+        if tag == "graphed" or profile_eager:
+            out[tag].update(step_launches(lambda: fn(x), n // 5))
+        out[tag]["idle"] = (max(0.0, 1.0 - out[tag]["busy_ms"] / ms)
+                            if out[tag]["busy_ms"] >= 0.0 else float("nan"))
+    out["seconds"] = time.perf_counter() - t_all
+    e, g = out["eager"], out["graphed"]
+    log(f"[optimize] {what}, graphed against eager: value and gradient "
+        f"({out['compared']} numbers) bit-identical {same}, difference "
+        f"{err:.3e} (bar: identical, else 1e-12 explained); capture and 3 "
+        f"replays under sync debug mode \"error\" in "
+        f"{out['capture_s']:.2f} s, pool {out['pool_bytes']} bytes "
+        f"(max_memory_allocated; reserved {out['pool_reserved_bytes']}); "
+        f"ms per value and gradient {e['ms']:.3f} eager, {g['ms']:.3f} "
+        f"graphed (CUDA events, {reps // 2} / {reps}); host launches "
+        f"{e['host_launches']:.0f} against {g['host_launches']:.0f}; "
+        f"kernels + copies on the card {e['kernels']:.0f} + "
+        f"{e['copies']:.0f} against {g['kernels']:.0f} + "
+        f"{g['copies']:.0f}; busy {e['busy_ms']:.3f} / {g['busy_ms']:.3f} "
+        f"ms, idle {100 * e['idle']:.1f}% / {100 * g['idle']:.1f}% "
+        f"(torch.profiler, {reps // 10 if profile_eager else 0} / "
+        f"{reps // 5}; nan: not profiled); {out['seconds']:.1f} s")
+    check(same or err <= 1e-12, f"{what}: graphed value and gradient "
+          "within 1e-12 of the eager ones")
+    return out
+
+
+class eager_cost:
+    """Within it, ``TrainingCost.value_and_grad`` is its plain version
+    (every kernel launched from the host): the run that the graphs are
+    held against."""
+
+    def __enter__(self):
+        from ecckd_tpu_torch.optimize.solver import TrainingCost
+        self.graphed = TrainingCost.value_and_grad
+        TrainingCost.value_and_grad = TrainingCost.value_and_grad_eager
+
+    def __exit__(self, *exc):
+        from ecckd_tpu_torch.optimize.solver import TrainingCost
+        TrainingCost.value_and_grad = self.graphed
 
 
 def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
                    sw_model):
     """create_lut -> optimize_lut -> run_ckd on the LW main path's model,
-    the training step at bench.py's production size, and the SW step with
-    Rayleigh active, all on the card."""
+    through the captured step and once more eagerly, the training step at
+    bench.py's production size, and the SW step with Rayleigh active, all
+    on the card, each step graphed against eager."""
     import copy
     import scipy
     from ecckd_tpu_torch.ops.cost import CostWeights
@@ -1363,6 +1466,7 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     say = lambda line: log(f"[optimize] {line}")
     say(f"scipy {scipy.__version__}")
     t_phase = time.perf_counter()
+    steps = {}
 
     # the chain: training fluxes, optimisation, evaluation before and after
     t0 = time.perf_counter()
@@ -1391,32 +1495,72 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     check(after[0] < before[0] and after[1] < before[1],
           "optimisation lowers the heating-rate and surface-downwelling "
           "errors")
+    # the same run with every evaluation eager
+    eager_model = copy.deepcopy(lw_model)
+    with eager_cost():
+        res_e = optimize_lut_core(eager_model, [copy.deepcopy(raw_lbl)],
+                                  gases=["h2o"], prior_error=4.0,
+                                  max_iterations=60,
+                                  convergence_criterion=0.002, device="cuda")
+    same_lut = np.array_equal(model.single_gas_data[0].molar_abs,
+                              eager_model.single_gas_data[0].molar_abs)
+    same_run = (res.n_iterations == res_e.n_iterations
+                and res.n_evaluations == res_e.n_evaluations
+                and res.cost == res_e.cost)
+    say(f"chain, scipy through the graphs against eager: "
+        f"{res.n_iterations} / {res_e.n_iterations} iterations, "
+        f"{res.n_evaluations} / {res_e.n_evaluations} evaluations, cost "
+        f"{res.cost!r} / {res_e.cost!r}, LUT bit-identical {same_lut}; "
+        f"{res.seconds_per_iteration * 1e3:.2f} against "
+        f"{res_e.seconds_per_iteration * 1e3:.2f} ms per iteration (host "
+        "clock)")
+    check(same_run, "scipy through the graphs: the eager run's iterations, "
+          "evaluations and final cost")
+    steps["chain_scipy"] = dict(
+        graphed_ms_per_iteration=1e3 * res.seconds_per_iteration,
+        eager_ms_per_iteration=1e3 * res_e.seconds_per_iteration,
+        iterations=res.n_iterations, evaluations=res.n_evaluations,
+        lut_identical=same_lut)
+    # the chain's training step, graphed against eager
+    chain_model = copy.deepcopy(lw_model)
+    chain_model.set_active(["h2o"])
+    chain_model.create_error_covariances(4.0)
+    chain_lbl = copy.deepcopy(raw_lbl)
+    prepare_lbl(chain_lbl, chain_model, 1.0e4)
+    chain = TrainingCost(chain_model, [chain_lbl], CostWeights(), device=dev)
+    steps["chain"] = graph_against_eager(
+        f"LW chain's step ({chain_lbl.ncol} columns, {chain_model.ng} "
+        "g-points)", chain, chain.tensor(ravel_tree(log_state_tree(
+            chain_model))))
+    del chain
 
     # the training step at production size
     size = "ng 64, nt 6, np 53, 48 columns, 50 layers, h2o linear, o3 LUT"
     x0 = ravel_tree(log_state_tree(train_step.synthetic_model(
         64, 6, 53, lut_gas=True)))
-    card = card_against_cpu(f"production step ({size})",
-                            lambda d: train_step.training_cost(device=d)[0],
-                            x0)
+    card, steps["production_f64"] = card_against_cpu(
+        f"production step ({size})",
+        lambda d: train_step.training_cost(device=d)[0], x0,
+        profile_eager=True)
     x64 = card.tensor(x0)
     c32, x32 = train_step.training_cost(device="cuda", dtype=torch.float32)
+    steps["production_f32"] = graph_against_eager(
+        "production step float32", c32, x32)
     lev = train_step.precision_levels(card, x64, c32, x32)
     say(f"production step float32 against float64: {json.dumps(lev)}")
     for key in ("value_rel", "gradient_norm_rel", "cost_20_rel"):
         check(lev[key] <= 1e-3, f"float32 {key} within 1e-3 of float64")
     for tag, cost, x in (("f64", card, x64), ("f32", c32, x32)):
-        ms = cuda_ms(lambda: cost.value_and_grad(x), 20)
+        xs = x.double().cpu().numpy()
+        cost(xs)
         t0 = time.perf_counter()
         for _ in range(20):
-            cost(x0)
+            cost(xs)
         host_ms = (time.perf_counter() - t0) * 1e3 / 20
-        kernels, copies, busy = step_launches(cost, x, 5)
-        say(f"production step {tag}: {ms:.3f} ms per value and gradient "
-            f"(CUDA events), {host_ms:.3f} ms per scipy evaluation with its "
-            f"copies (host clock); per evaluation {kernels:.0f} kernels and "
-            f"{copies:.0f} copies launched, device busy {busy:.3f} ms, idle "
-            f"{100 * max(0.0, 1 - busy / ms):.1f}% (torch.profiler)")
+        steps[f"production_{tag}"]["scipy_evaluation_ms"] = host_ms
+        say(f"production step {tag}: {host_ms:.3f} ms per scipy evaluation "
+            "with its pinned copies, graphed (host clock, 20)")
+    del card, c32
 
     # the SW step: the SW main path's model with Rayleigh active
     t0 = time.perf_counter()
@@ -1429,17 +1573,15 @@ def phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi, sw_gp,
     model.create_error_covariances(4.0, rayleigh_prior_error=0.5)
     prepare_lbl(sw_lbl, model, 1.0e4)
     check(model.rayleigh_is_active, "Rayleigh active in the SW step")
-    card = card_against_cpu(
+    _, steps["sw"] = card_against_cpu(
         f"SW step ({sw_lbl.ncol} columns, {model.ng} g-points, Rayleigh "
         "active)",
         lambda d: TrainingCost(model, [sw_lbl], CostWeights(), device=d),
         ravel_tree(log_state_tree(model)))
-    x = card.tensor(ravel_tree(log_state_tree(model)))
-    say(f"SW step f64: {cuda_ms(lambda: card.value_and_grad(x), 20):.3f} ms "
-        "per value and gradient (CUDA events)")
+    say(json.dumps(steps, default=float))
     say(f"phase {time.perf_counter() - t_phase:.1f} s")
     return SimpleNamespace(hr_error=after[0], lbl=raw_lbl, res=res,
-                           errors=(before, after))
+                           errors=(before, after), steps=steps)
 
 
 def phase_experiment(checked=False):
@@ -2041,16 +2183,27 @@ def phase_ckdmip(smi, device="cuda"):
             f"device [ms, launches] {ms}")
         out.update(lut_profiled_wall=wall, lut_device=ms, lut_idle=idle)
 
-        # lw_spectra with and without the g-points
+        # lw_spectra with and without the g-points; profile 0's run at full
+        # resolution under torch.profiler, to see where its time goes
+        import contextlib
         ng = len(gp.band_number)
         for icol in range(ncol):
             res = {}
             for tag, g in (("full", None), ("g-points", gp.g_point)):
-                t0 = time.perf_counter()
-                with open_spectrum_profile(paths[0], icol) as pb:
-                    res[tag] = lw_spectra_core(pb, g, ng if g is not None
-                                               else None, device=dev)
-                secs[f"lw_spectra {tag} {icol}"] = time.perf_counter() - t0
+                profiled = (icol, tag) == (0, "full")
+                with (profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                      if profiled else contextlib.nullcontext()) as p:
+                    t0 = time.perf_counter()
+                    with open_spectrum_profile(paths[0], icol) as pb:
+                        res[tag] = lw_spectra_core(
+                            pb, g, ng if g is not None else None,
+                            device=dev)
+                    sync(dev)
+                    secs[f"lw_spectra {tag} {icol}"] = (time.perf_counter()
+                                                        - t0)
+                if profiled:
+                    prof = p
             full, gpt = res["full"], res["g-points"]
             check(full.spectral_flux_dn.shape == (nlay + 1, nwav)
                   and gpt.spectral_flux_dn.shape == (nlay + 1, ng)
@@ -2076,13 +2229,7 @@ def phase_ckdmip(smi, device="cuda"):
             del res, full, gpt
         # where a full-resolution lw_spectra's time goes
         from torch.autograd import DeviceType
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            with open_spectrum_profile(paths[0], 0) as pb:
-                lw_spectra_core(pb, device=dev)
-            sync(dev)
-            wall = time.perf_counter() - t0
+        wall = secs["lw_spectra full 0"]
         ms, busy = device_ms(prof, {"DtoH copies": "Memcpy DtoH",
                                     "HtoD copies": "Memcpy HtoD"})
         host = [(e.key, e.self_cpu_time_total / 1e3)
@@ -2840,10 +2987,75 @@ def sharded_luts(lw, mesh, say, device):
     return out
 
 
+def device_problem(lw, opt, device):
+    """Phase 8's LW model and training fluxes as optimize_lut's device
+    solver sees them: the TrainingCost, the start, the bounds and the
+    pinned entries, on ``device``."""
+    import copy
+    from ecckd_tpu_torch.ops.cost import CostWeights
+    from ecckd_tpu_torch.optimize.cost_fn import MIN_X
+    from ecckd_tpu_torch.optimize.solver import (TrainingCost,
+                                                 log_state_tree, ravel_tree,
+                                                 state_bounds)
+    from ecckd_tpu_torch.tools.optimize_lut import prepare_lbl
+    model = copy.deepcopy(lw.model)
+    lbl = copy.deepcopy(opt.lbl)
+    model.set_active(["h2o"])
+    model.create_error_covariances(4.0)
+    prepare_lbl(lbl, model, 1.0e4)
+    cost = TrainingCost(model, [lbl], CostWeights(), device=device)
+    x0 = ravel_tree(log_state_tree(model))
+    lo, hi = (cost.tensor(ravel_tree(t)) for t in state_bounds(model))
+    return (cost, cost.tensor(x0), lo, hi,
+            torch.as_tensor(x0 <= MIN_X, device=device))
+
+
+def machine_graph_against_eager(lw, opt, say, device):
+    """The device solver's state machine with its step as one CUDA graph
+    against the same machine run eagerly on the card (phase 8's problem,
+    12 iterations in chunks of 6): chunk boundaries, each iteration's
+    value and the parameters bit for bit; ms an iteration of each."""
+    from ecckd_tpu_torch.optimize import lbfgs
+    cost, x0, lo, hi, sentinel = device_problem(lw, opt, device)
+    runs = {}
+    for tag, graph in (("graphed", "step"), ("eager", None)):
+        chunks, history, stats = [], [], lbfgs.Stats()
+        sync(device)
+        t0 = time.perf_counter()
+        params, value, it, gnorm = lbfgs.minimize(
+            cost.value_and_grad_eager, x0, lo, hi, sentinel, 12, 0.002,
+            chunk=6, on_chunk=lambda p, it, v: chunks.append((it, v)),
+            history=history, stats=stats,
+            graph=graph if device.type == "cuda" else None)
+        sync(device)
+        runs[tag] = dict(seconds=time.perf_counter() - t0, chunks=chunks,
+                         history=history, params=params.clone(),
+                         end=(value, it, gnorm), stats=stats)
+    g, e = runs["graphed"], runs["eager"]
+    same = (g["chunks"] == e["chunks"] and g["history"] == e["history"]
+            and torch.equal(g["params"], e["params"])
+            and g["end"] == e["end"])
+    n = max(g["end"][1], 1)
+    say(f"device solver, step graphed against the eager state machine: "
+        f"{g['end'][1]} iterations, chunk boundaries "
+        f"{[c[0] for c in g['chunks']]} / {[c[0] for c in e['chunks']]}, "
+        f"values, parameters and boundaries bit-identical {same}; "
+        f"{1e3 * g['seconds'] / n:.2f} against "
+        f"{1e3 * e['seconds'] / n:.2f} ms an iteration (host clock); "
+        f"graphed {g['stats']}")
+    check(same, "graphed device solver: the eager state machine's iterates "
+          "bit for bit")
+    return dict(identical=same, boundaries=[c[0] for c in g["chunks"]],
+                graphed_ms_per_iteration=1e3 * g["seconds"] / n,
+                eager_ms_per_iteration=1e3 * e["seconds"] / n)
+
+
 def device_solver_run(lw, opt, say, device):
     """optimize_lut_core with solver=device on phase 8's LW model and
-    training fluxes: at most 60 iterations, prior error 4."""
+    training fluxes: at most 60 iterations, prior error 4, its step one
+    CUDA graph on the card."""
     import copy
+    from ecckd_tpu_torch.optimize.lbfgs import STEPS_PER_READ
     from ecckd_tpu_torch.tools.optimize_lut import optimize_lut_core
     model = copy.deepcopy(lw.model)
     lbl = copy.deepcopy(opt.lbl)
@@ -2862,17 +3074,22 @@ def device_solver_run(lw, opt, say, device):
                                      1 - 1e-9, 0.0))
                and np.all(g1.molar_abs[~pos] == 0.0))
     n = max(res.n_iterations, 1)
+    per_it = res.n_evaluations / n
     say(f"device solver: {res.status.name}, {res.n_iterations} iterations, "
-        f"{res.n_evaluations} evaluations ({res.n_evaluations / n:.2f} an "
-        f"iteration), {res.host_reads} host reads ({res.host_reads / n:.2f} "
-        f"an iteration); cost {res.first_cost:.6g} -> {res.cost:.6g} "
-        f"(scipy in phase 8: {scipy_res.cost:.6g} after "
+        f"{res.n_evaluations} evaluations ({per_it:.2f} an iteration) and "
+        f"{res.masked_evaluations} masked, {res.host_reads} host reads "
+        f"({res.host_reads / n:.4f} an iteration against "
+        f"{per_it / STEPS_PER_READ:.4f}, evaluations an iteration over "
+        f"{STEPS_PER_READ} steps a read); cost {res.first_cost:.6g} -> "
+        f"{res.cost:.6g} (scipy in phase 8: {scipy_res.cost:.6g} after "
         f"{scipy_res.n_iterations} iterations); heating-rate RMS error "
         f"{before[0]:.6e} -> {after[0]:.6e} K/day, surface downwelling "
         f"{before[1]:.9e} -> {after[1]:.9e} W m-2; bounds held and zeros "
         f"kept {bounded}")
+    steady = (res.wall_time - res.capture_seconds) / n
     say(f"device solver {1e3 * res.seconds_per_iteration:.2f} ms an "
-        "iteration against scipy's "
+        f"iteration, {1e3 * steady:.2f} without the step's capture "
+        f"({res.capture_seconds:.3f} s), against scipy's "
         f"{1e3 * scipy_res.seconds_per_iteration:.2f} ms in phase 8 (host "
         "clock)")
     check(res.cost <= scipy_res.cost * 1.05
@@ -2881,12 +3098,21 @@ def device_solver_run(lw, opt, say, device):
     check(after[0] < before[0] and after[1] < before[1],
           "device solver lowers the heating-rate and surface errors")
     check(bounded, "device solver: bounds hold and zeros stay zero")
+    # 60 iterations are one chunk: one read after every STEPS_PER_READ
+    # steps until the state froze, so its evaluations over that, rounded up
+    check(res.host_reads <= -(-res.n_evaluations // STEPS_PER_READ),
+          "device solver: one host read every STEPS_PER_READ evaluations")
     return dict(status=res.status.name, iterations=res.n_iterations,
-                evaluations=res.n_evaluations, host_reads=res.host_reads,
+                evaluations=res.n_evaluations,
+                masked_evaluations=res.masked_evaluations,
+                host_reads=res.host_reads,
                 cost=res.cost, scipy_cost=scipy_res.cost,
                 ms_per_iteration=1e3 * res.seconds_per_iteration,
+                ms_per_iteration_after_capture=1e3 * steady,
+                capture_seconds=res.capture_seconds,
                 scipy_ms_per_iteration=1e3 * scipy_res.seconds_per_iteration,
-                hr_error=after[0])
+                hr_error=after[0],
+                graph=machine_graph_against_eager(lw, opt, say, device))
 
 
 def data_parallel_run(lw, opt, mesh, say, device):
@@ -2908,6 +3134,9 @@ def data_parallel_run(lw, opt, mesh, say, device):
     one = TrainingCost(model, [lbl], CostWeights(), device=device)
     shd = TrainingCost(model, [lbl], CostWeights(), device=device,
                        mesh=mesh)
+    graphs = (graph_against_eager(f"data_parallel over {mesh.size} "
+                                  "shards", shd, shd.tensor(x), reps=10)
+              if device.type == "cuda" else None)
     (v1, g1), (v, g), (v2, g2) = one(x), shd(x), shd(x)
     rel_v = abs(v / v1 - 1.0)
     rel_g = float(np.linalg.norm(g - g1) / np.linalg.norm(g1))
@@ -2917,9 +3146,10 @@ def data_parallel_run(lw, opt, mesh, say, device):
           for tag, c in (("one", one), ("sharded", shd))}
     say(f"data_parallel: {lbl.ncol} profiles over {mesh.size} shards; "
         f"value {rel_v:.3e}, gradient {rel_g:.3e} (normwise) against one "
-        f"shard (bar 1e-10); repeat bit-identical {same}; "
+        f"shard (bar 1e-10); repeat bit-identical {same}; graphed "
         f"{ms['sharded']:.3f} ms per value and gradient against "
-        f"{ms['one']:.3f} ms (CUDA events)")
+        f"{ms['one']:.3f} ms, {ms['sharded'] / ms['one']:.2f}x (CUDA "
+        "events)")
     check(rel_v <= 1e-10 and rel_g <= 1e-10, "data_parallel value and "
           "gradient within 1e-10 of one shard")
     check(same, "data_parallel: bit-identical repeat")
@@ -2942,7 +3172,7 @@ def data_parallel_run(lw, opt, mesh, say, device):
     check(rel_cost <= 1e-8 and rel_lut <= 1e-6, "data_parallel: 15 "
           "iterations within 1e-8 (cost) and 1e-6 (LUT) of one shard")
     return dict(value=rel_v, gradient=rel_g, ms=ms, cost=rel_cost,
-                lut=rel_lut)
+                lut=rel_lut, graphs=graphs)
 
 
 def _free_port():
@@ -3183,8 +3413,14 @@ def phase_parallel(smi, lw, sw, opt, device="cuda"):
     mesh = make_mesh(devices=[dev] * PARALLEL_SHARDS, data_parallel=1)
     out = {"mesh": repr(mesh)}
 
+    seconds = out["seconds"] = {}
+    t0 = time.perf_counter()
     out["device_solver"] = device_solver_run(lw, opt, say, dev)
+    seconds["device_solver"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["data_parallel"] = data_parallel_run(lw, opt, mesh, say, dev)
+    seconds["data_parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
     # find_g_points sharded: LW and SW main paths, and LW once checked
     lw_gas = gas_input(order_of(lw.profiles[0], dev), lw.profiles[0])
@@ -3222,10 +3458,15 @@ def phase_parallel(smi, lw, sw, opt, device="cuda"):
         f"{time.perf_counter() - t0:.2f} s: no index out of range, ranks "
         "identical")
     del lw_gas, sw_gas, base, checked_gp
+    seconds["searches"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
     out["create_lut"] = sharded_luts(lw, mesh, say, dev)
+    seconds["create_lut"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["multi_controller"] = multi_controller_run(lw, lw_kernel, lw_gp,
                                                    say, dev)
+    seconds["multi_controller"] = time.perf_counter() - t0
     out["phase_seconds"] = time.perf_counter() - t_phase
     say(json.dumps(out, default=float))
     say(f"phase {out['phase_seconds']:.1f} s ({smi})")
@@ -3254,25 +3495,36 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    elapsed = lambda what: log(f"[smoke] {what} done at "
+                               f"{time.perf_counter() - t_start:.1f} s")
     smi = phase_card()
     phase_build()
+    elapsed("phase 2 (build)")
     times = phase_kernels(dev)
+    elapsed("phase 3 (kernels)")
     phase_small_rig()
+    elapsed("phase 4 (small rigs)")
     lw_profiles, lw_gp, lw_model, lw_launches = phase_lw_main_path()
     sw_profiles, ssi, sw_gp, sw_model, sw_launches = phase_sw_main_path()
+    elapsed("phases 5-6 (main paths)")
     phase_rest(lw_profiles, sw_profiles, ssi, sw_gp, sw_model)
     phase_profile(lw_profiles, sw_profiles, ssi)
+    elapsed("phases 6b-7 (rest, profile)")
     opt = phase_optimize(lw_profiles, lw_gp, lw_model, sw_profiles, ssi,
                          sw_gp, sw_model)
     lut_paths_at_main_size(lw_profiles, lw_gp, smi)
+    elapsed("phase 8 (optimize, create_lut paths)")
     exp, exp_launches = phase_experiment()
     phase_checked(dev, times, exp)
+    elapsed("phases 9-10 (experiment, checked build)")
     phase_ckdmip(smi)
+    elapsed("phase 11 (CKDMIP scale)")
     lw = SimpleNamespace(profiles=lw_profiles, gp=lw_gp, model=lw_model,
                          launches=lw_launches, hr_error=opt.hr_error)
     sw = SimpleNamespace(profiles=sw_profiles, ssi=ssi, gp=sw_gp,
                          model=sw_model, launches=sw_launches)
     phase_workflow(smi, lw, sw)
+    elapsed("phase 12 (workflow)")
     phase_parallel(smi, lw, sw, opt)
     del lw, sw, lw_profiles, sw_profiles, lw_model, sw_model
     log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s")

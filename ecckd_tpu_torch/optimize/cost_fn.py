@@ -181,7 +181,9 @@ def build_scene(model, lbl, pressure_weight_power=0.5,
 
 
 def _constant(cache, name, array, like):
-    """A model array as a tensor like ``like``, copied to the device once."""
+    """A model array as a tensor like ``like``, copied to the device once
+    (at the first evaluation, before a CUDA graph of the cost is
+    captured)."""
     key = (name, like.device, like.dtype)
     if key not in cache:
         cache[key] = torch.as_tensor(np.asarray(array), dtype=like.dtype,
@@ -248,11 +250,19 @@ def make_cost_fn(model, scenes, weights, negative_od_penalty=1.0e4):
                                        dtype=scene.pressure_hl.dtype,
                                        device=scene.pressure_hl.device)
                        for scene, meta in scenes]
+    # Copied once here: a copy from host memory inside the cost would
+    # synchronise every evaluation and cannot be captured in a CUDA graph
+    boundary_weights = [None if meta.spectral_boundary_weights is None else
+                        torch.as_tensor(meta.spectral_boundary_weights,
+                                        dtype=scene.pressure_hl.dtype,
+                                        device=scene.pressure_hl.device)
+                        for scene, meta in scenes]
 
     def cost(tree):
         total = 0.0
-        for (scene, meta), od_fn, band_onehot, pw in zip(
-                scenes, od_fns, band_onehots, profile_weights):
+        for (scene, meta), od_fn, band_onehot, pw, sbw in zip(
+                scenes, od_fns, band_onehots, profile_weights,
+                boundary_weights):
             od = od_fn(tree, scene)
             # Negative-od quadratic penalty (ref solve_adept.cpp:107-116);
             # minimum/maximum split the gradient at od == 0 as JAX does
@@ -278,10 +288,6 @@ def make_cost_fn(model, scenes, weights, negative_od_penalty=1.0e4):
                     relative_flux_dn=scene.relative_flux_dn,
                     relative_flux_up=scene.relative_flux_up)
             else:
-                sbw = (None if meta.spectral_boundary_weights is None
-                       else torch.as_tensor(meta.spectral_boundary_weights,
-                                            dtype=od.dtype,
-                                            device=od.device))
                 per_profile = cost_ckd_sw(
                     scene.mu0, scene.pressure_hl, scene.ssi_g,
                     scene.albedo_g, od, scene.flux_dn_true,

@@ -14,9 +14,13 @@ The state is flattened in the JAX package's ``ravel_pytree`` order (gases
 sorted by name, each LUT in C order), so the bounds list, the L-BFGS-B
 vector and the checkpoints match JAX's element for element.  One scipy
 evaluation copies the state to the device once and its value and gradient
-back once.  With ``data_parallel`` the profiles are split over the shards
-of a mesh (:func:`~ecckd_tpu_torch.parallel.mesh.profile_slices`): each
-shard evaluates its own against a copy of the state, and the values and
+back once.  On the card the value and gradient are replays of CUDA graphs
+of the eager code (:mod:`.graphs`, the counterpart of JAX's ``jax.jit``),
+and the device solver's step is one graph (the counterpart of its jitted
+``lax.while_loop`` chunks).  With ``data_parallel`` the profiles are split
+over the shards of a mesh
+(:func:`~ecckd_tpu_torch.parallel.mesh.profile_slices`): each shard
+evaluates its own against a copy of the state, and the values and
 gradients are summed in shard order, then over the processes of
 ``torch.distributed``, where every process runs the same minimiser.
 """
@@ -181,7 +185,14 @@ class TrainingCost:
     of weight zero), each shard's data cost and gradient are evaluated on
     its device against a copy of the state, and both are summed with the
     mesh's collective, in shard order and then over the processes; the
-    prior is added on ``device``."""
+    prior is added on ``device``.
+
+    On the card ``value_and_grad`` replays CUDA graphs of the eager code
+    (:class:`~.graphs.GraphedStep`, captured at the first call): one for
+    the whole cost, or with a mesh one for each shard's data cost on its
+    device and one for the prior, the collective between them running
+    eagerly.  :meth:`value_and_grad_eager` is the plain version, which the
+    CPU runs."""
 
     def __init__(self, model, training_data, weights: CostWeights,
                  negative_od_penalty=1.0e4, pressure_weight_power=0.5,
@@ -218,7 +229,11 @@ class TrainingCost:
         # checkpoint (ckd_model.cpp:838-877 semantics)
         x0_tree = log_state_tree(model)
         self.state = FlatState(x0_tree)
+        self.size = sum(self.state.sizes)
         self.prior_tree = self.state.unravel(self.tensor(ravel_tree(x0_tree)))
+        self._graphs = None       # captured at the first call on the card
+        self._constant = None     # the value without state variables
+        self._staging = None      # scipy's pinned buffers on the card
 
     def tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -226,32 +241,93 @@ class TrainingCost:
     def total_cost(self, tree):
         return self.data_cost(tree) + self.prior_cost(tree, self.prior_tree)
 
+    def _prior_only(self, tree):
+        return self.prior_cost(tree, self.prior_tree)
+
     def _value_and_grad_of(self, fn, x):
         x = x.detach().requires_grad_(True)
         value = fn(self.state.unravel(x))
-        if not torch.is_tensor(value) or not value.requires_grad:
-            return torch.as_tensor(value, dtype=x.dtype,
-                                   device=x.device), torch.zeros_like(x)
+        # A part that does not depend on the state (a prior without terms,
+        # a scene without the active gases) is a constant made on the
+        # device, as a graph can capture it
+        if not torch.is_tensor(value):
+            value = torch.full((), value, dtype=x.dtype, device=x.device)
+        if not value.requires_grad:
+            return value.detach(), torch.zeros_like(x)
         (grad,) = torch.autograd.grad(value, x)
         return value.detach(), grad
 
-    def value_and_grad(self, x):
+    def _parts(self):
+        """The eager value and gradient of each part, on its device: the
+        whole cost, or each shard's data cost and the prior."""
         if self.mesh is None:
-            return self._value_and_grad_of(self.total_cost, x)
+            return [(self.device, lambda x: self._value_and_grad_of(
+                self.total_cost, x))]
+        return [(dev, lambda x, c=cost: self._value_and_grad_of(c, x))
+                for dev, cost in self.shards] + [
+            (self.device, lambda x: self._value_and_grad_of(
+                self._prior_only, x))]
+
+    def _sum(self, x, parts):
+        if self.mesh is None:
+            return parts[0](x)
         packed = []
-        for dev, data_cost in self.shards:
-            v, g = self._value_and_grad_of(data_cost, x.to(dev))
+        for (dev, _), part in zip(self.shards, parts):
+            v, g = part(x.to(dev))
             packed.append(torch.cat([v.reshape(1), g]))
         # One collective for the value and the gradient of every shard
         data = self.mesh.sum(packed, device=self.device)
-        pv, pg = self._value_and_grad_of(
-            lambda tree: self.prior_cost(tree, self.prior_tree), x)
+        pv, pg = parts[-1](x)
         return data[0] + pv, data[1:] + pg
 
+    def value_and_grad_eager(self, x):
+        """The value and gradient at ``x``, every kernel launched from the
+        host: the plain version of :meth:`value_and_grad`."""
+        return self._sum(x, [fn for _, fn in self._parts()])
+
+    def value_and_grad(self, x):
+        """The value and gradient at ``x``.  On the card, replays of the
+        captured step: the outputs are the graphs' or made from them, and
+        a caller that keeps them past the next call copies them first.
+        Without state variables (no active gas) the cost is a constant,
+        computed once, and no graph is needed."""
+        if self.device.type != "cuda":
+            return self.value_and_grad_eager(x)
+        if self.size == 0:
+            if self._constant is None:
+                self._constant = self.value_and_grad_eager(x)
+            return self._constant
+        if self._graphs is None:
+            from .graphs import GraphedStep
+            self._graphs = [GraphedStep(fn, x.detach().to(dev))
+                            for dev, fn in self._parts()]
+        return self._sum(x, self._graphs)
+
     def __call__(self, x_flat):
-        value, grad = self.value_and_grad(self.tensor(x_flat))
-        out = torch.cat([value.reshape(1), grad]).to(torch.float64).cpu()
-        out = out.numpy()
+        """scipy's (value, gradient) at a float64 numpy vector: one copy to
+        the device and one back, through pinned host buffers on the card,
+        and one wait for the result."""
+        if self.device.type != "cuda":
+            value, grad = self.value_and_grad(self.tensor(x_flat))
+            out = torch.cat([value.reshape(1), grad]).to(torch.float64)
+            out = out.numpy()
+            return float(out[0]), out[1:].copy()
+        if self._staging is None:
+            self._staging = (
+                torch.empty(self.size, dtype=self.dtype, pin_memory=True),
+                torch.empty(self.size, dtype=self.dtype, device=self.device),
+                torch.empty(self.size + 1, dtype=torch.float64,
+                            pin_memory=True),
+                torch.cuda.Event())
+        x_host, x_dev, out_host, done = self._staging
+        x_host.copy_(torch.from_numpy(np.asarray(x_flat, np.float64)))
+        x_dev.copy_(x_host, non_blocking=True)
+        value, grad = self.value_and_grad(x_dev)
+        out_host.copy_(torch.cat([value.reshape(1), grad]).to(torch.float64),
+                       non_blocking=True)
+        done.record()
+        done.synchronize()
+        out = out_host.numpy()
         return float(out[0]), out[1:].copy()
 
 
@@ -267,7 +343,9 @@ class SolveResult:
     first_cost: float = float("nan")
     device_seconds: float = 0.0     # cost function + gradient, host clock
     minimizer_seconds: float = 0.0
-    host_reads: int = 0             # solver="device": packed flag reads
+    host_reads: int = 0             # solver="device": packed state reads
+    masked_evaluations: int = 0     # solver="device": frozen steps
+    capture_seconds: float = 0.0    # solver="device": the step's graph
 
 
 def solve(model, training_data, flux_weight=0.02, flux_profile_weight=0.0,
@@ -456,7 +534,10 @@ def _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
                   checkpoint_file) -> SolveResult:
     """``solve``'s on-device branch (``ecckd_tpu/optimize/solver.py:
     362-407``): the projected L-BFGS of :mod:`.lbfgs` in chunks of 100
-    iterations, checkpoints at chunk boundaries, JAX's status mapping."""
+    iterations, checkpoints at chunk boundaries, JAX's status mapping.
+    On the card its step is one CUDA graph of the eager cost and the
+    advance of the state (with a mesh, the cost's own graphs and the
+    collective, then a graph of the advance); on the CPU it runs eagerly."""
     t = cost.tensor
     lo = hi = None
     if is_bounded:
@@ -466,14 +547,14 @@ def _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
     logs.log(f"Optimizing coefficients with ON-DEVICE L-BFGS: max "
              f"iterations = {max_iterations}, convergence criterion = "
              f"{gtol}")
+    if cost.device.type != "cuda":
+        value_and_grad, graph = cost.value_and_grad, None
+    elif cost.mesh is None:
+        value_and_grad, graph = cost.value_and_grad_eager, "step"
+    else:
+        value_and_grad, graph = cost.value_and_grad, "advance"
     stats = lbfgs.Stats()
-    first = []
-
-    def value_and_grad(x):
-        value, grad = cost.value_and_grad(x)
-        if not first:
-            first.append(value)
-        return value, grad
+    history = []
 
     def on_chunk(params, n_iter, value):
         tree = cost.state.unravel(params.to(torch.float64).cpu().numpy())
@@ -483,7 +564,8 @@ def _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
     x, value, n_local, gnorm = lbfgs.minimize(
         value_and_grad, t(x0_flat), lo, hi,
         torch.as_tensor(sentinel_mask, device=cost.device), max_local, gtol,
-        on_chunk=on_chunk if checkpoint_file else None, stats=stats)
+        on_chunk=on_chunk if checkpoint_file else None, history=history,
+        stats=stats, graph=graph)
     x = x.to(torch.float64).cpu().numpy()
     wall = time.perf_counter() - t0
     n_iter = n_local + it_offset
@@ -501,14 +583,17 @@ def _solve_device(model, cost, x0_flat, sentinel_mask, is_bounded,
         status = MinimizerStatus.FAILED
     per_iter = wall / max(n_local, 1)
     logs.log(f"Final cost function = {value:.6g} after {n_iter} "
-             f"iterations, {stats.evaluations} evaluations, "
-             f"{stats.host_reads} host reads, {wall:.1f} s "
-             f"({per_iter:.4f} s/iter)")
+             f"iterations, {stats.evaluations} evaluations "
+             f"({stats.masked_evaluations} masked), {stats.host_reads} host "
+             f"reads, {wall:.1f} s ({per_iter:.4f} s/iter; "
+             f"{stats.capture_seconds:.2f} s of it capturing the step)")
     if status == MinimizerStatus.SUCCESS and checkpoint_file:
         _remove_checkpoint(checkpoint_file)
     return SolveResult(
         status=status, cost=float(value), n_iterations=n_iter,
         n_evaluations=stats.evaluations, gradient_norm=float(gnorm),
         wall_time=wall, seconds_per_iteration=per_iter,
-        first_cost=float(first[0]) if first else float("nan"),
-        host_reads=stats.host_reads)
+        first_cost=history[0] if history else float("nan"),
+        host_reads=stats.host_reads,
+        masked_evaluations=stats.masked_evaluations,
+        capture_seconds=stats.capture_seconds)

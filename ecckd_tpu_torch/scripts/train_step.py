@@ -158,13 +158,15 @@ def descend(cost: TrainingCost, x, steps=20, rate=1.0e-3):
 def precision_levels(cost64, x64, cost32, x32):
     """Relative differences of float32 from float64: value, gradient norm
     (2-norm) and the 20-step cost, and the float64 numbers."""
+    # read before the next call: on the card it overwrites the outputs
     v64, g64 = cost64.value_and_grad(x64)
+    v64, n64 = float(v64), float(g64.norm())
     v32, g32 = cost32.value_and_grad(x32)
-    n64, n32 = float(g64.norm()), float(g32.double().norm())
+    v32, n32 = float(v32), float(g32.double().norm())
     s64, s32 = descend(cost64, x64), descend(cost32, x32)
     rel = lambda a, b: abs(a - b) / abs(b)
-    return {"value": float(v64), "gradient_norm": n64, "cost_20": s64,
-            "value_rel": rel(float(v32), float(v64)),
+    return {"value": v64, "gradient_norm": n64, "cost_20": s64,
+            "value_rel": rel(v32, v64),
             "gradient_norm_rel": rel(n32, n64),
             "cost_20_rel": rel(s32, s64)}
 

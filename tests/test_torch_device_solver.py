@@ -9,7 +9,8 @@ bounds and zero sentinels after 60 iterations through the file tool, with
 the flux errors falling; the status of convergence, of the iteration cap
 and of a non-finite cost as JAX maps them; a checkpoint at a chunk
 boundary and a resume that counts total iterations, as JAX's does from the
-same file; and at most one host read per cost evaluation.
+same file; and one host read after every ``STEPS_PER_READ`` cost
+evaluations.
 """
 
 import numpy as np
@@ -82,9 +83,14 @@ def test_first_iterations_match_jax(rig):
     assert len(got) == len(want) == 10
     rel = np.abs(np.asarray(got) / np.asarray(want) - 1.0)
     assert rel.max() <= 1e-8, list(enumerate(rel))
-    # one packed read per evaluation but the first of each iteration
+    # one packed read after every STEPS_PER_READ steps (one evaluation
+    # each): the 10 iterations are one chunk, read until the state froze,
+    # and the steps after it are masked evaluations
     assert stats.iterations == 10
-    assert stats.host_reads == stats.evaluations - 10
+    steps = lbfgs.STEPS_PER_READ
+    assert stats.host_reads == -(-stats.evaluations // steps)
+    assert (stats.evaluations + stats.masked_evaluations
+            == stats.host_reads * steps)
 
 
 def _solve(rig, **kw):
