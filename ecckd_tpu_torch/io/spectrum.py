@@ -108,7 +108,9 @@ class ProfileBlocks:
         consumes."""
         for i0 in range(0, self.nwav, block_wav):
             nb = min(block_wav, self.nwav - i0)
-            yield i0, self.read_block(i0, nb)
+            with logs.span("ecckd.io.read_block"):
+                block = self.read_block(i0, nb)
+            yield i0, block
 
     def materialize(self) -> Spectrum:
         """Full (nlay, nwav) read -> dense :class:`Spectrum`."""

@@ -4,7 +4,8 @@ Functional equivalents of the reference's Logging.h streams
 (src/include/Logging.h:36-155: LOG/DETAIL/DEBUG/WARNING/ERROR with a
 ``log_level`` config key, optional file sink and a progress stream) and
 Timer.h (src/include/Timer.h:27-173: named wall-clock activities, report
-on demand).
+on demand), and :func:`span`, the port's trace spans, kept while a
+``torch.profiler`` profile runs.
 
 The port's own copy of ``ecckd_tpu/logs.py``: the port imports nothing of
 the JAX package.
@@ -12,10 +13,15 @@ the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import sys
+import threading
 import time
-from contextlib import contextmanager
-from typing import Dict, Optional, TextIO
+from contextlib import contextmanager, nullcontext
+from typing import Dict, List, NamedTuple, Optional, TextIO
+
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
 _LEVELS = {"error": 0, "warning": 1, "info": 2, "progress": 2,
            "detail": 3, "debug": 4}
@@ -147,3 +153,129 @@ def timed(timer: Timer, name: str):
         yield
     finally:
         timer.stop()
+
+
+class Span(NamedTuple):
+    """One recorded span: its name, its start and end on
+    ``time.perf_counter_ns``'s clock, the native id of its thread, its id,
+    the id of its parent (the span that enclosed it on its thread, or the
+    span that started its thread; 0 for none) and the id of the outermost
+    span of its chain, shared by every span of one core call."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: int
+    call: int
+
+
+_spans: List[Span] = []
+_span_ids = itertools.count(1)
+_open = threading.local()   # .stack: (id, call) of each open span
+
+
+def _stack():
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+class _Recorder:
+    __slots__ = ("name", "start", "id", "parent", "call", "mark")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        self.id = next(_span_ids)
+        self.parent, self.call = stack[-1] if stack else (0, self.id)
+        stack.append((self.id, self.call))
+        self.mark = None
+        if threading.current_thread() is threading.main_thread():
+            # A user annotation (record_function) would also mark the
+            # device's timeline over the kernels it launches, which a
+            # reader of the trace takes for device work
+            self.mark = _RecordFunctionFast(self.name)
+            self.mark.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+        _stack().pop()
+        _spans.append(Span(self.name, self.start, end,
+                           threading.get_native_id(), self.id, self.parent,
+                           self.call))
+        return False
+
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """Context manager marking one step of the port, ``ecckd.<layer>.
+    <step>``.  While a ``torch.profiler`` profile runs it records the
+    span (:func:`spans`) and, on the main thread, opens a profiler event of
+    the same name, on the thread that holds the profile; otherwise it does
+    nothing but read the profiler's flag."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Recorder(name)
+
+
+def _origin():
+    """The (id, call) of the innermost span open on this thread, or None
+    where none is or no profile runs."""
+    stack = _stack()
+    return stack[-1] if _profiler._is_profiler_enabled and stack else None
+
+
+def spawned(target):
+    """``target`` for a thread that the caller starts: the first spans it
+    opens there take the span open here as their parent.  Without a
+    profile, ``target`` itself."""
+    origin = _origin()
+    if origin is None:
+        return target
+
+    def run(*args, **kwargs):
+        stack = _stack()
+        stack.append(origin)
+        try:
+            return target(*args, **kwargs)
+        finally:
+            stack.pop()
+    return run
+
+
+def spawned_iter(iterable):
+    """``iterable`` for a thread that iterates it (a prefetch thread): the
+    spans its iteration opens there take the span open here as their
+    parent.  Without a profile, ``iterable`` itself."""
+    origin = _origin()
+    if origin is None:
+        return iterable
+
+    def items():
+        stack = _stack()    # the iterating thread's, also where it closes
+        stack.append(origin)
+        try:
+            yield from iterable
+        finally:
+            stack.remove(origin)
+    return items()
+
+
+def spans() -> List[Span]:
+    """The spans recorded so far, from every thread, in the order they
+    ended."""
+    return list(_spans)
+
+
+def clear_spans() -> None:
+    _spans.clear()

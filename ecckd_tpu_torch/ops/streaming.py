@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import logs
 from .average import (GPOINT_AVERAGING_METHODS, finalize_gpoint_partials,
                       gpoint_block_partials)
 
@@ -42,13 +43,28 @@ def _block_accumulate(ng, g_point_block, od_block, weight_block,
     ``device`` in ``dtype`` (by default where and how ``od_block`` lies);
     ``g_point_block`` must be on ``device`` already."""
     if device is not None:
-        od_block = _to_device(od_block, device, dtype)
-        weight_block = _to_device(weight_block, device, dtype)
-    out = gpoint_block_partials(ng, g_point_block, od_block, weight_block,
-                                averaging_method)
-    # One device->host copy for the whole (tiny) partials dict
-    stacked = torch.stack(list(out.values())).cpu().numpy()
+        with logs.span("ecckd.create_lut.copy"):
+            od_block = _to_device(od_block, device, dtype)
+            weight_block = _to_device(weight_block, device, dtype)
+    with logs.span("ecckd.create_lut.partials"):
+        out = gpoint_block_partials(ng, g_point_block, od_block,
+                                    weight_block, averaging_method)
+        # One device->host copy for the whole (tiny) partials dict
+        stacked = torch.stack(list(out.values())).cpu().numpy()
     return dict(zip(out, stacked))
+
+
+def _waited(blocks):
+    """``blocks``, each ``next`` of it under the span
+    ``ecckd.create_lut.wait_block``: the time the consumer waits for the
+    prefetch thread's next block."""
+    blocks = iter(blocks)
+    while True:
+        with logs.span("ecckd.create_lut.wait_block"):
+            item = next(blocks, None)
+        if item is None:
+            return
+        yield item
 
 
 def _combine(acc, part):
@@ -98,8 +114,8 @@ def streaming_average_od_to_gpoints(reader, ng, g_point, weight_fn,
     acc = None
     # One block read ahead on a background thread: overlaps the reads (and
     # a ProfileBlocks' host widening) with the device's reduction
-    for iwav0, od_block in prefetch_iter(
-            reader.iter_blocks(block_wav=block_wav), depth=2):
+    blocks = logs.spawned_iter(reader.iter_blocks(block_wav=block_wav))
+    for iwav0, od_block in _waited(prefetch_iter(blocks, depth=2)):
         nb = od_block.shape[1]
         part = _block_accumulate(ng, gp[iwav0:iwav0 + nb], od_block,
                                  weight_fn(iwav0, nb), averaging_method,

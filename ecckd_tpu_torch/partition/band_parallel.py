@@ -24,6 +24,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import logs
+
 
 class ProbeScheduler:
     """Dynamic barrier merging concurrent per-band probes into single
@@ -122,8 +124,10 @@ class BandKernelView:
         self.jband = jband
 
     def costs(self, i1, i2) -> np.ndarray:
-        g1 = np.asarray(i1, np.int64) + self.offset
-        g2 = np.asarray(i2, np.int64) + self.offset
-        if self.scheduler is not None:
-            return self.scheduler.costs(self.jband, g1, g2)
-        return self.kernel.costs(g1.astype(np.int32), g2.astype(np.int32))
+        with logs.span("ecckd.partition.band_probe"):
+            g1 = np.asarray(i1, np.int64) + self.offset
+            g2 = np.asarray(i2, np.int64) + self.offset
+            if self.scheduler is not None:
+                return self.scheduler.costs(self.jband, g1, g2)
+            return self.kernel.costs(g1.astype(np.int32),
+                                     g2.astype(np.int32))

@@ -278,15 +278,16 @@ class _CandidateCostBase:
         Bucket padding goes at the FRONT with [0, 0] intervals so the padded
         bounds stay sorted for the searchsorted partition map; padded
         columns are benign (single-point interval 0) and sliced off."""
-        n = len(i1)
-        nb = _pad_to_bucket(n)
-        pad = nb - n
-        i1p = np.zeros(nb, np.int32)
-        i1p[pad:] = i1
-        i2p = np.zeros(nb, np.int32)
-        i2p[pad:] = i2
-        out = self._kernel(_Probe(self, i1p, i2p))
-        out = out.cpu().numpy()[pad:].astype(np.float64)
+        with logs.span("ecckd.partition.probe"):
+            n = len(i1)
+            nb = _pad_to_bucket(n)
+            pad = nb - n
+            i1p = np.zeros(nb, np.int32)
+            i1p[pad:] = i1
+            i2p = np.zeros(nb, np.int32)
+            i2p[pad:] = i2
+            out = self._kernel(_Probe(self, i1p, i2p))
+            out = out.cpu().numpy()[pad:].astype(np.float64)
         if self.probe_log is not None:
             self.probe_log.append((self, np.array(i1), np.array(i2), out))
         return out

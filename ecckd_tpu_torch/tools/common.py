@@ -11,7 +11,10 @@ traces with ``jax.profiler``.
 
 from __future__ import annotations
 
+import json
 import os
+import statistics
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -78,7 +81,11 @@ class maybe_profile:
     """Context manager: when the ``profile_dir`` config key is set, trace
     the CPU and (with a card) CUDA activity with ``torch.profiler`` and
     write a Chrome trace to ``profile_dir/trace.json`` (the counterpart of
-    the JAX tools' ``jax.profiler`` trace, SURVEY.md §5)."""
+    the JAX tools' ``jax.profiler`` trace, SURVEY.md §5), with the port's
+    spans (:func:`~ecckd_tpu_torch.logs.span`) of every thread added as
+    the process "ecckd spans", one ``tid`` per thread, on the trace's
+    clock: the band threads' and the prefetch thread's too, which the
+    profiler does not see."""
 
     def __init__(self, cfg: Optional[Config]):
         self.trace_dir = (cfg.read_string("profile_dir", default=None)
@@ -91,6 +98,7 @@ class maybe_profile:
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
+            logs.clear_spans()
             self.prof = profile(activities=activities)
             self.prof.__enter__()
         return self
@@ -101,7 +109,54 @@ class maybe_profile:
             os.makedirs(self.trace_dir, exist_ok=True)
             path = os.path.join(self.trace_dir, "trace.json")
             self.prof.export_chrome_trace(path)
+            _add_spans(path, logs.spans())
+            logs.clear_spans()
             logs.log(f"Profile written to {path}")
+
+
+def _add_spans(path: str, spans) -> None:
+    """Add ``spans`` (:func:`ecckd_tpu_torch.logs.spans`) to the Chrome
+    trace at ``path`` as complete events of the process "ecckd spans", one
+    ``tid`` per thread (its native id), each with its id, its parent's and
+    its core call's.  Their clock is put on the trace's by the median, over
+    the main thread's spans, of the profiler's start of a span less the
+    recorded start: the k-th span of a name against the profiler's k-th
+    event of that name."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    profiled = {}
+    for e in sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "cpu_op"
+                     and e["name"].startswith("ecckd.")),
+                    key=lambda e: e["ts"]):
+        profiled.setdefault(e["name"], []).append(e["ts"])
+    main = threading.main_thread().native_id
+    recorded = {}
+    for sp in sorted(spans, key=lambda sp: sp.start_ns):
+        if sp.thread == main:
+            recorded.setdefault(sp.name, []).append(sp.start_ns / 1e3)
+    offsets = [t - r for name, ts in profiled.items()
+               for t, r in zip(ts, recorded.get(name, ()))]
+    if not offsets:
+        return
+    offset = statistics.median(offsets)
+    pid = "ecckd spans"
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": pid}})
+    for thread in sorted({sp.thread for sp in spans}):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                       "tid": thread, "args": {
+                           "name": f"thread {thread}"
+                           + (" (main)" if thread == main else "")}})
+    events.extend({"ph": "X", "cat": "ecckd_span", "name": sp.name,
+                   "pid": pid, "tid": sp.thread,
+                   "ts": sp.start_ns / 1e3 + offset,
+                   "dur": (sp.end_ns - sp.start_ns) / 1e3,
+                   "args": {"id": sp.id, "parent": sp.parent,
+                            "call": sp.call}} for sp in spans)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def netcdf_format(cfg: Optional[Config]) -> str:

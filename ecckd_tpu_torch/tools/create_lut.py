@@ -17,7 +17,9 @@ partials combined over them; the two compose.
 
 :func:`create_lut_core` works on arrays; :func:`create_lut` is the file
 tool around it (``python -m ecckd_tpu_torch.tools.create_lut key=value ...
-[device=cuda|cpu]``).
+[device=cuda|cpu] [profile_dir=DIR]``; ``profile_dir``: a ``torch.profiler``
+trace of the core with the port's spans of every thread,
+:class:`~.common.maybe_profile`).
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ from ..ops.segments import gpoint_onehot
 from ..ops.streaming import streaming_average_od_to_gpoints
 from ..parallel.sharded_average import (
     sharded_average_od_to_gpoints, streaming_sharded_average_od_to_gpoints)
-from .common import (find_file, netcdf_format, read_string_list,
-                     resolve_device, setup, sharded_mesh, tool_prologue)
+from .common import (find_file, maybe_profile, netcdf_format,
+                     read_string_list, resolve_device, setup, sharded_mesh,
+                     tool_prologue)
 
 _CONC_DEPENDENCE = {
     "none": ConcDependence.NONE,
@@ -128,41 +131,42 @@ def _average_profile(ng, g_point, source, weight_fn, averaging_method,
     there is one (``ecckd_tpu/tools/create_lut.py:88-112``).
     ``weight_fn(i0, nb)`` gives the Planck or SSI weights of wavenumbers i0
     to i0 + nb on the device."""
-    nlay, nwav = len(pressure_hl) - 1, len(source.wavenumber)
-    mesh = execution.mesh
-    if execution.use_streaming(nlay, nwav):
-        if first:
-            logs.log(f"  Streaming {nwav} wavenumbers in blocks of "
-                     f"{execution.block_wav}")
-        blocks = (source if hasattr(source, "iter_blocks")
-                  else spectrum_blocks(source))
-        if mesh is not None:
-            fit, mn, mx = streaming_sharded_average_od_to_gpoints(
-                mesh, blocks, ng, g_point, weight_fn, averaging_method,
-                block_wav=execution.block_wav, pressure_fl=pressure_fl,
-                dtype=dtype)
+    with logs.span("ecckd.create_lut.profile"):
+        nlay, nwav = len(pressure_hl) - 1, len(source.wavenumber)
+        mesh = execution.mesh
+        if execution.use_streaming(nlay, nwav):
+            if first:
+                logs.log(f"  Streaming {nwav} wavenumbers in blocks of "
+                         f"{execution.block_wav}")
+            blocks = (source if hasattr(source, "iter_blocks")
+                      else spectrum_blocks(source))
+            if mesh is not None:
+                fit, mn, mx = streaming_sharded_average_od_to_gpoints(
+                    mesh, blocks, ng, g_point, weight_fn, averaging_method,
+                    block_wav=execution.block_wav, pressure_fl=pressure_fl,
+                    dtype=dtype)
+            else:
+                fit, mn, mx = streaming_average_od_to_gpoints(
+                    blocks, ng, g_point, weight_fn, averaging_method,
+                    block_wav=execution.block_wav, pressure_fl=pressure_fl,
+                    device=device, dtype=dtype)
         else:
-            fit, mn, mx = streaming_average_od_to_gpoints(
-                blocks, ng, g_point, weight_fn, averaging_method,
-                block_wav=execution.block_wav, pressure_fl=pressure_fl,
-                device=device, dtype=dtype)
-    else:
-        od = (source.optical_depth if hasattr(source, "optical_depth")
-              else source.materialize().optical_depth)
-        if mesh is not None:
-            if torch.is_tensor(pressure_fl):
-                pressure_fl = pressure_fl.cpu().numpy()
-            fit, mn, mx = sharded_average_od_to_gpoints(
-                mesh, ng, g_point, np.asarray(od), weight_fn(0, nwav),
-                averaging_method, pressure_fl=pressure_fl, dtype=dtype)
-        else:
-            fit, mn, mx = average_od_to_gpoints(
-                ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
-                                             device=device),
-                weight_fn(0, nwav), averaging_method,
-                pressure_fl=pressure_fl, block_wav=execution.block_wav)
-    return tuple(od_to_molar_abs(a, pressure_hl, reference_surface_vmr)
-                 for a in (fit, mn, mx))
+            od = (source.optical_depth if hasattr(source, "optical_depth")
+                  else source.materialize().optical_depth)
+            if mesh is not None:
+                if torch.is_tensor(pressure_fl):
+                    pressure_fl = pressure_fl.cpu().numpy()
+                fit, mn, mx = sharded_average_od_to_gpoints(
+                    mesh, ng, g_point, np.asarray(od), weight_fn(0, nwav),
+                    averaging_method, pressure_fl=pressure_fl, dtype=dtype)
+            else:
+                fit, mn, mx = average_od_to_gpoints(
+                    ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
+                                                 device=device),
+                    weight_fn(0, nwav), averaging_method,
+                    pressure_fl=pressure_fl, block_wav=execution.block_wav)
+        return tuple(od_to_molar_abs(a, pressure_hl, reference_surface_vmr)
+                     for a in (fit, mn, mx))
 
 
 def _planck_weight(temperature_fl, wavenumber, d_wavenumber):
@@ -328,102 +332,107 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
     memory, or each streamed block, is split over the mesh's spectral
     shards (the JAX tool's ``sharded``): the same min and max, the sums in
     another order."""
-    device = resolve_device(device)
-    g_point = np.asarray(g_point, np.int64)
-    band_wn1 = np.asarray(band_wn1, np.float64)
-    band_wn2 = np.asarray(band_wn2, np.float64)
-    base_wavenumber_boundary = np.asarray(base_wavenumber_boundary,
-                                          np.float64)
-    if len(base_wavenumber_boundary) and wavenumber_hr is None \
-            and solar is not None:
-        wavenumber_hr = solar.wavenumber
-    if solar_irradiance is not None:
-        if solar is None:
-            raise ValueError("a shortwave g-point file needs the solar "
-                             "spectrum (ssi)")
-        solar_irradiance = np.asarray(solar_irradiance, np.float64)
-    ssi = None if solar is None else np.asarray(solar.ssi, np.float64)
-    g_point, band_number, solar_irradiance, changed_g = _remap_g_points(
-        g_point, np.asarray(band_number, np.int64), band_wn1, band_wn2,
-        base_wavenumber_boundary, wavenumber_hr, solar_irradiance, ssi)
-    ng = len(band_number)
-    execution = _Execution(streaming, streaming_block_wav,
-                           streaming_memory_mb, mesh)
+    with logs.span("ecckd.create_lut.core"):
+        device = resolve_device(device)
+        g_point = np.asarray(g_point, np.int64)
+        band_wn1 = np.asarray(band_wn1, np.float64)
+        band_wn2 = np.asarray(band_wn2, np.float64)
+        base_wavenumber_boundary = np.asarray(base_wavenumber_boundary,
+                                              np.float64)
+        if len(base_wavenumber_boundary) and wavenumber_hr is None \
+                and solar is not None:
+            wavenumber_hr = solar.wavenumber
+        if solar_irradiance is not None:
+            if solar is None:
+                raise ValueError("a shortwave g-point file needs the solar "
+                                 "spectrum (ssi)")
+            solar_irradiance = np.asarray(solar_irradiance, np.float64)
+        ssi = None if solar is None else np.asarray(solar.ssi, np.float64)
+        g_point, band_number, solar_irradiance, changed_g = _remap_g_points(
+            g_point, np.asarray(band_number, np.int64), band_wn1, band_wn2,
+            base_wavenumber_boundary, wavenumber_hr, solar_irradiance, ssi)
+        ng = len(band_number)
+        execution = _Execution(streaming, streaming_block_wav,
+                               streaming_memory_mb, mesh)
 
-    single_gas_data = []
-    temperature_fl = pressure_fl = sp = None
-    for gas in gases:
-        logs.log(f"Creating look-up table for {gas.name.upper()}")
-        logs.log(f"  Averaging method = {averaging_method}")
-        k_c, kmin_c, kmax_c, temperature_fl, pressure_fl, sp = _gas_tables(
-            gas, ng, g_point, averaging_method, temperature_stride,
-            pressure_fl, device, dtype, execution, ssi)
-        g = GasData(gas.name, gas.conc_dependence)
-        if gas.conc_dependence == ConcDependence.LUT:
-            g.molar_abs = np.stack(k_c)
-            g.min_molar_abs = np.stack(kmin_c)
-            g.max_molar_abs = np.stack(kmax_c)
-            g.vmr = np.asarray(gas.vmr)
-        else:
-            g.molar_abs, g.min_molar_abs, g.max_molar_abs = (
-                k_c[0], kmin_c[0], kmax_c[0])
-            g.reference_vmr = gas.reference_vmr
-            g.composite_molecules = gas.composite_molecules
-            g.composite_vmr = gas.composite_vmr
-        single_gas_data.append(g)
+        single_gas_data = []
+        temperature_fl = pressure_fl = sp = None
+        for gas in gases:
+            logs.log(f"Creating look-up table for {gas.name.upper()}")
+            logs.log(f"  Averaging method = {averaging_method}")
+            k_c, kmin_c, kmax_c, temperature_fl, pressure_fl, sp = _gas_tables(
+                gas, ng, g_point, averaging_method, temperature_stride,
+                pressure_fl, device, dtype, execution, ssi)
+            g = GasData(gas.name, gas.conc_dependence)
+            if gas.conc_dependence == ConcDependence.LUT:
+                g.molar_abs = np.stack(k_c)
+                g.min_molar_abs = np.stack(kmin_c)
+                g.max_molar_abs = np.stack(kmax_c)
+                g.vmr = np.asarray(gas.vmr)
+            else:
+                g.molar_abs, g.min_molar_abs, g.max_molar_abs = (
+                    k_c[0], kmin_c[0], kmax_c[0])
+                g.reference_vmr = gas.reference_vmr
+                g.composite_molecules = gas.composite_molecules
+                g.composite_vmr = gas.composite_vmr
+            single_gas_data.append(g)
 
-    # ---- gpoint_fraction on the fixed interval grid (ref :507-548) ----
-    logs.log("Computing fraction of spectrum contributing to each g-point")
-    dwav = 10 if solar is None else 50
-    startwav = int(np.floor(band_wn1.min() / dwav) * dwav)
-    endwav = int(np.ceil(band_wn2.max() / dwav) * dwav)
-    wavenumber1 = dwav * np.arange(startwav // dwav, endwav // dwav,
-                                   dtype=np.float64)
-    wavenumber2 = wavenumber1 + dwav
-    wavenumber_cm_1 = np.asarray(sp.wavenumber, np.float64)
-    d_wavenumber_cm_1 = np.asarray(sp.d_wavenumber, np.float64)
-    gpoint_fraction = _gpoint_fraction(ng, g_point, wavenumber_cm_1,
-                                       d_wavenumber_cm_1, wavenumber1,
-                                       wavenumber2)
-    common = dict(history=history, config=config)
+        # ---- gpoint_fraction on the fixed interval grid (ref :507-548) ----
+        with logs.span("ecckd.create_lut.finish"):
+            logs.log("Computing fraction of spectrum contributing to each "
+                     "g-point")
+            dwav = 10 if solar is None else 50
+            startwav = int(np.floor(band_wn1.min() / dwav) * dwav)
+            endwav = int(np.ceil(band_wn2.max() / dwav) * dwav)
+            wavenumber1 = dwav * np.arange(startwav // dwav, endwav // dwav,
+                                           dtype=np.float64)
+            wavenumber2 = wavenumber1 + dwav
+            wavenumber_cm_1 = np.asarray(sp.wavenumber, np.float64)
+            d_wavenumber_cm_1 = np.asarray(sp.d_wavenumber, np.float64)
+            gpoint_fraction = _gpoint_fraction(ng, g_point, wavenumber_cm_1,
+                                               d_wavenumber_cm_1, wavenumber1,
+                                               wavenumber2)
+            common = dict(history=history, config=config)
 
-    if solar_irradiance is not None:
-        # Solar irradiance per fixed interval (ref :555-561)
-        nint = len(wavenumber1)
-        ibin = np.ceil((np.asarray(solar.wavenumber) - wavenumber1[0])
-                       / dwav).astype(np.int64) - 1
-        valid = (ibin >= 0) & (ibin < nint)
-        ssi_intervals = np.zeros(nint)
-        np.add.at(ssi_intervals, ibin[valid], ssi[valid])
-        model = CkdModel(single_gas_data, pressure_fl, temperature_fl,
-                         wavenumber1, wavenumber2, gpoint_fraction, band_wn1,
-                         band_wn2, band_number,
-                         solar_irradiance=solar_irradiance, ssi=ssi_intervals,
-                         reference_total_solar_irradiance=float(
-                             solar.total_solar_irradiance), **common)
-    else:
-        # Planck LUT: per-temperature sums over each g-point's spectrum, a
-        # one-hot matmul (deterministic, unlike an atomic scatter-add)
-        logs.log("Generating Planck-function look-up table")
-        temperature_lut = np.arange(120.0, 351.0)
-        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-        wav_t, dwav_t = as_t(wavenumber_cm_1), as_t(d_wavenumber_cm_1)
-        onehot = gpoint_onehot(torch.as_tensor(g_point, device=device), ng,
-                               dtype)
-        chunk = max(1, min(16, int(256.0e6 / (8 * len(wavenumber_cm_1)))))
-        planck_lut = np.concatenate([
-            (planck_function(as_t(temperature_lut[i0:i0 + chunk]), wav_t,
-                             dwav_t) @ onehot).cpu().numpy()
-            for i0 in range(0, len(temperature_lut), chunk)])
-        model = CkdModel(single_gas_data, pressure_fl, temperature_fl,
-                         wavenumber1, wavenumber2, gpoint_fraction, band_wn1,
-                         band_wn2, band_number,
-                         temperature_planck=temperature_lut,
-                         planck_function=planck_lut, **common)
-    if changed_g:
-        model.wavenumber_hr = wavenumber_cm_1
-        model.g_point = np.asarray(g_point, np.int32)
-    return model
+            if solar_irradiance is not None:
+                # Solar irradiance per fixed interval (ref :555-561)
+                nint = len(wavenumber1)
+                ibin = np.ceil((np.asarray(solar.wavenumber) - wavenumber1[0])
+                               / dwav).astype(np.int64) - 1
+                valid = (ibin >= 0) & (ibin < nint)
+                ssi_intervals = np.zeros(nint)
+                np.add.at(ssi_intervals, ibin[valid], ssi[valid])
+                model = CkdModel(
+                    single_gas_data, pressure_fl, temperature_fl, wavenumber1,
+                    wavenumber2, gpoint_fraction, band_wn1, band_wn2,
+                    band_number, solar_irradiance=solar_irradiance,
+                    ssi=ssi_intervals, reference_total_solar_irradiance=float(
+                        solar.total_solar_irradiance), **common)
+            else:
+                # Planck LUT: per-temperature sums over each g-point's
+                # spectrum, a one-hot matmul (deterministic, unlike an atomic
+                # scatter-add)
+                logs.log("Generating Planck-function look-up table")
+                temperature_lut = np.arange(120.0, 351.0)
+                as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+                wav_t, dwav_t = as_t(wavenumber_cm_1), as_t(d_wavenumber_cm_1)
+                onehot = gpoint_onehot(
+                    torch.as_tensor(g_point, device=device), ng, dtype)
+                chunk = max(1, min(16, int(256.0e6
+                                           / (8 * len(wavenumber_cm_1)))))
+                planck_lut = np.concatenate([
+                    (planck_function(as_t(temperature_lut[i0:i0 + chunk]),
+                                     wav_t, dwav_t) @ onehot).cpu().numpy()
+                    for i0 in range(0, len(temperature_lut), chunk)])
+                model = CkdModel(
+                    single_gas_data, pressure_fl, temperature_fl, wavenumber1,
+                    wavenumber2, gpoint_fraction, band_wn1, band_wn2,
+                    band_number, temperature_planck=temperature_lut,
+                    planck_function=planck_lut, **common)
+            if changed_g:
+                model.wavenumber_hr = wavenumber_cm_1
+                model.g_point = np.asarray(g_point, np.int32)
+        return model
 
 
 def _file_gas(cfg: Config, gas_str: str) -> LutGas:
@@ -511,18 +520,19 @@ def create_lut(cfg: Config, argv=()) -> str:
         wavenumber_hr = (np.asarray(gf.read("wavenumber"), np.float64)
                          if gf.exist("wavenumber") else None)
     gases = [_file_gas(cfg, g) for g in read_string_list(cfg, "gases")]
-    model = create_lut_core(
-        g_point, band_wn1, band_wn2, band_number, gases,
-        averaging_method=cfg.read_string("averaging_method",
-                                         default="transmission"),
-        temperature_stride=cfg.read_int("temperature_stride", default=1),
-        base_wavenumber_boundary=cfg.read_floats(
-            "base_wavenumber_boundary", default=None) or (),
-        wavenumber_hr=wavenumber_hr, device=device, dtype=dtype,
-        history=history, config=config, solar=solar,
-        solar_irradiance=solar_irradiance, streaming=execution.streaming,
-        streaming_block_wav=execution.block_wav,
-        streaming_memory_mb=execution.memory_mb, mesh=execution.mesh)
+    with maybe_profile(cfg):
+        model = create_lut_core(
+            g_point, band_wn1, band_wn2, band_number, gases,
+            averaging_method=cfg.read_string("averaging_method",
+                                             default="transmission"),
+            temperature_stride=cfg.read_int("temperature_stride", default=1),
+            base_wavenumber_boundary=cfg.read_floats(
+                "base_wavenumber_boundary", default=None) or (),
+            wavenumber_hr=wavenumber_hr, device=device, dtype=dtype,
+            history=history, config=config, solar=solar,
+            solar_irradiance=solar_irradiance, streaming=execution.streaming,
+            streaming_block_wav=execution.block_wav,
+            streaming_memory_mb=execution.memory_mb, mesh=execution.mesh)
     logs.log(f"Writing {output}")
     model.write(output, argv=list(argv) or ["create_lut"] + sys.argv[1:],
                 config_str=cfg.sprint(), format=netcdf_format(cfg))

@@ -21,7 +21,9 @@ its band's wavenumbers over the mesh's spectral shards.
 
 :func:`find_g_points_core` works on arrays; :func:`find_g_points` is the
 file tool around it (``python -m ecckd_tpu_torch.tools.find_g_points
-key=value ... [device=cuda|cpu]``).
+key=value ... [device=cuda|cpu] [profile_dir=DIR]``; ``profile_dir``: a
+``torch.profiler`` trace of the core with the port's spans of every
+thread, :class:`~.common.maybe_profile`).
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
 from ..partition.band_parallel import BandKernelView, ProbeScheduler
-from .common import (find_file, netcdf_format, read_string_list,
-                     resolve_device, setup, sharded_mesh, tool_prologue)
+from .common import (find_file, maybe_profile, netcdf_format,
+                     read_string_list, resolve_device, setup, sharded_mesh,
+                     tool_prologue)
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
@@ -370,51 +373,52 @@ def _search_band(kernel, tolerance, tolerance_tolerance, max_iterations,
     overarching sub-band re-initialised to at least ``min_g`` g-points
     overall.  Touches only its own search and kernel, so band threads may
     run it side by side.  Returns (istatus, bounds, error, ng, eq)."""
-    eq = CkdEquipartition(kernel)
-    eq.set_partition_max_iterations(max_iterations)
-    eq.set_partition_tolerance(tolerance_tolerance)
-    eq.set_verbose(False)
-    if subbands is not None:
-        ranges, final, g_split = subbands
-        bounds_l: List[float] = []
-        error_l: List[float] = []
-        ng = 0
-        for jsub, (g_start, g_end) in enumerate(ranges):
-            logs.log(f"  Subband {jsub}: g range {g_start}-{g_end}")
-            istatus, sb, se = eq.equipartition_e(tolerance, g_start, g_end)
-            if ng == 0:
-                bounds_l = list(sb)
-            else:
+    with logs.span("ecckd.find_g_points.search"):
+        eq = CkdEquipartition(kernel)
+        eq.set_partition_max_iterations(max_iterations)
+        eq.set_partition_tolerance(tolerance_tolerance)
+        eq.set_verbose(False)
+        if subbands is not None:
+            ranges, final, g_split = subbands
+            bounds_l: List[float] = []
+            error_l: List[float] = []
+            ng = 0
+            for jsub, (g_start, g_end) in enumerate(ranges):
+                logs.log(f"  Subband {jsub}: g range {g_start}-{g_end}")
+                istatus, sb, se = eq.equipartition_e(tolerance, g_start, g_end)
+                if ng == 0:
+                    bounds_l = list(sb)
+                else:
+                    bounds_l[ng:ng] = list(sb)
+                error_l.extend(se)
+                ng += len(se)
+            if final is not None:
+                logs.log(f"  Final overarching subband: g range {final}-1.0")
+                istatus, sb, se = eq.equipartition_e(tolerance, final, 1.0)
+                nsubg = len(se)
+                if ng + nsubg < min_g:
+                    nsubg = int(min_g) - ng
+                    sb = g_split + (1.0 - g_split) * _sqrt_bounds(nsubg)
+                    se = np.zeros(nsubg)
+                    eq.invalidate()
+                    istatus = eq.equipartition_n(sb, se)
                 bounds_l[ng:ng] = list(sb)
-            error_l.extend(se)
-            ng += len(se)
-        if final is not None:
-            logs.log(f"  Final overarching subband: g range {final}-1.0")
-            istatus, sb, se = eq.equipartition_e(tolerance, final, 1.0)
-            nsubg = len(se)
-            if ng + nsubg < min_g:
-                nsubg = int(min_g) - ng
-                sb = g_split + (1.0 - g_split) * _sqrt_bounds(nsubg)
-                se = np.zeros(nsubg)
-                eq.invalidate()
-                istatus = eq.equipartition_n(sb, se)
-            bounds_l[ng:ng] = list(sb)
-            error_l.extend(se)
-            ng += nsubg
-        return (istatus, np.asarray(bounds_l[:ng + 1]), np.asarray(error_l),
-                ng, eq)
-    istatus, bounds, error = eq.equipartition_e(tolerance, 0.0, 1.0)
-    ng = len(error)
-    if ng < min_g or ng > max_g:
-        logs.log(f"  {ng} intervals is "
-                 + (f"fewer than minimum of {min_g}" if ng < min_g
-                    else f"more than maximum of {max_g}"))
-        ng = int(min_g if ng < min_g else max_g)
-        bounds = _sqrt_bounds(ng)
-        error = np.zeros(ng)
-        eq.invalidate()
-        istatus = eq.equipartition_n(bounds, error)
-    return istatus, bounds, error, ng, eq
+                error_l.extend(se)
+                ng += nsubg
+            return (istatus, np.asarray(bounds_l[:ng + 1]),
+                    np.asarray(error_l), ng, eq)
+        istatus, bounds, error = eq.equipartition_e(tolerance, 0.0, 1.0)
+        ng = len(error)
+        if ng < min_g or ng > max_g:
+            logs.log(f"  {ng} intervals is "
+                     + (f"fewer than minimum of {min_g}" if ng < min_g
+                        else f"more than maximum of {max_g}"))
+            ng = int(min_g if ng < min_g else max_g)
+            bounds = _sqrt_bounds(ng)
+            error = np.zeros(ng)
+            eq.invalidate()
+            istatus = eq.equipartition_n(bounds, error)
+        return istatus, bounds, error, ng, eq
 
 
 _BAND_MODES = {"parallel": "parallel", "1": "parallel", "yes": "parallel",
@@ -473,7 +477,8 @@ def _search_bands(kernel, band_ranges, search, mode):
     # dispatch alone
     for _ in range(nband):
         sched.register()
-    threads = [threading.Thread(target=run, args=(j,), name=f"ecckd-band{j}")
+    threads = [threading.Thread(target=logs.spawned(run), args=(j,),
+                                name=f"ecckd-band{j}")
                for j in range(nband)]
     for t in threads:
         t.start()
@@ -495,144 +500,148 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 ) -> SingleGasData:
     """Per-band equipartition of one gas (ref find_g_points.cpp:660-1455);
     shortwave where ``sw`` is given."""
-    _check_splits(gas.g_split, gas.subband_wavenumber_boundary,
-                  gas.base_split)
-    irank = np.asarray(gas.rank).astype(np.int64).copy()
-    iband = np.asarray(gas.band_number)
-    band_bound1 = np.asarray(gas.wavenumber1_band, np.float64)
-    band_bound2 = np.asarray(gas.wavenumber2_band, np.float64)
-    nband = len(band_bound1)
-    base_wavenumber_boundary = np.asarray(gas.base_wavenumber_boundary,
-                                          np.float64)
-    base_split = _per_band(gas.base_split, nband, 1.0, np.float64)
-    min_g_points = _per_band(gas.min_g_points, nband, 1, np.int64)
-    max_g_points = _per_band(gas.max_g_points, nband, 256, np.int64)
-    if len(hr_tol) == 1:
-        heating_rate_tolerance = np.full(nband, hr_tol[0])
-    elif len(hr_tol) == nband:
-        heating_rate_tolerance = np.asarray(hr_tol, np.float64)
-    else:
-        raise ValueError("heating_rate_tolerance must have either 1 "
-                         "element, or one per band")
-    if sw is not None:
-        min_scaling = min(0.5, gas.min_scaling)
-        max_scaling = max(2.5, gas.max_scaling)
-        # Bands wholly below the no-Rayleigh limit reflect the direct beam
-        # in the cost; the limit becomes their largest upper bound
-        band_albedo = np.zeros(nband)
-        no_rayleigh = band_bound2 <= sw.max_no_rayleigh_wavenumber
-        band_albedo[no_rayleigh] = REFERENCE_ALBEDO
-        if np.any(no_rayleigh):
-            sw.max_no_rayleigh_wavenumber = band_bound2[no_rayleigh].max()
+    with logs.span("ecckd.find_g_points.prepare"):
+        _check_splits(gas.g_split, gas.subband_wavenumber_boundary,
+                      gas.base_split)
+        irank = np.asarray(gas.rank).astype(np.int64).copy()
+        iband = np.asarray(gas.band_number)
+        band_bound1 = np.asarray(gas.wavenumber1_band, np.float64)
+        band_bound2 = np.asarray(gas.wavenumber2_band, np.float64)
+        nband = len(band_bound1)
+        base_wavenumber_boundary = np.asarray(gas.base_wavenumber_boundary,
+                                              np.float64)
+        base_split = _per_band(gas.base_split, nband, 1.0, np.float64)
+        min_g_points = _per_band(gas.min_g_points, nband, 1, np.int64)
+        max_g_points = _per_band(gas.max_g_points, nband, 256, np.int64)
+        if len(hr_tol) == 1:
+            heating_rate_tolerance = np.full(nband, hr_tol[0])
+        elif len(hr_tol) == nband:
+            heating_rate_tolerance = np.asarray(hr_tol, np.float64)
+        else:
+            raise ValueError("heating_rate_tolerance must have either 1 "
+                             "element, or one per band")
+        if sw is not None:
+            min_scaling = min(0.5, gas.min_scaling)
+            max_scaling = max(2.5, gas.max_scaling)
+            # Bands wholly below the no-Rayleigh limit reflect the direct beam
+            # in the cost; the limit becomes their largest upper bound
+            band_albedo = np.zeros(nband)
+            no_rayleigh = band_bound2 <= sw.max_no_rayleigh_wavenumber
+            band_albedo[no_rayleigh] = REFERENCE_ALBEDO
+            if np.any(no_rayleigh):
+                sw.max_no_rayleigh_wavenumber = band_bound2[no_rayleigh].max()
 
-    # ireorder: index that reorders arrays into rank order.  g_split
-    # re-ranks before the spectra are gathered into rank order.
-    ireorder = np.empty(len(irank), np.int64)
-    ireorder[irank] = np.arange(len(irank))
-    subbands = [None] * nband
-    if gas.g_split is not None:
-        g_split = _per_band(gas.g_split, nband, -1.0, np.float64)
-        logs.log(f"Bands will be split at g values according to: {g_split}")
-        irank, ireorder, subbands = _g_split_subbands(
-            irank, ireorder, iband, np.asarray(gas.wavenumber, np.float64),
-            band_bound1, band_bound2, g_split,
-            np.asarray(gas.subband_wavenumber_boundary, np.float64))
-    sorting_variable = np.asarray(gas.sorting_variable)[ireorder]
+        # ireorder: index that reorders arrays into rank order.  g_split
+        # re-ranks before the spectra are gathered into rank order.
+        ireorder = np.empty(len(irank), np.int64)
+        ireorder[irank] = np.arange(len(irank))
+        subbands = [None] * nband
+        if gas.g_split is not None:
+            g_split = _per_band(gas.g_split, nband, -1.0, np.float64)
+            logs.log("Bands will be split at g values according to: "
+                     f"{g_split}")
+            irank, ireorder, subbands = _g_split_subbands(
+                irank, ireorder, iband, np.asarray(gas.wavenumber, np.float64),
+                band_bound1, band_bound2, g_split,
+                np.asarray(gas.subband_wavenumber_boundary, np.float64))
+        sorting_variable = np.asarray(gas.sorting_variable)[ireorder]
 
-    to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                       device=device)
-    index = torch.from_numpy(ireorder).to(device)
-    od = to_dev(gas.optical_depth).index_select(1, index)
-    col_od = od.sum(dim=1)
-    logs.log(f"    Column optical depth: {col_od.mean().item():g} +/- "
-             f"{col_od.std(unbiased=False).item():g}")
-    bg_od = None
-    if gas.bg_optical_depth is not None:
-        bg_od = to_dev(gas.bg_optical_depth).index_select(1, index)
-    wavenumber_cm_1 = np.asarray(gas.wavenumber)[ireorder]
-    d_wavenumber_cm_1 = np.asarray(gas.d_wavenumber)[ireorder]
-    pressure_hl = np.asarray(gas.pressure_hl, np.float64)
-    nlay, nwav = od.shape
-    logs.log(f"{nlay} layers\n{nwav} spectral points")
+        to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                           device=device)
+        index = torch.from_numpy(ireorder).to(device)
+        od = to_dev(gas.optical_depth).index_select(1, index)
+        col_od = od.sum(dim=1)
+        logs.log(f"    Column optical depth: {col_od.mean().item():g} +/- "
+                 f"{col_od.std(unbiased=False).item():g}")
+        bg_od = None
+        if gas.bg_optical_depth is not None:
+            bg_od = to_dev(gas.bg_optical_depth).index_select(1, index)
+        wavenumber_cm_1 = np.asarray(gas.wavenumber)[ireorder]
+        d_wavenumber_cm_1 = np.asarray(gas.d_wavenumber)[ireorder]
+        pressure_hl = np.asarray(gas.pressure_hl, np.float64)
+        nlay, nwav = od.shape
+        logs.log(f"{nlay} layers\n{nwav} spectral points")
+        band_ranges = []
+        for jband in range(nband):
+            band_index = np.nonzero(iband == jband)[0]
+            band_ranges.append((int(band_index[0]), int(band_index[-1])))
 
-    extras = None
-    if sw is None:
-        logs.log("Computing Planck function and longwave radiative "
-                 "transfer")
-        planck_hl, hr, flux_dn_surf, flux_up_toa = _lw_truth(
-            to_dev(gas.temperature_hl), to_dev(pressure_hl),
-            to_dev(wavenumber_cm_1), to_dev(d_wavenumber_cm_1), od, bg_od,
-            block_wav)
-        surf_planck = planck_hl[-1]
-        weight_for_median = surf_planck.cpu().numpy().astype(np.float64)
-    else:
-        logs.log("Performing shortwave radiative transfer")
-        ssi_reorder = sw.ssi[ireorder]
-        # The truth reflects off the surface below the (reassigned)
-        # no-Rayleigh limit, compared with "<" (find_g_points.cpp:497-501)
-        albedo = np.zeros(nwav)
-        albedo[np.asarray(gas.wavenumber) < sw.max_no_rayleigh_wavenumber] \
-            = REFERENCE_ALBEDO
-        scalings = None
-        if averaging_method == "total-transmission":
-            scalings = (min_scaling, max_scaling,
-                        sw.max_no_rayleigh_wavenumber > 0.0)
-        hr, flux_dn_surf, extras = _sw_truth(
-            sw.cos_sza, to_dev(pressure_hl), to_dev(ssi_reorder), od, bg_od,
-            to_dev(albedo[ireorder]), scalings, block_wav)
-        flux_up_toa = torch.zeros_like(flux_dn_surf)
-        weight_for_median = ssi_reorder
+    with logs.span("ecckd.find_g_points.truth"):
+        extras = None
+        if sw is None:
+            logs.log("Computing Planck function and longwave radiative "
+                     "transfer")
+            planck_hl, hr, flux_dn_surf, flux_up_toa = _lw_truth(
+                to_dev(gas.temperature_hl), to_dev(pressure_hl),
+                to_dev(wavenumber_cm_1), to_dev(d_wavenumber_cm_1), od, bg_od,
+                block_wav)
+            surf_planck = planck_hl[-1]
+            weight_for_median = surf_planck.cpu().numpy().astype(np.float64)
+        else:
+            logs.log("Performing shortwave radiative transfer")
+            ssi_reorder = sw.ssi[ireorder]
+            # The truth reflects off the surface below the (reassigned)
+            # no-Rayleigh limit, compared with "<" (find_g_points.cpp:497-501)
+            albedo = np.zeros(nwav)
+            albedo[np.asarray(gas.wavenumber)
+                   < sw.max_no_rayleigh_wavenumber] = REFERENCE_ALBEDO
+            scalings = None
+            if averaging_method == "total-transmission":
+                scalings = (min_scaling, max_scaling,
+                            sw.max_no_rayleigh_wavenumber > 0.0)
+            hr, flux_dn_surf, extras = _sw_truth(
+                sw.cos_sza, to_dev(pressure_hl), to_dev(ssi_reorder), od,
+                bg_od, to_dev(albedo[ireorder]), scalings, block_wav)
+            flux_up_toa = torch.zeros_like(flux_dn_surf)
+            weight_for_median = ssi_reorder
 
-    layer_weight = np.sqrt(pressure_hl[1:]) - np.sqrt(pressure_hl[:-1])
-    pressure_fl = 0.5 * (pressure_hl[1:] + pressure_hl[:-1])
-    layer_weight[pressure_fl < min_pressure] = 0.0
-    layer_weight /= layer_weight.sum()
+        layer_weight = np.sqrt(pressure_hl[1:]) - np.sqrt(pressure_hl[:-1])
+        pressure_fl = 0.5 * (pressure_hl[1:] + pressure_hl[:-1])
+        layer_weight[pressure_fl < min_pressure] = 0.0
+        layer_weight /= layer_weight.sum()
 
-    # ---- Metric (ref :1119-1150), transformed in place ----
-    if averaging_method in ("transmission", "transmission-2"):
-        scale = LW_DIFFUSIVITY * (2.0 if averaging_method == "transmission-2"
-                                  else 1.0)
-        metric = od.mul_(-scale).expm1_().neg_()
-    elif averaging_method == "square-root":
-        metric = od.sqrt_()
-    elif averaging_method in ("linear", "logarithmic", "total-transmission"):
-        metric = od
-    else:
-        raise ValueError(f"Averaging method {averaging_method!r} not "
-                         "understood")
-    if bg_od is None:
-        bg_od = torch.zeros_like(metric)
-
-    band_ranges = []
-    for jband in range(nband):
-        band_index = np.nonzero(iband == jband)[0]
-        band_ranges.append((int(band_index[0]), int(band_index[-1])))
+        # ---- Metric (ref :1119-1150), transformed in place ----
+        if averaging_method in ("transmission", "transmission-2"):
+            scale = LW_DIFFUSIVITY * (
+                2.0 if averaging_method == "transmission-2" else 1.0)
+            metric = od.mul_(-scale).expm1_().neg_()
+        elif averaging_method == "square-root":
+            metric = od.sqrt_()
+        elif averaging_method in ("linear", "logarithmic",
+                                  "total-transmission"):
+            metric = od
+        else:
+            raise ValueError(f"Averaging method {averaging_method!r} not "
+                             "understood")
+        if bg_od is None:
+            bg_od = torch.zeros_like(metric)
 
     def make_kernel(sl, albedo):
         """The candidate-cost kernel over ranks ``sl``: one band, or the
         whole gas for band_parallel (bands are disjoint rank ranges, so a
         band's probes are global intervals of it)."""
-        band = lambda a: a[..., sl].contiguous()
-        state = dict(layer_weight=to_dev(layer_weight),
-                     pressure_hl=to_dev(pressure_hl),
-                     flux_dn_surf=band(flux_dn_surf),
-                     flux_up_toa=band(flux_up_toa), bg_od=band(bg_od),
-                     metric=band(metric), hr=band(hr))
-        if sw is None:
-            return CandidateCostLw(
-                averaging_method, flux_weight,
-                surf_emissivity=torch.ones_like(band(surf_planck)),
-                surf_planck=band(surf_planck), planck_hl=band(planck_hl),
-                mesh=mesh, **state, **cost_options)
-        band_extras = None
-        if extras is not None:
-            band_extras = {k: band(v) for k, v in extras.items()}
-            band_extras.update(min_scaling=min_scaling,
-                               max_scaling=max_scaling)
-        return CandidateCostSw(
-            averaging_method, flux_weight, cos_sza=sw.cos_sza,
-            ssi=to_dev(ssi_reorder[sl]), surf_albedo=albedo,
-            extras=band_extras, mesh=mesh, **state, **cost_options)
+        with logs.span("ecckd.find_g_points.prepare"):
+            band = lambda a: a[..., sl].contiguous()
+            state = dict(layer_weight=to_dev(layer_weight),
+                         pressure_hl=to_dev(pressure_hl),
+                         flux_dn_surf=band(flux_dn_surf),
+                         flux_up_toa=band(flux_up_toa), bg_od=band(bg_od),
+                         metric=band(metric), hr=band(hr))
+            if sw is None:
+                return CandidateCostLw(
+                    averaging_method, flux_weight,
+                    surf_emissivity=torch.ones_like(band(surf_planck)),
+                    surf_planck=band(surf_planck), planck_hl=band(planck_hl),
+                    mesh=mesh, **state, **cost_options)
+            band_extras = None
+            if extras is not None:
+                band_extras = {k: band(v) for k, v in extras.items()}
+                band_extras.update(min_scaling=min_scaling,
+                                   max_scaling=max_scaling)
+            return CandidateCostSw(
+                averaging_method, flux_weight, cos_sza=sw.cos_sza,
+                ssi=to_dev(ssi_reorder[sl]), surf_albedo=albedo,
+                extras=band_extras, mesh=mesh, **state, **cost_options)
 
     def search(jband, kernel):
         return _search_band(
@@ -669,100 +678,102 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                                  None if sw is None
                                  else float(band_albedo[jband]))
             istatus, bounds, error, ng, eq = search(jband, kernel)
-        logs.log(f"  Equipartition status: {istatus.describe()}")
-        logs.log(f"      computational cost = {eq.total_comp_cost:.2f}")
+        with logs.span("ecckd.find_g_points.split"):
+            logs.log(f"  Equipartition status: {istatus.describe()}")
+            logs.log(f"      computational cost = {eq.total_comp_cost:.2f}")
 
-        # ---- base_split dissection (ref :1268-1383) ----
-        bwb_in_band = (len(base_wavenumber_boundary) > 0 and np.any(
-            (base_wavenumber_boundary > band_bound1[jband])
-            & (base_wavenumber_boundary < band_bound2[jband])))
-        if base_split[jband] != 1.0 or bwb_in_band:
-            bounds = list(bounds)
-            error = list(error)
-            if base_split[jband] > 1.0:
-                nabssplit = int(base_split[jband])
-                if nabssplit == 1:
-                    raise ValueError("Positive values of base_split must be "
-                                     "at least 2")
-            else:
-                nabssplit = 2 + int(base_split[jband] * ng)
-            in_band = ((base_wavenumber_boundary > band_bound1[jband])
-                       & (base_wavenumber_boundary < band_bound2[jband]))
-            nwavsplit = 1 + int(np.sum(in_band))
-            wn_bound = np.empty(nwavsplit + 1)
-            wn_bound[0] = band_bound1[jband]
-            wn_bound[-1] = band_bound2[jband] + 1.0
-            if nwavsplit > 1:
-                wn_bound[1:-1] = base_wavenumber_boundary[in_band]
-            nsplit = nwavsplit * nabssplit
-            logs.log(f"  Splitting base interval into {nsplit} pieces: "
-                     f"{nwavsplit} by wavenumber * {nabssplit} by absorption")
-            iwav1 = np.zeros(nwavsplit, np.int64)
-            iwav2 = np.zeros(nwavsplit, np.int64)
-            iwav1[0] = ibegin
-            iwav2[-1] = iend
-            if nwavsplit > 1:
-                ind2 = eq.upper_index(bounds[1]) + ibegin
-                iwav1[0] = 0
-                irank_new = irank.copy()
+            # ---- base_split dissection (ref :1268-1383) ----
+            bwb_in_band = (len(base_wavenumber_boundary) > 0 and np.any(
+                (base_wavenumber_boundary > band_bound1[jband])
+                & (base_wavenumber_boundary < band_bound2[jband])))
+            if base_split[jband] != 1.0 or bwb_in_band:
+                bounds = list(bounds)
+                error = list(error)
+                if base_split[jband] > 1.0:
+                    nabssplit = int(base_split[jband])
+                    if nabssplit == 1:
+                        raise ValueError("Positive values of base_split "
+                                         "must be at least 2")
+                else:
+                    nabssplit = 2 + int(base_split[jband] * ng)
+                in_band = ((base_wavenumber_boundary > band_bound1[jband])
+                           & (base_wavenumber_boundary < band_bound2[jband]))
+                nwavsplit = 1 + int(np.sum(in_band))
+                wn_bound = np.empty(nwavsplit + 1)
+                wn_bound[0] = band_bound1[jband]
+                wn_bound[-1] = band_bound2[jband] + 1.0
+                if nwavsplit > 1:
+                    wn_bound[1:-1] = base_wavenumber_boundary[in_band]
+                nsplit = nwavsplit * nabssplit
+                logs.log(f"  Splitting base interval into {nsplit} pieces: "
+                         f"{nwavsplit} by wavenumber * {nabssplit} by "
+                         "absorption")
+                iwav1 = np.zeros(nwavsplit, np.int64)
+                iwav2 = np.zeros(nwavsplit, np.int64)
+                iwav1[0] = ibegin
+                iwav2[-1] = iend
+                if nwavsplit > 1:
+                    ind2 = eq.upper_index(bounds[1]) + ibegin
+                    iwav1[0] = 0
+                    irank_new = irank.copy()
+                    for iws in range(nwavsplit):
+                        if iws > 0:
+                            iwav1[iws] = iwav2[iws - 1] + 1
+                        sel = ((wavenumber_cm_1 >= wn_bound[iws])
+                               & (wavenumber_cm_1 < wn_bound[iws + 1])
+                               & (irank[ireorder] <= ind2))
+                        idx = np.nonzero(sel)[0]
+                        iwav2[iws] = iwav1[iws] + len(idx) - 1
+                        irank_new[ireorder[idx]] = np.arange(iwav1[iws],
+                                                             iwav2[iws] + 1)
+                        logs.log(f"    Creating {wn_bound[iws]}-"
+                                 f"{wn_bound[iws + 1]} cm-1 sub-band: "
+                                 f"{len(idx)} spectral points")
+                    if iwav2[-1] != ind2:
+                        raise ValueError("Failed to account for all "
+                                         "wavenumbers in split")
+                    irank = irank_new
+                    ireorder[irank] = np.arange(len(irank))
+                    sorting_variable = sorting_variable[ireorder]
+                    wavenumber_cm_1 = wavenumber_cm_1[ireorder]
+                    if sw is not None:
+                        ssi_reorder = weight_for_median = sw.ssi[ireorder]
+
+                upper_bound = bounds[1]
+                lower_bound_local = bounds[0]
+                error[0] = -1.0
+                ibnd = 0
                 for iws in range(nwavsplit):
-                    if iws > 0:
-                        iwav1[iws] = iwav2[iws - 1] + 1
-                    sel = ((wavenumber_cm_1 >= wn_bound[iws])
-                           & (wavenumber_cm_1 < wn_bound[iws + 1])
-                           & (irank[ireorder] <= ind2))
-                    idx = np.nonzero(sel)[0]
-                    iwav2[iws] = iwav1[iws] + len(idx) - 1
-                    irank_new[ireorder[idx]] = np.arange(iwav1[iws],
-                                                         iwav2[iws] + 1)
-                    logs.log(f"    Creating {wn_bound[iws]}-"
-                             f"{wn_bound[iws + 1]} cm-1 sub-band: "
-                             f"{len(idx)} spectral points")
-                if iwav2[-1] != ind2:
-                    raise ValueError("Failed to account for all wavenumbers "
-                                     "in split")
-                irank = irank_new
-                ireorder[irank] = np.arange(len(irank))
-                sorting_variable = sorting_variable[ireorder]
-                wavenumber_cm_1 = wavenumber_cm_1[ireorder]
-                if sw is not None:
-                    ssi_reorder = weight_for_median = sw.ssi[ireorder]
+                    upper_bound_local = (upper_bound * iwav2[iws]
+                                         / float(iwav2[-1]))
+                    for iabs in range(nabssplit):
+                        if iabs < nabssplit - 1 or iws < nwavsplit - 1:
+                            bounds.insert(ibnd + 1, lower_bound_local
+                                          + (upper_bound_local
+                                             - lower_bound_local)
+                                          * (iabs + 1) / float(nabssplit))
+                            error.insert(ibnd, -1.0)
+                            ibnd += 1
+                    lower_bound_local = upper_bound_local
+                ng += nsplit - 1
 
-            upper_bound = bounds[1]
-            lower_bound_local = bounds[0]
-            error[0] = -1.0
-            ibnd = 0
-            for iws in range(nwavsplit):
-                upper_bound_local = (upper_bound * iwav2[iws]
-                                     / float(iwav2[-1]))
-                for iabs in range(nabssplit):
-                    if iabs < nabssplit - 1 or iws < nwavsplit - 1:
-                        bounds.insert(ibnd + 1, lower_bound_local
-                                      + (upper_bound_local
-                                         - lower_bound_local)
-                                      * (iabs + 1) / float(nabssplit))
-                        error.insert(ibnd, -1.0)
-                        ibnd += 1
-                lower_bound_local = upper_bound_local
-            ng += nsplit - 1
-
-        bounds = np.asarray(bounds, np.float64)
-        error = np.asarray(error, np.float64)
-        if np.any(np.diff(bounds) <= 0.0):
-            raise ValueError("Bounds are not monotonically increasing")
-        n_g_points_per_band.append(ng)
-        for ig in range(ng):
-            ind1 = eq.lower_index(bounds[ig]) + ibegin
-            ind2 = eq.upper_index(bounds[ig + 1]) + ibegin
-            rank1_l.append(ind1)
-            rank2_l.append(ind2)
-            error_l.append(float(error[ig]))
-            band_l.append(jband)
-            median_l.append(calc_median_sorting_variable(
-                sorting_variable, weight_for_median, ind1, ind2))
-        if debug_partition:
-            _debug_partition(gas.name, jband, eq, bounds, kernel)
-        kernel = eq = None   # free the band before the next one
+            bounds = np.asarray(bounds, np.float64)
+            error = np.asarray(error, np.float64)
+            if np.any(np.diff(bounds) <= 0.0):
+                raise ValueError("Bounds are not monotonically increasing")
+            n_g_points_per_band.append(ng)
+            for ig in range(ng):
+                ind1 = eq.lower_index(bounds[ig]) + ibegin
+                ind2 = eq.upper_index(bounds[ig + 1]) + ibegin
+                rank1_l.append(ind1)
+                rank2_l.append(ind2)
+                error_l.append(float(error[ig]))
+                band_l.append(jband)
+                median_l.append(calc_median_sorting_variable(
+                    sorting_variable, weight_for_median, ind1, ind2))
+            if debug_partition:
+                _debug_partition(gas.name, jband, eq, bounds, kernel)
+            kernel = eq = None   # free the band before the next one
 
     gas_data = SingleGasData(
         molecule=gas.name,
@@ -772,8 +783,9 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         rank2=np.asarray(rank2_l, np.int64),
         error=np.asarray(error_l),
         sorting_variable=np.asarray(median_l))
-    gas_data.store_g_points(irank)
-    gas_data.print()
+    with logs.span("ecckd.find_g_points.store"):
+        gas_data.store_g_points(irank)
+        gas_data.print()
     return gas_data
 
 
@@ -807,49 +819,51 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
     ``mesh`` (:func:`ecckd_tpu_torch.parallel.make_mesh`) every kernel
     splits its band's wavenumbers over the mesh's spectral shards, the
     prefix path off (the JAX tool's ``sharded``)."""
-    device = resolve_device(device)
-    hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
-    sw = None
-    if ssi is not None:
-        sw = _Shortwave(np.asarray(ssi, np.float64),
-                        float(max_no_rayleigh_wavenumber))
-    single_gas_data = []
-    band_bounds = None
-    if cloud is not None:
-        if sw is None:
-            raise ValueError("Don't yet know how to sort cloud properties "
-                             "in the longwave")
-        logs.log(f"*** FINDING G POINTS FOR {cloud.name}")
-        single_gas_data.append(_cloud_pseudo_gas(cloud, sw.ssi))
-        band_bounds = (cloud.wavenumber1_band, cloud.wavenumber2_band)
-    for gas in gases:
-        logs.log(f"*** FINDING G POINTS FOR {gas.name.upper()}")
-        single_gas_data.append(_search_gas(
-            gas, hr_tol, tolerance_tolerance, max_iterations,
-            averaging_method, flux_weight, min_pressure, block_wav, device,
-            dtype, sw, debug_partition, cost_options or {}, band_parallel,
-            mesh))
-        band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
-        logs.log("")
-    logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
-    band_number = overlap_g_points(single_gas_data)
-    ng = len(band_number)
-    wavenumber = (np.asarray(gases[-1].wavenumber, np.float64) if gases
-                  else np.zeros(0))
-    g_point = merged_g_point_map(single_gas_data, ng, len(wavenumber))
-    solar_irradiance = None
-    if sw is not None:
-        solar_irradiance = np.zeros(ng)
-        for ig in range(ng):
-            solar_irradiance[ig] = sw.ssi[g_point == ig].sum()
-        nbad = int(np.sum(solar_irradiance <= 0.0))
-        if nbad:
-            logs.warning(f"{nbad} shortwave g points have zero solar "
-                         "irradiance")
-    return GPoints(single_gas_data, band_number, g_point,
-                   np.asarray(band_bounds[0], np.float64),
-                   np.asarray(band_bounds[1], np.float64), wavenumber,
-                   solar_irradiance)
+    with logs.span("ecckd.find_g_points.core"):
+        device = resolve_device(device)
+        hr_tol = np.atleast_1d(np.asarray(heating_rate_tolerance, np.float64))
+        sw = None
+        if ssi is not None:
+            sw = _Shortwave(np.asarray(ssi, np.float64),
+                            float(max_no_rayleigh_wavenumber))
+        single_gas_data = []
+        band_bounds = None
+        if cloud is not None:
+            if sw is None:
+                raise ValueError("Don't yet know how to sort cloud properties "
+                                 "in the longwave")
+            logs.log(f"*** FINDING G POINTS FOR {cloud.name}")
+            single_gas_data.append(_cloud_pseudo_gas(cloud, sw.ssi))
+            band_bounds = (cloud.wavenumber1_band, cloud.wavenumber2_band)
+        for gas in gases:
+            logs.log(f"*** FINDING G POINTS FOR {gas.name.upper()}")
+            single_gas_data.append(_search_gas(
+                gas, hr_tol, tolerance_tolerance, max_iterations,
+                averaging_method, flux_weight, min_pressure, block_wav, device,
+                dtype, sw, debug_partition, cost_options or {}, band_parallel,
+                mesh))
+            band_bounds = (gas.wavenumber1_band, gas.wavenumber2_band)
+            logs.log("")
+        logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
+        with logs.span("ecckd.find_g_points.overlap"):
+            band_number = overlap_g_points(single_gas_data)
+            ng = len(band_number)
+            wavenumber = (np.asarray(gases[-1].wavenumber, np.float64) if gases
+                          else np.zeros(0))
+            g_point = merged_g_point_map(single_gas_data, ng, len(wavenumber))
+            solar_irradiance = None
+            if sw is not None:
+                solar_irradiance = np.zeros(ng)
+                for ig in range(ng):
+                    solar_irradiance[ig] = sw.ssi[g_point == ig].sum()
+                nbad = int(np.sum(solar_irradiance <= 0.0))
+                if nbad:
+                    logs.warning(f"{nbad} shortwave g points have zero solar "
+                                 "irradiance")
+        return GPoints(single_gas_data, band_number, g_point,
+                       np.asarray(band_bounds[0], np.float64),
+                       np.asarray(band_bounds[1], np.float64), wavenumber,
+                       solar_irradiance)
 
 
 def _read_gas(cfg: Config, gas_str: str, iprofile: int) -> GasInput:
@@ -1041,21 +1055,22 @@ def find_g_points(cfg: Config, argv=()) -> str:
     cloud = _read_cloud(cfg, cloud_str) if cloud_str else None
     gases = [_read_gas(cfg, g, iprofile)
              for g in read_string_list(cfg, "gases")]
-    result = find_g_points_core(
-        gases, cfg.read_floats("heating_rate_tolerance"),
-        tolerance_tolerance=cfg.read_float("tolerance_tolerance",
-                                           default=0.02),
-        max_iterations=cfg.read_int("max_iterations", default=60),
-        averaging_method=cfg.read_string("averaging_method",
-                                         default="linear"),
-        flux_weight=cfg.read_float("flux_weight", default=0.02),
-        min_pressure=cfg.read_float("min_pressure", default=0.0),
-        block_wav=cfg.read_int("streaming_block_wav", default=1 << 20),
-        device=device, dtype=dtype, ssi=ssi, cloud=cloud,
-        max_no_rayleigh_wavenumber=cfg.read_float(
-            "max_no_rayleigh_wavenumber", default=10000.0),
-        debug_partition=cfg.read_bool("debug_partition", default=False),
-        band_parallel=band_parallel, mesh=mesh)
+    with maybe_profile(cfg):
+        result = find_g_points_core(
+            gases, cfg.read_floats("heating_rate_tolerance"),
+            tolerance_tolerance=cfg.read_float("tolerance_tolerance",
+                                               default=0.02),
+            max_iterations=cfg.read_int("max_iterations", default=60),
+            averaging_method=cfg.read_string("averaging_method",
+                                             default="linear"),
+            flux_weight=cfg.read_float("flux_weight", default=0.02),
+            min_pressure=cfg.read_float("min_pressure", default=0.0),
+            block_wav=cfg.read_int("streaming_block_wav", default=1 << 20),
+            device=device, dtype=dtype, ssi=ssi, cloud=cloud,
+            max_no_rayleigh_wavenumber=cfg.read_float(
+                "max_no_rayleigh_wavenumber", default=10000.0),
+            debug_partition=cfg.read_bool("debug_partition", default=False),
+            band_parallel=band_parallel, mesh=mesh)
     logs.log(f"Writing {output}")
     write_g_points(output, result, cfg, argv)
     return output

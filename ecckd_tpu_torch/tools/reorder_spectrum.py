@@ -10,7 +10,9 @@ top of the atmosphere reaches ``threshold_optical_depth``.  The per-band
 std::stable_sort is a NumPy stable argsort.
 
 Usage: ``python -m ecckd_tpu_torch.tools.reorder_spectrum input=...
-output=... [ssi=...] [device=cuda|cpu] [precision=float64|float32]``.
+output=... [ssi=...] [device=cuda|cpu] [precision=float64|float32]
+[profile_dir=DIR]`` (``profile_dir``: a ``torch.profiler`` trace of the
+core with the port's spans, :class:`~.common.maybe_profile`).
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from .common import (find_file, netcdf_format, resolve_device, setup,
-                     tool_prologue)
+from .common import (find_file, maybe_profile, netcdf_format,
+                     resolve_device, setup, tool_prologue)
 
 
 def _sorting_kernel(pressure_hl, wavenumber, d_wavenumber, od,
@@ -132,41 +134,12 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
     return sorting, column_od
 
 
-def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
-                 band1=None, band2=None, threshold_optical_depth=0.5,
-                 block_wav=1 << 20, device="cuda", dtype=torch.float64,
-                 do_sw=False):
-    """Array-level reorder_spectrum: the order-file fields as a dict,
-    computed on ``device`` (the card unless ``device="cpu"``; raises
-    without one).
-
-    ``do_sw`` selects the shortwave sorting variable.  ``band1``/``band2``
-    are the band wavenumber bounds; None treats the whole spectrum as one
-    band.  Returns ``wavenumber1_band``,
-    ``wavenumber2_band`` (clamped to the spectrum), ``band_number``,
-    ``rank``, ``column_optical_depth`` and ``sorting_variable``."""
-    device = resolve_device(device)
-    wavenumber = np.asarray(wavenumber)
-    d_wavenumber = np.asarray(d_wavenumber)
+def _band_ranks(sorting, wavenumber, band1, band2, band_clamp1,
+                band_clamp2):
+    """Per-band stable sort ascending in the sorting variable (ref
+    :262-295): (band number, rank) of each wavenumber."""
     nwav = len(wavenumber)
-    sorting, column_od = compute_sorting_variable(
-        pressure_hl, wavenumber, d_wavenumber, optical_depth,
-        threshold_optical_depth, block_wav, device, dtype, do_sw)
-
-    if band1 is None:
-        band1 = np.array([max(0.0, wavenumber[0] - d_wavenumber[0])])
-        band2 = np.array([wavenumber[-1] + d_wavenumber[-1]])
-    band1 = np.asarray(band1, np.float64)
-    band2 = np.asarray(band2, np.float64)
     nband = len(band1)
-    logs.log("Treating the entire spectrum as one band" if nband == 1
-             else f"Splitting the spectrum into {nband} bands")
-    band_clamp1 = band1.copy()
-    band_clamp2 = band2.copy()
-    band_clamp1[0] = max(wavenumber[0], band1[0])
-    band_clamp2[-1] = min(wavenumber[-1], band2[-1])
-
-    # Per-band stable sort ascending in the sorting variable (ref :262-295)
     iband = np.full(nwav, -1, np.int32)
     g_index = np.arange(nwav)
     for jband in range(nband):
@@ -185,9 +158,49 @@ def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
         g_index[i1:i2 + 1] = sub[np.argsort(sorting[sub], kind="stable")]
     rank = np.empty(nwav, np.int32)
     rank[g_index] = np.arange(nwav)
-    return dict(wavenumber1_band=band_clamp1, wavenumber2_band=band_clamp2,
-                band_number=iband, rank=rank, column_optical_depth=column_od,
-                sorting_variable=sorting)
+    return iband, rank
+
+
+def reorder_core(pressure_hl, wavenumber, d_wavenumber, optical_depth,
+                 band1=None, band2=None, threshold_optical_depth=0.5,
+                 block_wav=1 << 20, device="cuda", dtype=torch.float64,
+                 do_sw=False):
+    """Array-level reorder_spectrum: the order-file fields as a dict,
+    computed on ``device`` (the card unless ``device="cpu"``; raises
+    without one).
+
+    ``do_sw`` selects the shortwave sorting variable.  ``band1``/``band2``
+    are the band wavenumber bounds; None treats the whole spectrum as one
+    band.  Returns ``wavenumber1_band``,
+    ``wavenumber2_band`` (clamped to the spectrum), ``band_number``,
+    ``rank``, ``column_optical_depth`` and ``sorting_variable``."""
+    with logs.span("ecckd.reorder.core"):
+        device = resolve_device(device)
+        wavenumber = np.asarray(wavenumber)
+        d_wavenumber = np.asarray(d_wavenumber)
+        with logs.span("ecckd.reorder.sorting_variable"):
+            sorting, column_od = compute_sorting_variable(
+                pressure_hl, wavenumber, d_wavenumber, optical_depth,
+                threshold_optical_depth, block_wav, device, dtype, do_sw)
+
+        if band1 is None:
+            band1 = np.array([max(0.0, wavenumber[0] - d_wavenumber[0])])
+            band2 = np.array([wavenumber[-1] + d_wavenumber[-1]])
+        band1 = np.asarray(band1, np.float64)
+        band2 = np.asarray(band2, np.float64)
+        logs.log("Treating the entire spectrum as one band" if len(band1) == 1
+                 else f"Splitting the spectrum into {len(band1)} bands")
+        band_clamp1 = band1.copy()
+        band_clamp2 = band2.copy()
+        band_clamp1[0] = max(wavenumber[0], band1[0])
+        band_clamp2[-1] = min(wavenumber[-1], band2[-1])
+        with logs.span("ecckd.reorder.sort"):
+            iband, rank = _band_ranks(sorting, wavenumber, band1, band2,
+                                      band_clamp1, band_clamp2)
+        return dict(wavenumber1_band=band_clamp1,
+                    wavenumber2_band=band_clamp2, band_number=iband,
+                    rank=rank, column_optical_depth=column_od,
+                    sorting_variable=sorting)
 
 
 def reorder_spectrum(cfg: Config, argv=()) -> str:
@@ -221,9 +234,10 @@ def reorder_spectrum(cfg: Config, argv=()) -> str:
         if cfg.exist("wavenumber1"):
             band1 = cfg.read_floats("wavenumber1")
             band2 = cfg.read_floats("wavenumber2")
-        out = reorder_core(sp.pressure_hl, sp.wavenumber, sp.d_wavenumber,
-                           sp, band1, band2, threshold, block_wav, device,
-                           dtype, do_sw)
+        with maybe_profile(cfg):
+            out = reorder_core(sp.pressure_hl, sp.wavenumber,
+                               sp.d_wavenumber, sp, band1, band2, threshold,
+                               block_wav, device, dtype, do_sw)
         wavenumber, d_wavenumber = sp.wavenumber, sp.d_wavenumber
     logs.log(f"Writing {output_file}")
     write_order(output_file, argv or sys.argv, molecule, cfg.sprint(),

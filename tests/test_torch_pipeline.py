@@ -19,6 +19,7 @@ two packages, so the searches may take different steps to the same
 ranks.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -244,6 +245,43 @@ def test_cli_entry_point(rig, tmp_path):
     assert main([f"input={rig['h2o']}", f"output={out}", "device=cpu"]) == 0
     with NcFile(out) as a, NcFile(rig["h2o_order_jax"]) as b:
         np.testing.assert_array_equal(a.read("rank"), b.read("rank"))
+
+
+@pytest.mark.parametrize("tool", ["reorder_spectrum", "find_g_points",
+                                  "create_lut"])
+def test_profile_dir_writes_the_spans_of_every_thread(rig, h2o_lut, tmp_path,
+                                                      tool):
+    """With ``profile_dir`` each tool writes a profile holding the port's
+    spans: find_g_points' band searches on their threads
+    (``band_parallel=parallel`` over two bands), create_lut's block reads
+    on the prefetch thread (``streaming=1``)."""
+    from ecckd_tpu_torch.config import Config as TConfig
+    trace = tmp_path / "trace.json"
+    keys = {"profile_dir": str(tmp_path), **CPU}
+    if tool == "reorder_spectrum":
+        reorder_spectrum(TConfig({"input": rig["h2o"], "output": str(
+            tmp_path / "order.h5"), **keys}), argv=[tool])
+        want, threaded = "ecckd.reorder.sort", None
+    elif tool == "find_g_points":
+        cfg = _fgp_config(rig, "torch", str(tmp_path / "gp.h5"), ("h2o",),
+                          {"band_parallel": "parallel", **keys}, "bands")
+        find_g_points(cfg, argv=[tool])
+        want, threaded = "ecckd.find_g_points.store", \
+            "ecckd.find_g_points.search"
+    else:
+        create_lut(TConfig({"input": h2o_lut["torch"], "output": str(
+            tmp_path / "lut.nc"), "gases": "h2o", "h2o.input": rig["h2o"],
+            "h2o.conc_dependence": "linear", "streaming": "1",
+            "streaming_block_wav": "256", **keys}), argv=[tool])
+        want, threaded = "ecckd.create_lut.finish", "ecckd.io.read_block"
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "ecckd_span"]
+    names = {e["name"] for e in events}
+    assert want in names
+    if threaded is not None:
+        main = {e["tid"] for e in events if e["name"].endswith(".core")}
+        assert len(main) == 1
+        assert {e["tid"] for e in events if e["name"] == threaded} - main
 
 
 def test_port_never_imports_jax(tmp_path):
