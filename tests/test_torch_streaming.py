@@ -57,9 +57,11 @@ from ecckd_tpu_torch.ops.average import (GPOINT_AVERAGING_METHODS,
                                          average_od_to_gpoints,
                                          finalize_gpoint_partials,
                                          gpoint_block_partials)
+from ecckd_tpu_torch.ops import streaming as ops_streaming
 from ecckd_tpu_torch.ops.streaming import streaming_average_od_to_gpoints
 from ecckd_tpu_torch.tools.create_lut import _Execution, create_lut
 from synth import synth_spectrum_file
+from test_torch_pinned_streaming import SOURCES, block_sources
 
 ROOT = Path(__file__).resolve().parents[1]
 T = torch.from_numpy
@@ -560,6 +562,65 @@ def test_create_lut_core_streams_arrays():
     a, b = (m.single_gas_data[0] for m in models)
     for name in ("molar_abs", "min_molar_abs", "max_molar_abs"):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+@pytest.mark.parametrize("kind", SOURCES + ("short",))
+def test_stage_keeps_bits_dtype_and_layout(tmp_path, kind):
+    """The card's staging (here unpinned) of a row-strided view of an
+    (nlay, nwav) array, of transposed float64 and float32 shard blocks and
+    of a short last block: the block's values bit for bit in its own
+    dtype, a shard block as it lies, any other in C order, in a buffer of
+    its own."""
+    _, source = block_sources(tmp_path, nlay=6, nwav=1000)
+    reader, _ = source("arrays" if kind == "short" else kind)
+    with reader:
+        blocks = list(reader.iter_blocks(block_wav=300))
+    _, block = blocks[-1 if kind == "short" else 1]
+    assert block.shape == (6, 100 if kind == "short" else 300)
+    staged = ops_streaming._stage(block, pin_memory=False)
+    assert staged.dtype == T(block).dtype == (
+        torch.float32 if kind == "shard32" else torch.float64)
+    np.testing.assert_array_equal(staged.numpy(), block)
+    if kind.startswith("shard"):
+        assert staged.stride() == (1, 6)
+    else:
+        assert not block.flags.c_contiguous and staged.is_contiguous()
+    assert not np.shares_memory(staged.numpy(), block)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("kind", SOURCES)
+def test_streaming_equals_dense_on_block_sources(tmp_path, kind, staged):
+    """Streamed in blocks of 300 (the last short), from arrays and from
+    float64 and float32 shards, as read or staged: the dense average at the
+    same block size bit for bit, every block counted as pageable on the
+    CPU."""
+    _, source = block_sources(tmp_path, nlay=6, nwav=1000, seed=3)
+    ng = 5
+    rng = np.random.default_rng(4)
+    g_point = rng.integers(-1, ng, 1000)
+    weight = np.abs(rng.normal(5, 1, (6, 1000)))
+    wfn = lambda i0, n: weight[:, i0:i0 + n]  # noqa: E731
+    reader, od = source(kind)
+
+    class Staged:
+        def iter_blocks(self, block_wav):
+            for i0, b in reader.iter_blocks(block_wav=block_wav):
+                yield i0, ops_streaming._stage(b, pin_memory=False)
+
+    with reader:
+        ops_streaming.reset_transfer_counts()
+        got = streaming_average_od_to_gpoints(
+            Staged() if staged else reader, ng, g_point, wfn,
+            "transmission", block_wav=300, device="cpu")
+        assert ops_streaming.transfer_counts() == {"pinned": 0,
+                                                   "pageable": 4}
+    want = average_od_to_gpoints(ng, T(g_point), T(od).double(), T(weight),
+                                 "transmission", block_wav=300)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    ops_streaming.reset_transfer_counts()
+    assert ops_streaming.transfer_counts() == {"pinned": 0, "pageable": 0}
 
 
 def test_sharded_still_raises():
