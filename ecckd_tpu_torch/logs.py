@@ -228,6 +228,25 @@ def span(name: str):
     return _Recorder(name)
 
 
+def tracing() -> bool:
+    """Whether spans are being recorded: a ``torch.profiler`` profile
+    runs."""
+    return _profiler._is_profiler_enabled
+
+
+def record(name: str, start_ns: int, end_ns: int) -> None:
+    """Record a span of this thread whose end it did not see itself (one
+    that another thread closed, such as a wait that another thread's
+    dispatch ended), from ``start_ns`` to ``end_ns`` on
+    ``time.perf_counter_ns``'s clock, within the span open here.  Call it
+    only where :func:`tracing`."""
+    stack = _stack()
+    sid = next(_span_ids)
+    parent, call = stack[-1] if stack else (0, sid)
+    _spans.append(Span(name, start_ns, end_ns, threading.get_native_id(),
+                       sid, parent, call))
+
+
 def _origin():
     """The (id, call) of the innermost span open on this thread, or None
     where none is or no profile runs."""

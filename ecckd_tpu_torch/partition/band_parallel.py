@@ -15,16 +15,38 @@ that fires a merged dispatch exactly when every live band thread is
 blocked on a pending probe batch, so the batches, and with kernels whose
 sums of an interval do not depend on the rest of the launch (K1, K2 and K3
 on the card) every cost, are the same in every run.
+
+:func:`dispatch_counts` counts the merged dispatches of every scheduler,
+the band batches they carried and their intervals.  Under a profile each
+band thread records its wait at the barrier as an
+``ecckd.partition.barrier`` span (:mod:`~ecckd_tpu_torch.logs`), from the
+moment it posts its batch to the moment the dispatch that carries it
+fires.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from .. import logs
+
+_dispatches = {"dispatches": 0, "batches": 0, "intervals": 0}
+
+
+def dispatch_counts():
+    """Merged dispatches of every :class:`ProbeScheduler` since the last
+    reset (``dispatches``), the band batches they carried (``batches``)
+    and the intervals in those (``intervals``)."""
+    return dict(_dispatches)
+
+
+def reset_dispatch_counts():
+    for key in _dispatches:
+        _dispatches[key] = 0
 
 
 class ProbeScheduler:
@@ -50,7 +72,9 @@ class ProbeScheduler:
         self._cv = threading.Condition()
         self._active = 0
         self._pending: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        self._results: Dict[int, np.ndarray] = {}
+        # jband -> (its costs, perf_counter_ns when their dispatch fired,
+        # 0 where no profile runs)
+        self._results: Dict[int, Tuple[np.ndarray, int]] = {}
         self.error: Optional[BaseException] = None
         self.dispatches = 0
 
@@ -69,6 +93,7 @@ class ProbeScheduler:
             if jband in self._pending:
                 raise RuntimeError(f"band {jband} already has a pending "
                                    "probe batch")
+            posted = time.perf_counter_ns() if logs.tracing() else 0
             if self.error is None:
                 self._pending[jband] = (np.asarray(i1, np.int64),
                                         np.asarray(i2, np.int64))
@@ -79,7 +104,10 @@ class ProbeScheduler:
                 self._pending.pop(jband, None)
                 raise RuntimeError(
                     "merged candidate-sweep dispatch failed") from self.error
-            return self._results.pop(jband)
+            out, fired = self._results.pop(jband)
+        if posted and fired:
+            logs.record("ecckd.partition.barrier", posted, fired)
+        return out
 
     def _maybe_dispatch(self):
         """Called with the lock held."""
@@ -91,6 +119,7 @@ class ProbeScheduler:
         counts = [len(i1) for _, (i1, _) in items]
         i1 = np.concatenate([i1 for _, (i1, _) in items])
         i2 = np.concatenate([i2 for _, (_, i2) in items])
+        fired = time.perf_counter_ns() if logs.tracing() else 0
         try:
             out = self.kernel.costs(i1.astype(np.int32), i2.astype(np.int32))
         except BaseException as e:   # noqa: BLE001 (raised by every waiter)
@@ -98,9 +127,12 @@ class ProbeScheduler:
             self._cv.notify_all()
             return
         self.dispatches += 1
+        _dispatches["dispatches"] += 1
+        _dispatches["batches"] += len(items)
+        _dispatches["intervals"] += len(i1)
         pos = 0
         for (jband, _), n in zip(items, counts):
-            self._results[jband] = out[pos:pos + n]
+            self._results[jband] = (out[pos:pos + n], fired)
             pos += n
         self._cv.notify_all()
 
