@@ -1850,6 +1850,54 @@ def reference_sums(path, icol, g_point, ng, block, dev, say):
     return acc, num, den, mn, mx
 
 
+def time_minmax(say, nz=NLAY_FULL, nb=BLOCK_CKDMIP, ng=33, reps=20):
+    """K4 at the streamed create_lut's block shape (``nz`` x ``nb``, ``ng``
+    g-points, some wavenumbers unassigned), float64 and float32: held bit
+    for bit against its plain version on the card, then its time beside
+    its bound (od and the g-point map read once, the two (nz, ng) tables
+    written), the two ``scatter_reduce`` calls alone on a prebuilt index
+    (the library) and the plain version whole (the index built, then both
+    calls), by CUDA events.  Returns {dtype tag: dict of ms}."""
+    from ecckd_tpu_torch.ops.average import _segment_min_max
+    from ecckd_tpu_torch.ops.kernels import segment_min_max
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randint(-1, ng, (nb,), device=dev, generator=gen)
+    layer = ng * torch.arange(nz, device=dev)
+    seg_ids = torch.where(g[None, :] >= 0, g[None, :] + layer[:, None],
+                          nz * ng).reshape(-1)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        od = torch.randn((nz, nb), device=dev, dtype=dtype, generator=gen)
+        ints = torch.int64 if dtype == torch.float64 else torch.int32
+        got = segment_min_max(ng, g, od)
+        want = _segment_min_max(ng, g, od)
+        check(all(torch.equal(a.view(ints), b.view(ints))
+                  for a, b in zip(got, want)),
+              f"K4 {tag} bit-identical to scatter_reduce at {nz} x {nb}")
+        flat = od.reshape(-1)
+
+        def library():
+            for init, how in ((float("inf"), "amin"),
+                              (-float("inf"), "amax")):
+                torch.full((nz * ng + 1,), init, dtype=dtype,
+                           device=dev).scatter_reduce(0, seg_ids, flat, how)
+
+        nbytes = (od.numel() * od.element_size()
+                  + g.numel() * g.element_size() + 2 * nz * ng
+                  * od.element_size())
+        ms = dict(kernel_ms=cuda_ms(lambda: segment_min_max(ng, g, od), reps),
+                  bound_ms=bound(nbytes, 0, dtype)[0],
+                  library_ms=cuda_ms(library, 3),
+                  plain_ms=cuda_ms(lambda: _segment_min_max(ng, g, od), 3))
+        say(f"K4 min/max {tag} at {nz} x {nb}, {ng} g-points: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+        out[tag] = ms
+        del od, got, want, flat
+    return out
+
+
 def hold_lut_independent(model, gp, path, block, p_hl, dev, say, out):
     """Profile 0 of a streamed LUT against a reduction independent of the
     block code (:func:`reference_sums`).  The LUT must be the finalised
@@ -2166,6 +2214,9 @@ def phase_ckdmip(smi, device="cuda"):
         hold_lut_independent(streamed, gp, paths[0], block, p_hl, dev, say,
                              out)
 
+        if dev.type == "cuda":
+            out["minmax"] = time_minmax(say)
+
         # the streamed run once more under torch.profiler
         stats = []
         with profile(activities=[ProfilerActivity.CPU,
@@ -2174,7 +2225,7 @@ def phase_ckdmip(smi, device="cuda"):
             lut("auto", stats)
             sync(dev)
             wall = time.perf_counter() - t0
-        ms, busy = device_ms(prof, {"min/max scatter_reduce": "scatter",
+        ms, busy = device_ms(prof, {"min/max K4": "scatter",
                                     "one-hot matmuls": "gemm",
                                     "copies": "Memcpy"})
         idle = max(0.0, 1 - busy / 1e3 / wall)

@@ -17,6 +17,7 @@ import torch
 
 from ..constants import ACCEL_GRAVITY, LW_DIFFUSIVITY, MOLAR_MASS_DRY_AIR
 from .kernels.interval_sum import fused_interval_sum
+from .kernels.segment_minmax import segment_min_max
 from .segments import part_of
 
 _TRANS_CLAMP = 0.9999999999999999
@@ -233,7 +234,9 @@ _SEG_CHUNK = 65536
 def _segment_min_max(ng, g_point, od):
     """Per-(layer, g) min and max od over member wavenumbers: flattened
     ``scatter_reduce`` amin/amax.  Empty segments keep the +/-inf identity,
-    which survives min/max combination across blocks."""
+    which survives min/max combination across blocks.  The plain version
+    of kernel K4 (:func:`~ecckd_tpu_torch.ops.kernels.segment_minmax.
+    segment_min_max`), which runs it on the CPU."""
     nz = od.shape[0]
     valid = g_point >= 0
     layer = ng * torch.arange(nz, device=od.device, dtype=torch.int64)
@@ -258,8 +261,8 @@ def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
     :func:`average_od_to_gpoints`) plus a final transform
     (:func:`finalize_gpoint_partials`).  Sum keys combine by addition,
     ``min``/``max`` by elementwise minimum/maximum.  The sums are chunked
-    one-hot matmuls (exact with TF32 off), ``min``/``max`` a
-    ``scatter_reduce``.
+    one-hot matmuls (exact with TF32 off), ``min``/``max`` kernel K4 on
+    the card (:func:`_segment_min_max` on the CPU).
 
     The logarithmic method (average_optical_depth.cpp:127-141) needs three
     extra accumulators: sum of w*log(od) over od>0, sum of w over od>0,
@@ -308,7 +311,7 @@ def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
         out["sum_log"] = seg(log_od * w * nonzero)
         out["sum_w_nz"] = seg(w * nonzero)
         out["count_nz"] = seg(nonzero.to(dtype))
-    out["min"], out["max"] = _segment_min_max(ng, g_point, od)
+    out["min"], out["max"] = segment_min_max(ng, g_point, od)
     return out
 
 

@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ecckd_tpu_torch"
 SOURCES = ("sweep_lw.cu", "sweep_sw.cu", "interval_sum.cu",
-           "sweep_lw_scan.cu", "fused_sums_lw.cu")
+           "sweep_lw_scan.cu", "fused_sums_lw.cu", "segment_minmax.cu")
 HEADERS = ("checked.cuh", "interval_stream.cuh", "lw_coeffs.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,6 +41,7 @@ CHECKED_FLAGS = ("-DECCKD_CHECKED=1", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argtypes of every entry point: pointers and the stream as c_void_p, so
 # ctypes never truncates a 64-bit address to an int
 _SIGNATURES = {
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "ecckd_sweep_lw_scan_f32": (_P,) * 9 + (_I,) * 4 + (_P,),
     "ecckd_fused_sums_lw_f64": (_P,) * 8 + (_I,) * 5 + (_P,),
     "ecckd_fused_sums_lw_f32": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "ecckd_segment_minmax_f64": (_P,) * 3 + (_I, _L, _I, _I, _P),
+    "ecckd_segment_minmax_f32": (_P,) * 3 + (_I, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()
