@@ -1787,9 +1787,9 @@ def hold_probe_kernels(k, i1, i2, say):
 
 def reference_sums(path, icol, g_point, ng, block, dev, say):
     """One profile's transmission-average sums two ways: the streamed
-    path's block partials (``_block_accumulate`` a block read through
-    ``open_spectrum_profile``, ``_combine``d on the host), and a plain
-    whole-array reduction independent of them (the profile's f64 od on
+    path's block partials (blocks read through ``open_spectrum_profile``,
+    reduced and combined by the port's block loop, ``fold_blocks``), and a
+    plain whole-array reduction independent of them (the profile's f64 od on
     the card, ``index_add_`` over the g-point map for the sums, the
     members of each g-point gathered in rank order for min and max).
     Holds the sums within 1e-12 normwise and min and max bit-identical;
@@ -1798,7 +1798,8 @@ def reference_sums(path, icol, g_point, ng, block, dev, say):
     from ecckd_tpu_torch.constants import LW_DIFFUSIVITY
     from ecckd_tpu_torch.io.spectrum import open_spectrum_profile
     from ecckd_tpu_torch.ops.planck import planck_function
-    from ecckd_tpu_torch.ops.streaming import _block_accumulate, _combine
+    from ecckd_tpu_torch.ops.average import gpoint_block_partials
+    from ecckd_tpu_torch.ops.streaming import fold_blocks
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
                                   device=dev)
     gp = torch.as_tensor(np.asarray(g_point), device=dev)
@@ -1809,14 +1810,15 @@ def reference_sums(path, icol, g_point, ng, block, dev, say):
         t_x_p = np.asarray(pb.temperature_hl) * p_hl
         t_fl = f(0.5 * (t_x_p[:-1] + t_x_p[1:]) / p_fl)
         wav, dwav = f(pb.wavenumber), f(pb.d_wavenumber)
-        acc = None
-        for i0, blk in pb.iter_blocks(block_wav=block):
-            nb = blk.shape[1]
-            part = _block_accumulate(
-                ng, gp[i0:i0 + nb], blk,
-                planck_function(t_fl, wav[i0:i0 + nb], dwav[i0:i0 + nb]),
-                "transmission", dev, torch.float64)
-            acc = part if acc is None else _combine(acc, part)
+
+        def reduce(i0, blk):
+            sl = slice(i0, i0 + blk.shape[1])
+            return gpoint_block_partials(
+                ng, gp[sl], blk, planck_function(t_fl, wav[sl], dwav[sl]),
+                "transmission")
+
+        acc = fold_blocks(pb.iter_blocks(block_wav=block), reduce, dev,
+                          torch.float64)
         od = f(pb.materialize().optical_depth)
     t_streamed = time.perf_counter() - t0
     sync(dev)
@@ -3237,14 +3239,15 @@ def _free_port():
 
 def planck_weights(sp, device):
     """The Planck weights of create_lut for profile ``sp``, on ``device``."""
-    from ecckd_tpu_torch.tools.create_lut import _planck_weight
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64,
-                                  device=device)
+    from ecckd_tpu_torch.ops.planck import planck_function
+    from ecckd_tpu_torch.tools.common import device_tensor
     p = np.asarray(sp.pressure_hl)
     t_x_p = np.asarray(sp.temperature_hl) * p
     p_fl = 0.5 * (p[:-1] + p[1:])
     t_fl = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / p_fl
-    return _planck_weight(t(t_fl), t(sp.wavenumber), t(sp.d_wavenumber))
+    return planck_function(*(device_tensor(a, device, torch.float64)
+                             for a in (t_fl, sp.wavenumber,
+                                       sp.d_wavenumber)))
 
 
 def write_parallel_inputs(work, sp, order, g_point):

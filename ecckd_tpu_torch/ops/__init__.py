@@ -6,5 +6,5 @@ from .rayleigh import rayleigh_molar_scattering_coeff
 from .segments import (interval_sum, interval_sum_fused, interval_count,
                        gpoint_onehot, part_of)
 from .average import (fit_optical_depth_lw, fit_optical_depth_sw,
-                      fit_optical_depth_sw_total_trans,
-                      average_od_to_gpoints, od_to_molar_abs)
+                      fit_optical_depth_sw_total_trans, od_to_molar_abs)
+from .streaming import average_od_to_gpoints

@@ -256,11 +256,10 @@ def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
     on the block's device, in its dtype.
 
     Every g-point averaging reduction decomposes into weighted sums
-    accumulated over wavenumber blocks (streamed from disk,
-    :mod:`ecckd_tpu_torch.ops.streaming`, or cut from arrays in memory,
-    :func:`average_od_to_gpoints`) plus a final transform
-    (:func:`finalize_gpoint_partials`).  Sum keys combine by addition,
-    ``min``/``max`` by elementwise minimum/maximum.  The sums are chunked
+    accumulated over wavenumber blocks (streamed from disk or cut from
+    arrays in memory, :mod:`ecckd_tpu_torch.ops.streaming`) plus a final
+    transform (:func:`finalize_gpoint_partials`).  The blocks' partials
+    combine by :func:`combine_partials`.  The sums are chunked
     one-hot matmuls (exact with TF32 off), ``min``/``max`` kernel K4 on
     the card (:func:`_segment_min_max` on the CPU).
 
@@ -313,6 +312,19 @@ def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
         out["count_nz"] = seg(nonzero.to(dtype))
     out["min"], out["max"] = segment_min_max(ng, g_point, od)
     return out
+
+
+def combine_partials(acc, part):
+    """In-place combination of per-block partials (dicts of numpy arrays):
+    ``min``/``max`` by elementwise extremum, every other key by addition."""
+    for key, v in part.items():
+        if key == "min":
+            acc[key] = np.minimum(acc[key], v)
+        elif key == "max":
+            acc[key] = np.maximum(acc[key], v)
+        else:
+            acc[key] = acc[key] + v
+    return acc
 
 
 def finalize_gpoint_partials(acc, averaging_method, pressure_fl=None):
@@ -377,45 +389,6 @@ def finalize_gpoint_partials(acc, averaging_method, pressure_fl=None):
     min_od = np.where(degenerate, min_od * 0.99, min_od)
     max_od = np.where(degenerate, max_od * 1.01, max_od)
     return fit, min_od, max_od
-
-
-def average_od_to_gpoints(ng, g_point, optical_depth, weight,
-                          averaging_method, pressure_fl=None,
-                          block_wav=1 << 20):
-    """Average spectral od into g-points: (od_fit, min_od, max_od), numpy
-    (nz, ng).  Ref average_optical_depth_to_g_point
-    (average_optical_depth.cpp:21-197) minus the molar-abs conversion
-    (:func:`od_to_molar_abs`).
-
-    The arrays are cut into blocks of ``block_wav`` wavenumbers and reduced
-    exactly as the streamed path reduces a profile read from disk
-    (:func:`~ecckd_tpu_torch.ops.streaming.streaming_average_od_to_gpoints`:
-    :func:`gpoint_block_partials` per block, one read-back, the blocks'
-    partials added in order on the host, :func:`finalize_gpoint_partials`),
-    so at the same block size the two give the same bits.
-
-    Args:
-      ng: number of g-points.
-      g_point: (nwav,) integer tensor, wavenumber -> g-point (<0 =
-        unassigned).
-      optical_depth: (nz, nwav); weight: broadcastable to it.
-      averaging_method: any of :data:`GPOINT_AVERAGING_METHODS`.
-      pressure_fl: (nz,), required for the hybrid method.
-    """
-    from .streaming import _block_accumulate, _combine
-    od = optical_depth
-    nwav = od.shape[-1]
-    w = torch.broadcast_to(weight, od.shape)
-    acc = None
-    for i0 in range(0, nwav, block_wav):
-        sl = slice(i0, i0 + block_wav)
-        part = _block_accumulate(ng, g_point[sl], od[:, sl], w[:, sl],
-                                 averaging_method)
-        acc = part if acc is None else _combine(acc, part)
-    if torch.is_tensor(pressure_fl):
-        pressure_fl = pressure_fl.cpu().numpy()
-    return finalize_gpoint_partials(acc, averaging_method,
-                                    pressure_fl=pressure_fl)
 
 
 def od_to_molar_abs(od_fit, pressure_hl, reference_surface_vmr):

@@ -1,22 +1,21 @@
-"""Streaming g-point averaging over wavenumber blocks.
+"""The port's one loop over wavenumber blocks, and g-point averaging on it.
 
 The port's counterpart of ``ecckd_tpu/ops/streaming.py``: a profile too
 large to hold (CKDMIP's ~5.6M wavenumbers x ~50 layers) is averaged into
-g-points block by block.  Each block is copied to the device, reduced to
-its partial sums there (:func:`~ecckd_tpu_torch.ops.average.
-gpoint_block_partials`), and its partials come back in one read-back; the
-host adds them up and applies the final transform.  Every averaging
-method of average_optical_depth.cpp:120-197 (including logarithmic
-zero-counting and the pressure-switched hybrid) decomposes this way.  The
-blocks are read one ahead on a background thread (io/prefetch.py), so the
-reads overlap the device's work.  On a CUDA device that thread also
-stages each host block in page-locked memory, and the consumer copies it
-to the card on a side stream one block ahead of its reduction, so the copy
-overlaps the reduction before it (:func:`_pinned_partials`); the blocks,
-their reduction and the order of their partials are the same, and so are
-the bits.  The dense path
-(:func:`~ecckd_tpu_torch.ops.average.average_od_to_gpoints`) runs the same
-block reduction on arrays in memory.
+g-points block by block.  :func:`block_results` is the loop every
+block-wise reduction of the port runs on (dense and streamed averaging
+here, the mesh's in :mod:`ecckd_tpu_torch.parallel.sharded_average`,
+lw_spectra): it puts each block on the device, enqueues the caller's
+reduction of it and reads the reduction's tensors back in one copy; the
+blocks' results combine on the host (:func:`fold_blocks`,
+:func:`~ecckd_tpu_torch.ops.average.combine_partials`).  Blocks read from
+a source are read ahead on a background thread (:func:`read_ahead`,
+io/prefetch.py); on a CUDA device that thread also stages each in
+page-locked memory, and the loop copies it to the card on a side stream
+one block ahead of its reduction.  Blocks, reductions and the order of
+their results do not depend on the path, so neither do the bits.  The
+loop's spans keep create_lut's names (``ecckd.create_lut.wait_block``,
+``.stage``, ``.copy``, ``.partials``), where a table reads them.
 """
 
 from __future__ import annotations
@@ -25,11 +24,11 @@ import numpy as np
 import torch
 
 from .. import logs
-from .average import (GPOINT_AVERAGING_METHODS, finalize_gpoint_partials,
-                      gpoint_block_partials)
+from .average import (GPOINT_AVERAGING_METHODS, combine_partials,
+                      finalize_gpoint_partials, gpoint_block_partials)
 
 
-def _to_device(a, device, dtype):
+def to_device(a, device, dtype):
     """``a`` (numpy or tensor) as a ``dtype`` tensor on ``device``: copied
     in its own type and widened there.  A transposed view of C-ordered data
     (a shard block) is copied as it lies in memory, without a host pass."""
@@ -45,9 +44,10 @@ _transfers = {"pinned": 0, "pageable": 0}
 
 
 def transfer_counts():
-    """Blocks the streamed loop has reduced since the last reset:
+    """Host blocks the loop has copied to a device since the last reset:
     ``pinned``, staged in page-locked memory and copied to the card one
-    block ahead of its reduction; ``pageable``, every other block."""
+    block ahead of its reduction; ``pageable``, copied any other way.  A
+    block that lies where it is reduced counts as neither."""
     return dict(_transfers)
 
 
@@ -87,83 +87,6 @@ def _upload(block, device, stream):
         return block.to(device, non_blocking=True), stream.record_event()
 
 
-def _pinned_partials(blocks, ng, gp, weight_fn, averaging_method, device,
-                     dtype):
-    """The partials of each block of ``blocks`` (the consumer's side of the
-    prefetch thread's :func:`_staged` blocks), in order.  A staged block is
-    copied on a side stream, block i + 1's copy issued before block i's
-    partials are read back, so the copy engine moves the next block while
-    the reduction stream works on this one; that read-back is the loop's
-    only wait for the card.  Any other block goes by :func:`_to_device`."""
-    side = torch.cuda.Stream(device)
-    compute = torch.cuda.current_stream(device)
-
-    def issue():
-        item = next(blocks, None)
-        if item is None:
-            return None
-        iwav0, block = item
-        if not (torch.is_tensor(block) and block.is_pinned()):
-            return iwav0, block, None
-        with logs.span("ecckd.create_lut.copy"):
-            return (iwav0, *_upload(block, device, side))
-
-    ahead = issue()
-    while ahead is not None:
-        iwav0, od_block, copied = ahead
-        if copied is None:
-            _transfers["pageable"] += 1
-            with logs.span("ecckd.create_lut.copy"):
-                od_block = _to_device(od_block, device, dtype)
-        else:
-            _transfers["pinned"] += 1
-            compute.wait_event(copied)
-            # Allocated on the side stream, read on this one
-            od_block.record_stream(compute)
-            od_block = od_block.to(dtype=dtype)
-        nb = od_block.shape[1]
-        with logs.span("ecckd.create_lut.partials"):
-            out = gpoint_block_partials(
-                ng, gp[iwav0:iwav0 + nb], od_block,
-                _to_device(weight_fn(iwav0, nb), device, dtype),
-                averaging_method)
-            stacked = torch.stack(list(out.values()))
-        ahead = issue()
-        with logs.span("ecckd.create_lut.partials"):
-            part = dict(zip(out, stacked.cpu().numpy()))
-        yield part
-
-
-def _pageable_partials(blocks, ng, gp, weight_fn, averaging_method, device,
-                       dtype):
-    """The partials of each block of ``blocks``, in order, each block
-    copied by :func:`_to_device` and read back before the next."""
-    for iwav0, od_block in blocks:
-        _transfers["pageable"] += 1
-        nb = od_block.shape[1]
-        yield _block_accumulate(ng, gp[iwav0:iwav0 + nb], od_block,
-                                weight_fn(iwav0, nb), averaging_method,
-                                device, dtype)
-
-
-def _block_accumulate(ng, g_point_block, od_block, weight_block,
-                      averaging_method, device=None, dtype=None):
-    """Partial sums for one wavenumber block -> dict of (nz, ng) numpy
-    arrays.  ``od_block`` and ``weight_block`` (numpy or tensors) go to
-    ``device`` in ``dtype`` (by default where and how ``od_block`` lies);
-    ``g_point_block`` must be on ``device`` already."""
-    if device is not None:
-        with logs.span("ecckd.create_lut.copy"):
-            od_block = _to_device(od_block, device, dtype)
-            weight_block = _to_device(weight_block, device, dtype)
-    with logs.span("ecckd.create_lut.partials"):
-        out = gpoint_block_partials(ng, g_point_block, od_block,
-                                    weight_block, averaging_method)
-        # One device->host copy for the whole (tiny) partials dict
-        stacked = torch.stack(list(out.values())).cpu().numpy()
-    return dict(zip(out, stacked))
-
-
 def _waited(blocks):
     """``blocks``, each ``next`` of it under the span
     ``ecckd.create_lut.wait_block``: the time the consumer waits for the
@@ -177,17 +100,118 @@ def _waited(blocks):
         yield item
 
 
-def _combine(acc, part):
-    """In-place combination of per-block partials: min/max by elementwise
-    extremum, every other key by addition."""
-    for key, v in part.items():
-        if key == "min":
-            acc[key] = np.minimum(acc[key], v)
-        elif key == "max":
-            acc[key] = np.maximum(acc[key], v)
-        else:
-            acc[key] = acc[key] + v
+def read_ahead(blocks, device):
+    """``blocks`` (iwav0, host block) read two ahead on a background
+    thread, and on a CUDA ``device`` staged there in page-locked memory:
+    overlaps the reads, a ProfileBlocks' host widening and the staging with
+    the device's reduction."""
+    from ..io.prefetch import prefetch_iter
+    if device.type == "cuda":
+        blocks = _staged(blocks)
+    return _waited(prefetch_iter(logs.spawned_iter(blocks), depth=2))
+
+
+def block_results(blocks, reduce, device=None, dtype=None):
+    """The loop: for each (iwav0, block) of ``blocks``, in order, (iwav0,
+    dict of numpy arrays) of ``reduce(iwav0, device_block)``, a dict of
+    tensors on one device, read back in one copy.
+
+    With a ``device``, every host block (numpy or a CPU tensor) goes there
+    as a ``dtype`` tensor: on a card a page-locked one (:func:`read_ahead`
+    stages them) on a side stream, block i + 1's copy issued after block
+    i's reduction is enqueued and before its results are read back, so
+    the copy engine moves the next block while the reduction stream works
+    on this one; any other by :func:`to_device`.  A block already on a
+    card, or every block where ``device`` is None (the dense path, a
+    mesh's shards), is reduced as it lies."""
+    blocks = iter(blocks)
+    side = compute = None
+    if device is not None and device.type == "cuda":
+        side = torch.cuda.Stream(device)
+        compute = torch.cuda.current_stream(device)
+
+    def issue():
+        item = next(blocks, None)
+        if item is None:
+            return None
+        iwav0, block = item
+        if side is None or not (torch.is_tensor(block) and block.is_pinned()):
+            return iwav0, block, None
+        with logs.span("ecckd.create_lut.copy"):
+            return (iwav0, *_upload(block, device, side))
+
+    ahead = issue()
+    while ahead is not None:
+        iwav0, block, copied = ahead
+        if copied is not None:
+            _transfers["pinned"] += 1
+            compute.wait_event(copied)
+            # Allocated on the side stream, read on this one
+            block.record_stream(compute)
+            block = block.to(dtype=dtype)
+        elif device is not None and (isinstance(block, np.ndarray)
+                                     or block.device.type == "cpu"):
+            _transfers["pageable"] += 1
+            with logs.span("ecckd.create_lut.copy"):
+                block = to_device(block, device, dtype)
+        with logs.span("ecckd.create_lut.partials"):
+            out = reduce(iwav0, block)
+            flat = torch.cat([v.reshape(-1) for v in out.values()])
+        ahead = issue()
+        with logs.span("ecckd.create_lut.partials"):
+            flat = flat.cpu().numpy()
+        host, i = {}, 0
+        for key, v in out.items():
+            host[key] = flat[i:i + v.numel()].reshape(v.shape)
+            i += v.numel()
+        yield iwav0, host
+
+
+def fold_blocks(blocks, reduce, device=None, dtype=None):
+    """The results of :func:`block_results`, combined over the blocks in
+    order by :func:`~ecckd_tpu_torch.ops.average.combine_partials`."""
+    acc = None
+    for _, part in block_results(blocks, reduce, device, dtype):
+        acc = part if acc is None else combine_partials(acc, part)
     return acc
+
+
+def average_od_to_gpoints(ng, g_point, optical_depth, weight,
+                          averaging_method, pressure_fl=None,
+                          block_wav=1 << 20):
+    """Average spectral od into g-points: (od_fit, min_od, max_od), numpy
+    (nz, ng).  Ref average_optical_depth_to_g_point
+    (average_optical_depth.cpp:21-197) minus the molar-abs conversion
+    (:func:`~ecckd_tpu_torch.ops.average.od_to_molar_abs`).
+
+    The arrays are cut into blocks of ``block_wav`` wavenumbers and reduced
+    by the loop exactly as :func:`streaming_average_od_to_gpoints` reduces
+    a profile read from disk, so at the same block size the two give the
+    same bits.
+
+    Args:
+      ng: number of g-points.
+      g_point: (nwav,) integer tensor, wavenumber -> g-point (<0 =
+        unassigned).
+      optical_depth: (nz, nwav); weight: broadcastable to it, on the same
+        device.
+      averaging_method: any of ops.average.GPOINT_AVERAGING_METHODS.
+      pressure_fl: (nz,), required for the hybrid method.
+    """
+    od = optical_depth
+    w = torch.broadcast_to(weight, od.shape)
+
+    def reduce(i0, od_block):
+        sl = slice(i0, i0 + od_block.shape[1])
+        return gpoint_block_partials(ng, g_point[sl], od_block, w[:, sl],
+                                     averaging_method)
+
+    acc = fold_blocks(((i0, od[:, i0:i0 + block_wav])
+                       for i0 in range(0, od.shape[-1], block_wav)), reduce)
+    if torch.is_tensor(pressure_fl):
+        pressure_fl = pressure_fl.cpu().numpy()
+    return finalize_gpoint_partials(acc, averaging_method,
+                                    pressure_fl=pressure_fl)
 
 
 def streaming_average_od_to_gpoints(reader, ng, g_point, weight_fn,
@@ -211,9 +235,8 @@ def streaming_average_od_to_gpoints(reader, ng, g_point, weight_fn,
         card unless ``device="cpu"``; raises without one).
 
     Returns (od_fit, min_od, max_od), numpy (nz, ng): the semantics of
-    ops.average.average_od_to_gpoints, and its bits at the same block size.
+    :func:`average_od_to_gpoints`, and its bits at the same block size.
     """
-    from ..io.prefetch import prefetch_iter
     from ..tools.common import resolve_device
     if averaging_method not in GPOINT_AVERAGING_METHODS:
         raise ValueError(
@@ -221,18 +244,14 @@ def streaming_average_od_to_gpoints(reader, ng, g_point, weight_fn,
             f"choose from {GPOINT_AVERAGING_METHODS}")
     device = resolve_device(device)
     gp = torch.as_tensor(g_point, device=device)
-    acc = None
-    pinned = device.type == "cuda"
-    blocks = reader.iter_blocks(block_wav=block_wav)
-    if pinned:
-        blocks = _staged(blocks)
-    # Two blocks read (and on the card staged) ahead on a background
-    # thread: overlaps the reads, a ProfileBlocks' host widening and the
-    # staging with the device's reduction
-    blocks = _waited(prefetch_iter(logs.spawned_iter(blocks), depth=2))
-    partials = _pinned_partials if pinned else _pageable_partials
-    for part in partials(blocks, ng, gp, weight_fn, averaging_method,
-                         device, dtype):
-        acc = part if acc is None else _combine(acc, part)
+
+    def reduce(iwav0, od_block):
+        nb = od_block.shape[1]
+        return gpoint_block_partials(
+            ng, gp[iwav0:iwav0 + nb], od_block,
+            to_device(weight_fn(iwav0, nb), device, dtype), averaging_method)
+
+    acc = fold_blocks(read_ahead(reader.iter_blocks(block_wav=block_wav),
+                                 device), reduce, device, dtype)
     return finalize_gpoint_partials(acc, averaging_method,
                                     pressure_fl=pressure_fl)

@@ -1,18 +1,22 @@
 """Wavenumber-sharded g-point averaging over a mesh.
 
 PyTorch counterpart of ``ecckd_tpu/parallel/sharded_average.py``: the
-multi-shard form of :func:`~ecckd_tpu_torch.ops.average.average_od_to_gpoints`.
-The wavenumber axis of a block is split over the mesh's spectral shards
-(padded to their multiple, padded wavenumbers in g-point -1); every shard
-reduces its slice on its device into per-g-point partials
+multi-shard form of :func:`~ecckd_tpu_torch.ops.streaming.
+average_od_to_gpoints`.  The wavenumber axis of a block is split over
+the mesh's spectral shards (padded to their multiple, padded wavenumbers
+in g-point -1); every shard reduces its slice on its device into
+per-g-point partials
 (:func:`~ecckd_tpu_torch.ops.average.gpoint_block_partials`), and the
 partials are combined over the shards and processes by the mesh's
-collectives: sums added, ``min``/``max`` by extremum, three collectives a
-block.  The (nz, ng) partials then combine across blocks on the host
-(:func:`~ecckd_tpu_torch.ops.streaming._combine`), so streaming and
-sharding compose, and :func:`~ecckd_tpu_torch.ops.average.
-finalize_gpoint_partials` applies the final transform.  All eight averaging
-methods are supported.
+collectives: sums added, ``min``/``max`` by extremum, three collectives
+a block.  The blocks run on the port's one block loop
+(:func:`~ecckd_tpu_torch.ops.streaming.fold_blocks`), each taken as it
+lies, since the shards move it themselves: the (nz, ng) partials are
+read back in one copy a block and combine across blocks on the host
+(:func:`~ecckd_tpu_torch.ops.average.combine_partials`), so streaming
+and sharding compose, and :func:`~ecckd_tpu_torch.ops.average.
+finalize_gpoint_partials` applies the final transform.  All eight
+averaging methods are supported.
 
 Four entry points, as in the JAX package: dense and streamed, each in one
 process or with every process passing its own contiguous wavenumber slice
@@ -28,7 +32,7 @@ import torch
 
 from ..ops.average import (GPOINT_AVERAGING_METHODS, finalize_gpoint_partials,
                            gpoint_block_partials)
-from ..ops.streaming import _combine, _to_device
+from ..ops.streaming import fold_blocks, to_device
 from .mesh import pad_to_multiple, slice_wavenumbers
 
 SUPPORTED_METHODS = GPOINT_AVERAGING_METHODS
@@ -42,9 +46,10 @@ def _check_method(averaging_method: str):
 
 
 def _local_partials(mesh, ng, g_point, od, weight, averaging_method, dtype):
-    """The mesh-combined partials (dict of (nz, ng) numpy arrays) of this
-    process's wavenumbers ``od`` (nz, nb), split evenly over its spectral
-    shards; every process calls it with the same ``nb``."""
+    """The mesh-combined partials (dict of (nz, ng) tensors on the first
+    shard's device) of this process's wavenumbers ``od`` (nz, nb), split
+    evenly over its spectral shards; every process calls it with the same
+    ``nb``."""
     shards = mesh.spectral_shards()
     od = torch.as_tensor(od)
     nz, nb = od.shape
@@ -57,14 +62,14 @@ def _local_partials(mesh, ng, g_point, od, weight, averaging_method, dtype):
         sl = (k * nloc, nloc, dev)
         parts.append(gpoint_block_partials(
             ng, slice_wavenumbers(gp, *sl, pad_value=-1),
-            _to_device(slice_wavenumbers(od, *sl), dev, dtype),
-            _to_device(slice_wavenumbers(w, *sl), dev, dtype),
+            to_device(slice_wavenumbers(od, *sl), dev, dtype),
+            to_device(slice_wavenumbers(w, *sl), dev, dtype),
             averaging_method))
     sums = [k for k in parts[0] if k not in ("min", "max")]
     stacked = mesh.sum([torch.stack([p[k] for k in sums]) for p in parts])
-    out = dict(zip(sums, stacked.cpu().numpy()))
-    out["min"] = mesh.min([p["min"] for p in parts]).cpu().numpy()
-    out["max"] = mesh.max([p["max"] for p in parts]).cpu().numpy()
+    out = dict(zip(sums, stacked))
+    out["min"] = mesh.min([p["min"] for p in parts])
+    out["max"] = mesh.max([p["max"] for p in parts])
     return out
 
 
@@ -113,8 +118,8 @@ def sharded_average_od_to_gpoints(mesh, ng: int, g_point, optical_depth,
     """
     _check_method(averaging_method)
     _check_axis(axis)
-    acc = _global_partials(mesh, ng, g_point, optical_depth, weight,
-                           averaging_method, dtype)
+    acc = fold_blocks([(0, optical_depth)], lambda _, od: _global_partials(
+        mesh, ng, g_point, od, weight, averaging_method, dtype))
     return _finish(acc, averaging_method, pressure_fl, finalize)
 
 
@@ -136,13 +141,14 @@ def streaming_sharded_average_od_to_gpoints(mesh, reader, ng: int, g_point,
     weights."""
     _check_method(averaging_method)
     _check_axis(axis)
-    acc = None
-    for iwav0, od_block in reader.iter_blocks(block_wav=block_wav):
+
+    def reduce(iwav0, od_block):
         nb = od_block.shape[1]
-        part = _global_partials(mesh, ng, g_point[iwav0:iwav0 + nb],
+        return _global_partials(mesh, ng, g_point[iwav0:iwav0 + nb],
                                 od_block, weight_fn(iwav0, nb),
                                 averaging_method, dtype)
-        acc = part if acc is None else _combine(acc, part)
+
+    acc = fold_blocks(reader.iter_blocks(block_wav=block_wav), reduce)
     return _finish(acc, averaging_method, pressure_fl, finalize)
 
 
@@ -163,8 +169,8 @@ def sharded_average_od_to_gpoints_multihost(mesh, ng: int, g_point_local,
     every shard (``data_parallel=1``)."""
     _check_method(averaging_method)
     _check_axis(axis)
-    acc = _local_partials(mesh, ng, g_point_local, od_local, weight_local,
-                          averaging_method, dtype)
+    acc = fold_blocks([(0, od_local)], lambda _, od: _local_partials(
+        mesh, ng, g_point_local, od, weight_local, averaging_method, dtype))
     return _finish(acc, averaging_method, pressure_fl, finalize)
 
 
@@ -183,13 +189,15 @@ def streaming_sharded_average_od_to_gpoints_multihost(
     _check_method(averaging_method)
     _check_axis(axis)
     mesh.spectral_shards()      # raises unless the axis spans every shard
-    acc = None
-    for i0 in range(0, nwav_local, block_wav):
-        nb = min(block_wav, nwav_local - i0)
-        part = _local_partials(mesh, ng, g_point_local[i0:i0 + nb],
-                               read_block_local(i0, nb), weight_fn(i0, nb),
-                               averaging_method, dtype)
-        acc = part if acc is None else _combine(acc, part)
+
+    def reduce(i0, od_block):
+        nb = od_block.shape[1]
+        return _local_partials(mesh, ng, g_point_local[i0:i0 + nb], od_block,
+                               weight_fn(i0, nb), averaging_method, dtype)
+
+    blocks = ((i0, read_block_local(i0, min(block_wav, nwav_local - i0)))
+              for i0 in range(0, nwav_local, block_wav))
+    acc = fold_blocks(blocks, reduce)
     return _finish(acc, averaging_method, pressure_fl, finalize)
 
 

@@ -5,6 +5,7 @@ are the port's own copy of ``ecckd_tpu/tools/common.py:21-69`` (the port
 imports nothing of the JAX package); :func:`setup` replaces its
 ``setup_jax`` and fixes the device and dtype a tool computes in;
 :func:`netcdf_format` reads the container a tool writes;
+:func:`device_tensor` puts a tool's host arrays on its device;
 :class:`maybe_profile` traces with ``torch.profiler`` where the JAX one
 traces with ``jax.profiler``.
 """
@@ -17,6 +18,7 @@ import statistics
 import threading
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import logs
@@ -182,6 +184,12 @@ def resolve_device(device="cuda") -> torch.device:
                            "device is available (pass device=\"cpu\" to run "
                            "on the CPU)")
     return dev
+
+
+def device_tensor(a, device, dtype) -> torch.Tensor:
+    """``a`` (numpy, a sequence or a CPU tensor) as a ``dtype`` tensor on
+    ``device``, converted on the host."""
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def setup(cfg: Optional[Config] = None) -> Tuple[torch.device, torch.dtype]:

@@ -35,15 +35,16 @@ from .. import logs
 from ..config import Config
 from ..models import CkdModel, ConcDependence, GasData
 from ..io.spectrum import spectrum_blocks
-from ..ops.average import average_od_to_gpoints, od_to_molar_abs
+from ..ops.average import od_to_molar_abs
 from ..ops.planck import planck_function
 from ..ops.segments import gpoint_onehot
-from ..ops.streaming import streaming_average_od_to_gpoints
+from ..ops.streaming import (average_od_to_gpoints,
+                             streaming_average_od_to_gpoints)
 from ..parallel.sharded_average import (
     sharded_average_od_to_gpoints, streaming_sharded_average_od_to_gpoints)
-from .common import (find_file, maybe_profile, netcdf_format,
-                     read_string_list, resolve_device, setup, sharded_mesh,
-                     tool_prologue)
+from .common import (device_tensor, find_file, maybe_profile,
+                     netcdf_format, read_string_list, resolve_device, setup,
+                     sharded_mesh, tool_prologue)
 
 _CONC_DEPENDENCE = {
     "none": ConcDependence.NONE,
@@ -161,16 +162,11 @@ def _average_profile(ng, g_point, source, weight_fn, averaging_method,
                     averaging_method, pressure_fl=pressure_fl, dtype=dtype)
             else:
                 fit, mn, mx = average_od_to_gpoints(
-                    ng, g_point, torch.as_tensor(np.asarray(od), dtype=dtype,
-                                                 device=device),
+                    ng, g_point, device_tensor(od, device, dtype),
                     weight_fn(0, nwav), averaging_method,
                     pressure_fl=pressure_fl, block_wav=execution.block_wav)
         return tuple(od_to_molar_abs(a, pressure_hl, reference_surface_vmr)
                      for a in (fit, mn, mx))
-
-
-def _planck_weight(temperature_fl, wavenumber, d_wavenumber):
-    return planck_function(temperature_fl, wavenumber, d_wavenumber)
 
 
 def _gpoint_fraction(ng, g_point, wavenumber, d_wavenumber, wavenumber1,
@@ -258,9 +254,7 @@ def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
     first profile of the first gas (None before it is read).  Returns (k,
     kmin, kmax per table, temperature_fl, pressure_fl, last spectrum)."""
     gp = torch.as_tensor(g_point, device=device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                     device=device)
-    ssi_t = None if ssi is None else as_t(ssi)
+    ssi_t = None if ssi is None else device_tensor(ssi, device, dtype)
     k_c, kmin_c, kmax_c = [], [], []
     t_fl = sp = None
     for open_profile in gas.tables:
@@ -279,12 +273,13 @@ def _gas_tables(gas: LutGas, ng, g_point, averaging_method,
                 t_fl_col = 0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl
                 t_l.append(t_fl_col)
                 if ssi_t is None:
-                    t_t, wav_t, dwav_t = (as_t(t_fl_col), as_t(sp.wavenumber),
-                                          as_t(sp.d_wavenumber))
+                    t_t, wav_t, dwav_t = (
+                        device_tensor(a, device, dtype)
+                        for a in (t_fl_col, sp.wavenumber, sp.d_wavenumber))
 
                     def weight_fn(i0, nb):
-                        return _planck_weight(t_t, wav_t[i0:i0 + nb],
-                                              dwav_t[i0:i0 + nb])
+                        return planck_function(t_t, wav_t[i0:i0 + nb],
+                                               dwav_t[i0:i0 + nb])
                 else:
                     def weight_fn(i0, nb):
                         return ssi_t[i0:i0 + nb]
@@ -414,15 +409,17 @@ def create_lut_core(g_point, band_wn1, band_wn2, band_number,
                 # scatter-add)
                 logs.log("Generating Planck-function look-up table")
                 temperature_lut = np.arange(120.0, 351.0)
-                as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-                wav_t, dwav_t = as_t(wavenumber_cm_1), as_t(d_wavenumber_cm_1)
+                wav_t = device_tensor(wavenumber_cm_1, device, dtype)
+                dwav_t = device_tensor(d_wavenumber_cm_1, device, dtype)
                 onehot = gpoint_onehot(
                     torch.as_tensor(g_point, device=device), ng, dtype)
                 chunk = max(1, min(16, int(256.0e6
                                            / (8 * len(wavenumber_cm_1)))))
                 planck_lut = np.concatenate([
-                    (planck_function(as_t(temperature_lut[i0:i0 + chunk]),
-                                     wav_t, dwav_t) @ onehot).cpu().numpy()
+                    (planck_function(
+                        device_tensor(temperature_lut[i0:i0 + chunk], device,
+                                      dtype),
+                        wav_t, dwav_t) @ onehot).cpu().numpy()
                     for i0 in range(0, len(temperature_lut), chunk)])
                 model = CkdModel(
                     single_gas_data, pressure_fl, temperature_fl, wavenumber1,

@@ -46,9 +46,9 @@ from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
 from ..partition.band_parallel import BandKernelView, ProbeScheduler
-from .common import (find_file, maybe_profile, netcdf_format,
-                     read_string_list, resolve_device, setup, sharded_mesh,
-                     tool_prologue)
+from .common import (device_tensor, find_file, maybe_profile,
+                     netcdf_format, read_string_list, resolve_device, setup,
+                     sharded_mesh, tool_prologue)
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
@@ -546,16 +546,16 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 np.asarray(gas.subband_wavenumber_boundary, np.float64))
         sorting_variable = np.asarray(gas.sorting_variable)[ireorder]
 
-        to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                           device=device)
         index = torch.from_numpy(ireorder).to(device)
-        od = to_dev(gas.optical_depth).index_select(1, index)
+        od = device_tensor(gas.optical_depth, device, dtype).index_select(
+            1, index)
         col_od = od.sum(dim=1)
         logs.log(f"    Column optical depth: {col_od.mean().item():g} +/- "
                  f"{col_od.std(unbiased=False).item():g}")
         bg_od = None
         if gas.bg_optical_depth is not None:
-            bg_od = to_dev(gas.bg_optical_depth).index_select(1, index)
+            bg_od = device_tensor(gas.bg_optical_depth, device,
+                                  dtype).index_select(1, index)
         wavenumber_cm_1 = np.asarray(gas.wavenumber)[ireorder]
         d_wavenumber_cm_1 = np.asarray(gas.d_wavenumber)[ireorder]
         pressure_hl = np.asarray(gas.pressure_hl, np.float64)
@@ -572,9 +572,9 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
             logs.log("Computing Planck function and longwave radiative "
                      "transfer")
             planck_hl, hr, flux_dn_surf, flux_up_toa = _lw_truth(
-                to_dev(gas.temperature_hl), to_dev(pressure_hl),
-                to_dev(wavenumber_cm_1), to_dev(d_wavenumber_cm_1), od, bg_od,
-                block_wav)
+                *(device_tensor(a, device, dtype)
+                  for a in (gas.temperature_hl, pressure_hl, wavenumber_cm_1,
+                            d_wavenumber_cm_1)), od, bg_od, block_wav)
             surf_planck = planck_hl[-1]
             weight_for_median = surf_planck.cpu().numpy().astype(np.float64)
         else:
@@ -590,8 +590,10 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 scalings = (min_scaling, max_scaling,
                             sw.max_no_rayleigh_wavenumber > 0.0)
             hr, flux_dn_surf, extras = _sw_truth(
-                sw.cos_sza, to_dev(pressure_hl), to_dev(ssi_reorder), od,
-                bg_od, to_dev(albedo[ireorder]), scalings, block_wav)
+                sw.cos_sza, device_tensor(pressure_hl, device, dtype),
+                device_tensor(ssi_reorder, device, dtype), od, bg_od,
+                device_tensor(albedo[ireorder], device, dtype), scalings,
+                block_wav)
             flux_up_toa = torch.zeros_like(flux_dn_surf)
             weight_for_median = ssi_reorder
 
@@ -622,8 +624,10 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         band's probes are global intervals of it)."""
         with logs.span("ecckd.find_g_points.prepare"):
             band = lambda a: a[..., sl].contiguous()
-            state = dict(layer_weight=to_dev(layer_weight),
-                         pressure_hl=to_dev(pressure_hl),
+            state = dict(layer_weight=device_tensor(layer_weight, device,
+                                                    dtype),
+                         pressure_hl=device_tensor(pressure_hl, device,
+                                                   dtype),
                          flux_dn_surf=band(flux_dn_surf),
                          flux_up_toa=band(flux_up_toa), bg_od=band(bg_od),
                          metric=band(metric), hr=band(hr))
@@ -640,7 +644,8 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                                    max_scaling=max_scaling)
             return CandidateCostSw(
                 averaging_method, flux_weight, cos_sza=sw.cos_sza,
-                ssi=to_dev(ssi_reorder[sl]), surf_albedo=albedo,
+                ssi=device_tensor(ssi_reorder[sl], device, dtype),
+                surf_albedo=albedo,
                 extras=band_extras, mesh=mesh, **state, **cost_options)
 
     def search(jband, kernel):
@@ -661,7 +666,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
             gas_albedo = np.zeros(nwav)
             for jband, (b1, b2) in enumerate(band_ranges):
                 gas_albedo[b1:b2 + 1] = band_albedo[jband]
-            gas_albedo = to_dev(gas_albedo)
+            gas_albedo = device_tensor(gas_albedo, device, dtype)
         gas_kernel = make_kernel(slice(0, nwav), gas_albedo)
         band_results = _search_bands(gas_kernel, band_ranges, search, mode)
 

@@ -26,10 +26,11 @@ from .. import logs
 from ..config import Config
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from ..ops.streaming import _block_accumulate, _combine, _to_device
-from ..ops.average import finalize_gpoint_partials
-from .common import (find_file, netcdf_format, resolve_device, setup,
-                     tool_prologue)
+from ..ops.average import (combine_partials, finalize_gpoint_partials,
+                           gpoint_block_partials)
+from ..ops.streaming import block_results, read_ahead
+from .common import (device_tensor, find_file, netcdf_format,
+                     resolve_device, setup, tool_prologue)
 
 
 @dataclasses.dataclass
@@ -48,10 +49,11 @@ class LwSpectra:
 def lw_spectra_core(source, g_point=None, ng=None, block_wav=1 << 20,
                     device="cuda", dtype=torch.float64) -> LwSpectra:
     """One profile's LBL longwave fluxes, computed on ``device`` (the card
-    unless ``device="cpu"``; raises without one) in wavenumber blocks, each
-    read one ahead of the device (io.prefetch).  The radiative transfer is
-    independent per wavenumber, so blocks give the whole spectrum's
-    fluxes; the broadband fluxes are the blocks' sums added in order.
+    unless ``device="cpu"``; raises without one) in wavenumber blocks on
+    create_lut's block loop (:mod:`ecckd_tpu_torch.ops.streaming`).  The
+    radiative transfer is independent per wavenumber, so blocks give the
+    whole spectrum's fluxes; the broadband fluxes are the blocks' sums
+    added in order.
 
     ``source`` has ``pressure_hl``, ``temperature_hl``, ``wavenumber``,
     ``d_wavenumber`` and ``iter_blocks``.  Without ``g_point`` the spectral
@@ -59,57 +61,63 @@ def lw_spectra_core(source, g_point=None, ng=None, block_wav=1 << 20,
     its largest value + 1) they are collapsed to g-points, the od by the
     Planck-weighted transmission average of create_lut, so that no full
     spectral array is ever held."""
-    from ..io.prefetch import prefetch_iter
     device = resolve_device(device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                     device=device)
     p_hl = np.asarray(source.pressure_hl, np.float64)
     t_hl_np = np.asarray(source.temperature_hl, np.float64)
-    t_hl = as_t(t_hl_np)
-    wav, dwav = as_t(source.wavenumber), as_t(source.d_wavenumber)
+    t_hl = device_tensor(t_hl_np, device, dtype)
+    wav = device_tensor(source.wavenumber, device, dtype)
+    dwav = device_tensor(source.d_wavenumber, device, dtype)
     nlay, nwav = len(p_hl) - 1, wav.shape[0]
-    flux_dn = torch.zeros(nlay + 1, dtype=dtype, device=device)
-    flux_up = torch.zeros_like(flux_dn)
+    blocks = source.iter_blocks(block_wav=block_wav)
     if g_point is not None:
         gp = torch.as_tensor(np.asarray(g_point), device=device)
         ng = int(gp.max()) + 1 if ng is None else ng
         g_range = torch.arange(ng, device=device)
-        fd_g = torch.zeros((nlay + 1, ng), dtype=dtype, device=device)
-        fu_g = torch.zeros_like(fd_g)
         pressure_fl = 0.5 * (p_hl[:-1] + p_hl[1:])
         t_x_p = t_hl_np * p_hl
-        t_fl = as_t(0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl)
-        acc = None
+        t_fl = device_tensor(0.5 * (t_x_p[:-1] + t_x_p[1:]) / pressure_fl,
+                             device, dtype)
     else:
         spectral = [np.empty((nlay + 1, nwav)) for _ in range(2)]
         od_all = np.empty((nlay, nwav))
-    for i0, od_blk in prefetch_iter(source.iter_blocks(block_wav=block_wav),
-                                    depth=2):
-        nb = od_blk.shape[1]
-        sl = slice(i0, i0 + nb)
-        od = _to_device(od_blk, device, dtype)
+        blocks = _kept(blocks, od_all)
+
+    def reduce(i0, od):
+        sl = slice(i0, i0 + od.shape[1])
         planck = planck_function(t_hl, wav[sl], dwav[sl])
         fd, fu = rt_lw(planck, od, torch.ones_like(planck[0]), planck[-1])
-        flux_dn += fd.sum(1)
-        flux_up += fu.sum(1)
+        out = {"flux_dn": fd.sum(1), "flux_up": fu.sum(1)}
         if g_point is None:
-            for host, flux in zip(spectral, (fd, fu)):
-                host[:, sl] = flux.cpu().numpy()
-            od_all[:, sl] = od_blk
-            continue
+            out["fd"], out["fu"] = fd, fu
+            return out
         onehot = (gp[sl, None] == g_range[None, :]).to(dtype)
-        fd_g += fd @ onehot
-        fu_g += fu @ onehot
-        part = _block_accumulate(
+        out["fd_g"], out["fu_g"] = fd @ onehot, fu @ onehot
+        out.update(gpoint_block_partials(
             ng, gp[sl], od, planck_function(t_fl, wav[sl], dwav[sl]),
-            "transmission")
-        acc = part if acc is None else _combine(acc, part)
-    host = lambda t: t.cpu().numpy()
+            "transmission"))
+        return out
+
+    acc = None
+    for i0, part in block_results(read_ahead(blocks, device), reduce,
+                                  device, dtype):
+        if g_point is None:
+            for host, key in zip(spectral, ("fd", "fu")):
+                flux = part.pop(key)
+                host[:, i0:i0 + flux.shape[1]] = flux
+        acc = part if acc is None else combine_partials(acc, part)
     if g_point is None:
-        return LwSpectra(host(flux_dn), host(flux_up), *spectral, od_all)
+        return LwSpectra(acc["flux_dn"], acc["flux_up"], *spectral, od_all)
     od_g = finalize_gpoint_partials(acc, "transmission")[0]
-    return LwSpectra(host(flux_dn), host(flux_up), host(fd_g), host(fu_g),
-                     od_g)
+    return LwSpectra(acc["flux_dn"], acc["flux_up"], acc["fd_g"],
+                     acc["fu_g"], od_g)
+
+
+def _kept(blocks, od_all):
+    """``blocks``, each host block (numpy or a CPU tensor) also copied
+    into ``od_all`` where it lies, on the thread that reads them."""
+    for i0, od_blk in blocks:
+        od_all[:, i0:i0 + od_blk.shape[1]] = np.asarray(od_blk)
+        yield i0, od_blk
 
 
 def _define_schema(w, cfg, argv, src, ng):

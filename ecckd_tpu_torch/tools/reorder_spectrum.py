@@ -29,8 +29,8 @@ from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
-from .common import (find_file, maybe_profile, netcdf_format,
-                     resolve_device, setup, tool_prologue)
+from .common import (device_tensor, find_file, maybe_profile,
+                     netcdf_format, resolve_device, setup, tool_prologue)
 
 
 def _sorting_kernel(pressure_hl, wavenumber, d_wavenumber, od,
@@ -105,9 +105,7 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
     ``iter_blocks(block_wav)`` (the JAX package's ProfileBlocks).  Returns
     (sorting_variable, column_optical_depth) as float64 numpy arrays."""
     device = resolve_device(device)
-    as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
-                                     device=device)
-    p_hl = as_t(pressure_hl)
+    p_hl = device_tensor(pressure_hl, device, dtype)
     wavenumber = np.asarray(wavenumber)
     d_wavenumber = np.asarray(d_wavenumber)
     nwav = len(wavenumber)
@@ -121,13 +119,14 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
                   for i0 in range(0, nwav, block_wav))
     for i0, od_blk in blocks:
         sl = slice(i0, i0 + od_blk.shape[1])
+        od_t = device_tensor(od_blk, device, dtype)
         if do_sw:
             s_blk, c_blk = _sw_sorting_kernel(
-                p_hl, as_t(od_blk), float(threshold_optical_depth))
+                p_hl, od_t, float(threshold_optical_depth))
         else:
             s_blk, c_blk = _sorting_kernel(
-                p_hl, as_t(wavenumber[sl]), as_t(d_wavenumber[sl]),
-                as_t(od_blk),
+                p_hl, device_tensor(wavenumber[sl], device, dtype),
+                device_tensor(d_wavenumber[sl], device, dtype), od_t,
                 threshold_optical_depth=float(threshold_optical_depth))
         sorting[sl] = s_blk.cpu().numpy()
         column_od[sl] = c_blk.cpu().numpy()

@@ -22,8 +22,8 @@ from ecckd_tpu.ops.heating_rate import heating_rate as jheating_rate
 from ecckd_tpu.partition.cost_kernel import CandidateCostLw as JCost
 from ecckd_tpu.partition.cost_kernel import CkdEquipartition as JEq
 from ecckd_tpu_torch.convert import lw_band_state
-from ecckd_tpu_torch.ops.average import (average_od_to_gpoints,
-                                         fit_optical_depth_lw)
+from ecckd_tpu_torch.ops.average import fit_optical_depth_lw
+from ecckd_tpu_torch.ops.streaming import average_od_to_gpoints
 from ecckd_tpu_torch.partition import CandidateCostLw, CkdEquipartition
 
 T = torch.from_numpy

@@ -1115,7 +1115,7 @@ def test_sharded_average_against_one_device(device):
     identical, fits within 1e-10."""
     if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    from ecckd_tpu_torch.ops.average import average_od_to_gpoints
+    from ecckd_tpu_torch.ops.streaming import average_od_to_gpoints
     from ecckd_tpu_torch.parallel import make_mesh, sharded_average as sa
     dev = torch.device(device)
     mesh = make_mesh(devices=[dev] * 4, data_parallel=1)

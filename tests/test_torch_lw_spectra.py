@@ -27,11 +27,17 @@ from ecckd_tpu.tools.lw_spectra import _gpoint_profile_blockwise
 from ecckd_tpu.tools.lw_spectra import lw_spectra as jlw_spectra
 from ecckd_tpu_torch.config import Config
 from ecckd_tpu_torch.io.shards import convert_spectrum_file
-from ecckd_tpu_torch.io.spectrum import (open_merged_spectrum_profile,
+from ecckd_tpu_torch.io.spectrum import (Spectrum,
+                                         open_merged_spectrum_profile,
                                          read_spectrum, spectrum_blocks)
+from ecckd_tpu_torch.ops import streaming
 from ecckd_tpu_torch.tools.lw_spectra import lw_spectra, lw_spectra_core
 from synth import synth_spectrum_file
+from test_torch_pinned_streaming import SOURCES, block_sources
 from test_torch_pipeline import _assert_same_schema
+
+FIELDS = ("flux_dn", "flux_up", "spectral_flux_dn", "spectral_flux_up",
+          "optical_depth")
 
 
 @pytest.fixture(scope="module")
@@ -201,3 +207,56 @@ def test_core_on_arrays_and_device_default(spectra):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
             lw_spectra_core(spectrum_blocks(sp))
+
+
+class _Staged:
+    """A block source with its blocks staged as the card's prefetch thread
+    stages them (here unpinned)."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+    def iter_blocks(self, block_wav):
+        for i0, b in self.source.iter_blocks(block_wav=block_wav):
+            yield i0, streaming._stage(b, pin_memory=False)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("gpoints", [False, True])
+def test_core_on_block_sources(tmp_path, gpoints, kind, staged):
+    """lw_spectra_core on a profile in blocks of 300 (the last short), from
+    arrays and from float64 and float32 shards, as read or staged: the core
+    on the arrays of the same od bit for bit, and the JAX package within
+    1e-10 normwise (its blockwise g-point collapse, or its Planck function
+    and rt_lw over the whole spectrum)."""
+    nwav, ng = 1000, 5
+    sp, source = block_sources(tmp_path, nlay=6, nwav=nwav, seed=5)
+    reader, od = source(kind)
+    sp = Spectrum(sp.pressure_hl, sp.temperature_hl, sp.wavenumber,
+                  sp.d_wavenumber, od.astype(np.float64))
+    g_point = (np.random.default_rng(6).integers(0, ng, nwav) if gpoints
+               else None)
+    with reader:
+        got = lw_spectra_core(_Staged(reader) if staged else reader, g_point,
+                              block_wav=300, device="cpu")
+    want = lw_spectra_core(spectrum_blocks(sp), g_point, block_wav=300,
+                           device="cpu")
+    for name in FIELDS:
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), name)
+    if gpoints:
+        jax_out = _gpoint_profile_blockwise(spectrum_blocks(sp), g_point,
+                                            ng, jplanck, jrt_lw, 300)
+    else:
+        planck = jplanck(sp.temperature_hl, sp.wavenumber, sp.d_wavenumber)
+        fd, fu = map(np.asarray, jrt_lw(planck, sp.optical_depth,
+                                        np.ones(nwav), planck[-1]))
+        jax_out = (fd.sum(1), fu.sum(1), fd, fu, sp.optical_depth)
+    for name, w in zip(FIELDS, jax_out):
+        g, w = getattr(got, name), np.asarray(w)
+        assert g.shape == w.shape, name
+        assert np.linalg.norm(g - w) <= 1e-10 * np.linalg.norm(w), name

@@ -7,7 +7,8 @@ same seeded numpy inputs go through both.  Held:
 * ``make_mesh``'s (data, spectral) shapes for 1, 2, 4 and 8 devices;
 * the four sharded-averaging entry points for all eight averaging methods
   over 2, 4 and 8 shards, against JAX's mesh runs (1e-10), with min and max
-  bit-identical, and the empty and all-zero g-point cases;
+  bit-identical, and the empty and all-zero g-point cases; on a mesh of
+  one spectral shard, the one-device averages' bits;
 * the sharded LW and SW candidate costs (CandidateCostLw/Sw with ``mesh``)
   against JAX's mesh mode (1e-10 of the batch's largest cost), including a
   band smaller than the mesh;
@@ -39,6 +40,8 @@ from ecckd_tpu.tools.reorder_spectrum import reorder_spectrum as jreorder
 from ecckd_tpu_torch.config import Config
 from ecckd_tpu_torch.convert import (LW_BAND_ARRAYS, SW_BAND_ARRAYS,
                                      lw_band_state, sw_band_state)
+from ecckd_tpu_torch.ops.streaming import (average_od_to_gpoints,
+                                           streaming_average_od_to_gpoints)
 from ecckd_tpu_torch.parallel import make_mesh, profile_slices
 from ecckd_tpu_torch.parallel import sharded_average as tsa
 from ecckd_tpu_torch.partition import CandidateCostLw, CandidateCostSw
@@ -158,6 +161,30 @@ def test_sharded_average_all_methods(method):
             assert _normwise(fit, want[0]) <= 1e-10, (n, method)
             np.testing.assert_array_equal(mn, want[1])
             np.testing.assert_array_equal(mx, want[2])
+
+
+@pytest.mark.parametrize("method", list(GPOINT_AVERAGING_METHODS))
+@pytest.mark.parametrize("n", [1, 4])
+def test_one_spectral_shard_is_one_device(n, method):
+    """A mesh whose spectral axis is one shard (one shard, or four in four
+    data rows) runs the one-device block loop on the same blocks: each of
+    the four entry points gives the bits of the one-device average, the
+    streamed ones those of the streamed average at the same block size,
+    the dense ones those of the dense average in one block."""
+    od, weight, g_point = build_problem(nwav=1000)
+    ng = 5
+    T = torch.from_numpy
+    stream = streaming_average_od_to_gpoints(
+        _Reader(od), ng, g_point, lambda i0, nb: weight[:, i0:i0 + nb],
+        method, block_wav=300, pressure_fl=PRESSURE_FL, device="cpu")
+    dense = average_od_to_gpoints(ng, T(g_point), T(od), T(weight), method,
+                                  pressure_fl=PRESSURE_FL,
+                                  block_wav=od.shape[1])
+    runs = _four_paths(tsa, cpu_mesh(n, data_parallel=n), od, weight,
+                       g_point, ng, method)
+    for got, want in zip(runs, (dense, stream, dense, stream)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_sharded_average_empty_and_all_zero_gpoints():

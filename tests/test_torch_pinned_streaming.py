@@ -1,5 +1,5 @@
 """The streamed average's pinned path on the card (``ecckd_tpu_torch/ops/
-streaming.py``: ``_stage``, ``_upload``, ``_pinned_partials``).
+streaming.py``: ``_stage``, ``_upload``, ``block_results``).
 
 On a CUDA device the prefetch thread stages each host block in page-locked
 memory and the consumer copies it on a side stream one block ahead of its
@@ -10,9 +10,9 @@ which needs no jax):
 * a profile streamed in many small blocks, so that the staging buffers
   cycle fast, from arrays in memory (row-strided float64 views) and from a
   float32 shard (transposed views, widened on the card): the pinned path
-  against the pageable loop (each block copied by ``_to_device`` and read
-  back before the next) and the dense path at the same block size, bit
-  for bit, every block counted as pinned;
+  against the same loop on unstaged blocks (each block copied by
+  ``to_device``) and the dense path at the same block size, bit for bit,
+  every block counted as pinned;
 * staging buffers handed back to the allocator while their copies still
   wait on a stalled side stream: each block reaches the card as staged,
   none overwritten by a later block's staging.
@@ -28,8 +28,9 @@ import torch
 from ecckd_tpu_torch.io.shards import ShardReader, write_shard
 from ecckd_tpu_torch.io.spectrum import Spectrum, spectrum_blocks
 from ecckd_tpu_torch.ops import streaming
-from ecckd_tpu_torch.ops.average import (average_od_to_gpoints,
-                                         finalize_gpoint_partials)
+from ecckd_tpu_torch.ops.average import (finalize_gpoint_partials,
+                                         gpoint_block_partials)
+from ecckd_tpu_torch.ops.streaming import average_od_to_gpoints
 
 SOURCES = ("arrays", "shard64", "shard32")
 
@@ -65,15 +66,17 @@ def cuda():
 
 
 def _pageable(reader, ng, gp, wfn, method, block_wav, device):
-    """The streamed loop without staging: each block copied by
-    ``_to_device`` and its partials read back before the next."""
-    acc = None
-    for iwav0, od in reader.iter_blocks(block_wav=block_wav):
+    """The block loop on the blocks as read, without staging: each block
+    copied by ``to_device``."""
+    def reduce(iwav0, od):
         nb = od.shape[1]
-        part = streaming._block_accumulate(
-            ng, gp[iwav0:iwav0 + nb], od, wfn(iwav0, nb), method, device,
-            torch.float64)
-        acc = part if acc is None else streaming._combine(acc, part)
+        return gpoint_block_partials(
+            ng, gp[iwav0:iwav0 + nb], od,
+            streaming.to_device(wfn(iwav0, nb), device, torch.float64),
+            method)
+
+    acc = streaming.fold_blocks(reader.iter_blocks(block_wav=block_wav),
+                                reduce, device, torch.float64)
     return finalize_gpoint_partials(acc, method)
 
 

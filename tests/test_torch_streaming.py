@@ -54,11 +54,12 @@ from ecckd_tpu_torch.io.shards import (ShardReader, convert_spectrum_file,
 from ecckd_tpu_torch.io.spectrum import (Spectrum, open_spectrum_profile,
                                          read_spectrum, spectrum_blocks)
 from ecckd_tpu_torch.ops.average import (GPOINT_AVERAGING_METHODS,
-                                         average_od_to_gpoints,
+                                         combine_partials,
                                          finalize_gpoint_partials,
                                          gpoint_block_partials)
 from ecckd_tpu_torch.ops import streaming as ops_streaming
-from ecckd_tpu_torch.ops.streaming import streaming_average_od_to_gpoints
+from ecckd_tpu_torch.ops.streaming import (average_od_to_gpoints,
+                                           streaming_average_od_to_gpoints)
 from ecckd_tpu_torch.tools.create_lut import _Execution, create_lut
 from synth import synth_spectrum_file
 from test_torch_pinned_streaming import SOURCES, block_sources
@@ -374,11 +375,11 @@ class TestShards:
 
 @pytest.mark.parametrize("method", GPOINT_AVERAGING_METHODS)
 def test_block_partials_and_finalize_match_jax(method):
-    """gpoint_block_partials of two blocks combined and finalized: the
-    JAX package's partials within 1e-12 of each key's largest value, min
-    and max bit-identical, and its finalized fit within 1e-12."""
-    from ecckd_tpu.ops.streaming import _combine as jcombine
-    from ecckd_tpu_torch.ops.streaming import _block_accumulate, _combine
+    """gpoint_block_partials of two blocks on the port's block loop,
+    combined and finalized: the JAX package's partials within 1e-12 of each
+    key's largest value, min and max bit-identical, and its finalized fit
+    within 1e-12."""
+    from ecckd_tpu.ops import streaming as jax_streaming
     rng = np.random.default_rng(4)
     nz, nwav, ng = 15, 3000, 7
     od = rng.gamma(0.4, 1.0, (nz, nwav))
@@ -387,10 +388,17 @@ def test_block_partials_and_finalize_match_jax(method):
     g_point = rng.integers(-1, ng - 1, nwav)    # g-point ng-1 stays empty
     g_point[:8] = 2
     p_fl = np.exp(np.linspace(np.log(200.0), np.log(1.0e5), nz))
+
+    def reduce(i0, od_block):
+        sl = slice(i0, i0 + od_block.shape[1])
+        return gpoint_block_partials(ng, T(g_point[sl]), od_block,
+                                     T(weight[:, sl]), method)
+
     acc = jacc = None
-    for sl in (slice(0, 1700), slice(1700, nwav)):
-        part = _block_accumulate(ng, T(g_point[sl]), T(od[:, sl]),
-                                 T(weight[:, sl]), method)
+    blocks = (slice(0, 1700), slice(1700, nwav))
+    parts = ops_streaming.block_results(
+        [(sl.start, T(od[:, sl])) for sl in blocks], reduce)
+    for sl, (_, part) in zip(blocks, parts):
         jpart = {k: np.asarray(v) for k, v in jpartials(
             ng, g_point[sl], od[:, sl], weight[:, sl], method).items()}
         assert sorted(part) == sorted(jpart)
@@ -401,8 +409,8 @@ def test_block_partials_and_finalize_match_jax(method):
                 np.testing.assert_allclose(
                     part[key], jpart[key], rtol=1e-12,
                     atol=1e-12 * np.abs(jpart[key]).max())
-        acc = part if acc is None else _combine(acc, part)
-        jacc = jpart if jacc is None else jcombine(jacc, jpart)
+        acc = part if acc is None else combine_partials(acc, part)
+        jacc = jpart if jacc is None else jax_streaming._combine(jacc, jpart)
     got = finalize_gpoint_partials(acc, method, pressure_fl=p_fl)
     want = jfinalize(jacc, method, pressure_fl=p_fl)
     for g, w in zip(got, want):
