@@ -3,11 +3,12 @@
 The port's counterpart of ``ecckd_tpu/ops/streaming.py``: a profile too
 large to hold (CKDMIP's ~5.6M wavenumbers x ~50 layers) is averaged into
 g-points block by block.  :func:`block_results` is the loop every
-block-wise reduction of the port runs on (dense and streamed averaging
-here, the mesh's in :mod:`ecckd_tpu_torch.parallel.sharded_average`,
-lw_spectra): it puts each block on the device, enqueues the caller's
-reduction of it and reads the reduction's tensors back in one copy; the
-blocks' results combine on the host (:func:`fold_blocks`,
+block-wise pass of the port runs on (dense and streamed averaging here,
+the mesh's in :mod:`ecckd_tpu_torch.parallel.sharded_average`,
+lw_spectra, reorder_spectrum's sorting variable, find_g_points' copies
+of each gas's od): it puts each block on the device, enqueues the
+caller's reduction of it and reads the reduction's tensors back in one
+copy; the blocks' results combine on the host (:func:`fold_blocks`,
 :func:`~ecckd_tpu_torch.ops.average.combine_partials`).  Blocks read from
 a source are read ahead on a background thread (:func:`read_ahead`,
 io/prefetch.py); on a CUDA device that thread also stages each in
@@ -114,7 +115,9 @@ def read_ahead(blocks, device):
 def block_results(blocks, reduce, device=None, dtype=None):
     """The loop: for each (iwav0, block) of ``blocks``, in order, (iwav0,
     dict of numpy arrays) of ``reduce(iwav0, device_block)``, a dict of
-    tensors on one device, read back in one copy.
+    tensors on one device, read back in one copy.  A ``reduce`` that
+    returns an empty dict (it writes its block somewhere on the device)
+    has nothing read back, and the loop does not wait for the device.
 
     With a ``device``, every host block (numpy or a CPU tensor) goes there
     as a ``dtype`` tensor: on a card a page-locked one (:func:`read_ahead`
@@ -156,8 +159,12 @@ def block_results(blocks, reduce, device=None, dtype=None):
                 block = to_device(block, device, dtype)
         with logs.span("ecckd.create_lut.partials"):
             out = reduce(iwav0, block)
-            flat = torch.cat([v.reshape(-1) for v in out.values()])
+            flat = (torch.cat([v.reshape(-1) for v in out.values()])
+                    if out else None)
         ahead = issue()
+        if flat is None:
+            yield iwav0, {}
+            continue
         with logs.span("ecckd.create_lut.partials"):
             flat = flat.cpu().numpy()
         host, i = {}, 0

@@ -43,6 +43,7 @@ from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
 from ..ops.rt_sw import rt_direct_sw, rt_norayleigh_sw
+from ..ops.streaming import block_results, read_ahead
 from ..partition import (CandidateCostLw, CandidateCostSw, CkdEquipartition,
                          SingleGasData, merged_g_point_map, overlap_g_points)
 from ..partition.band_parallel import BandKernelView, ProbeScheduler
@@ -52,6 +53,10 @@ from .common import (device_tensor, find_file, maybe_profile,
 
 # Surface albedo of the no-Rayleigh SW bands (find_g_points.cpp:415-417)
 REFERENCE_ALBEDO = 0.15
+# Wavenumbers a block of a gas's od copied to the device (_device_copy):
+# at 5.6M x 50 float64 on an H100, blocks of 2^17-2^21 all copy at ~20
+# GB/s once staged, and 2^20 was the steadiest (PERF.md)
+COPY_BLOCK_WAV = 1 << 20
 
 
 @dataclasses.dataclass
@@ -493,6 +498,27 @@ def _search_bands(kernel, band_ranges, search, mode):
     return results
 
 
+def _device_copy(a, device, dtype):
+    """Host array ``a`` (nlay, nwav) as a ``dtype`` tensor on ``device``,
+    copied on the port's block loop in blocks of ``COPY_BLOCK_WAV``
+    wavenumbers: on a card each block is staged in page-locked memory on
+    the prefetch thread and copied one block ahead into its slice of the
+    result."""
+    a = np.asarray(a)
+    out = torch.empty(a.shape, dtype=dtype, device=device)
+
+    def into_slice(i0, block):
+        out[:, i0:i0 + block.shape[1]].copy_(block)
+        return {}
+
+    blocks = ((i0, a[:, i0:i0 + COPY_BLOCK_WAV])
+              for i0 in range(0, a.shape[1], COPY_BLOCK_WAV))
+    for _ in block_results(read_ahead(blocks, device), into_slice, device,
+                           dtype):
+        pass
+    return out
+
+
 def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
                 averaging_method, flux_weight, min_pressure, block_wav,
                 device, dtype, sw: Optional[_Shortwave],
@@ -547,15 +573,15 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         sorting_variable = np.asarray(gas.sorting_variable)[ireorder]
 
         index = torch.from_numpy(ireorder).to(device)
-        od = device_tensor(gas.optical_depth, device, dtype).index_select(
+        od = _device_copy(gas.optical_depth, device, dtype).index_select(
             1, index)
         col_od = od.sum(dim=1)
         logs.log(f"    Column optical depth: {col_od.mean().item():g} +/- "
                  f"{col_od.std(unbiased=False).item():g}")
         bg_od = None
         if gas.bg_optical_depth is not None:
-            bg_od = device_tensor(gas.bg_optical_depth, device,
-                                  dtype).index_select(1, index)
+            bg_od = _device_copy(gas.bg_optical_depth, device,
+                                 dtype).index_select(1, index)
         wavenumber_cm_1 = np.asarray(gas.wavenumber)[ireorder]
         d_wavenumber_cm_1 = np.asarray(gas.d_wavenumber)[ireorder]
         pressure_hl = np.asarray(gas.pressure_hl, np.float64)

@@ -29,6 +29,7 @@ from ..config import Config
 from ..ops.heating_rate import heating_rate
 from ..ops.planck import planck_function
 from ..ops.rt_lw import rt_lw
+from ..ops.streaming import block_results, read_ahead
 from .common import (device_tensor, find_file, maybe_profile,
                      netcdf_format, resolve_device, setup, tool_prologue)
 
@@ -102,34 +103,42 @@ def compute_sorting_variable(pressure_hl, wavenumber, d_wavenumber,
     raises without one).
 
     ``optical_depth`` is a dense (nlay, nwav) array or anything with
-    ``iter_blocks(block_wav)`` (the JAX package's ProfileBlocks).  Returns
-    (sorting_variable, column_optical_depth) as float64 numpy arrays."""
+    ``iter_blocks(block_wav)`` (the JAX package's ProfileBlocks).  The
+    blocks run on the port's block loop (:func:`~ecckd_tpu_torch.ops.
+    streaming.block_results`): on a card each is staged in page-locked
+    memory on the prefetch thread and copied one block ahead of its
+    kernel.  Returns (sorting_variable, column_optical_depth) as float64
+    numpy arrays."""
     device = resolve_device(device)
     p_hl = device_tensor(pressure_hl, device, dtype)
-    wavenumber = np.asarray(wavenumber)
-    d_wavenumber = np.asarray(d_wavenumber)
     nwav = len(wavenumber)
     sorting = np.empty(nwav)
     column_od = np.empty(nwav)
+    threshold = float(threshold_optical_depth)
     if hasattr(optical_depth, "iter_blocks"):
         blocks = optical_depth.iter_blocks(block_wav=block_wav)
     else:
         od_arr = np.asarray(optical_depth)
         blocks = ((i0, od_arr[:, i0:i0 + block_wav])
                   for i0 in range(0, nwav, block_wav))
-    for i0, od_blk in blocks:
-        sl = slice(i0, i0 + od_blk.shape[1])
-        od_t = device_tensor(od_blk, device, dtype)
+    if not do_sw:
+        wav_t = device_tensor(wavenumber, device, dtype)
+        dwav_t = device_tensor(d_wavenumber, device, dtype)
+
+    def reduce(i0, od):
         if do_sw:
-            s_blk, c_blk = _sw_sorting_kernel(
-                p_hl, od_t, float(threshold_optical_depth))
+            s, c = _sw_sorting_kernel(p_hl, od, threshold)
         else:
-            s_blk, c_blk = _sorting_kernel(
-                p_hl, device_tensor(wavenumber[sl], device, dtype),
-                device_tensor(d_wavenumber[sl], device, dtype), od_t,
-                threshold_optical_depth=float(threshold_optical_depth))
-        sorting[sl] = s_blk.cpu().numpy()
-        column_od[sl] = c_blk.cpu().numpy()
+            sl = slice(i0, i0 + od.shape[1])
+            s, c = _sorting_kernel(p_hl, wav_t[sl], dwav_t[sl], od,
+                                   threshold_optical_depth=threshold)
+        return {"sorting": s, "column_od": c}
+
+    for i0, out in block_results(read_ahead(blocks, device), reduce, device,
+                                 dtype):
+        sl = slice(i0, i0 + len(out["sorting"]))
+        sorting[sl] = out["sorting"]
+        column_od[sl] = out["column_od"]
     return sorting, column_od
 
 

@@ -152,14 +152,19 @@ def test_band_threads_take_the_core_call_as_parent(traced):
         s.thread != MAIN and (
             by_id[s.parent].name == "ecckd.partition.band_probe"
             or s.parent == core.id) for s in probes)
+    # reorder's calls, before the core, hold their steps and the block
+    # loop's spans of the sorting variable
+    reorders = {s.id for s in spans if s.name == "ecckd.reorder.core"}
     call = [s for s in spans if s.call == core.id]
-    assert len(call) == sum(1 for s in spans if not s.name.startswith(
-        "ecckd.reorder."))
+    assert len(call) == sum(1 for s in spans if s.call not in reorders)
     for s in spans:
         if s.name.startswith("ecckd.reorder.") and s.name != \
                 "ecckd.reorder.core":
             assert by_id[s.parent].name == "ecckd.reorder.core"
             assert s.call == s.parent
+        elif s.call in reorders and s.id not in reorders:
+            assert s.name.startswith("ecckd.create_lut.")
+            assert by_id[s.parent].name == "ecckd.reorder.sorting_variable"
 
 
 def test_prefetch_thread_takes_the_profile_as_parent(traced):
@@ -178,6 +183,76 @@ def test_prefetch_thread_takes_the_profile_as_parent(traced):
                       "ecckd.create_lut.partials"):
             assert s.thread == MAIN
             assert by_id[s.parent].name == "ecckd.create_lut.profile"
+
+
+LOOP = ("ecckd.create_lut.wait_block", "ecckd.create_lut.copy",
+        "ecckd.create_lut.partials", "ecckd.create_lut.stage")
+
+
+def _loop_spans_by_step(spans):
+    """The block loop's spans of a search, by the name of the search step
+    they ran under: their parent, or the span that started their thread."""
+    by_id = {s.id: s for s in spans}
+    steps = {}
+    for s in spans:
+        if s.name in LOOP:
+            steps.setdefault(by_id[s.parent].name, []).append(s)
+    return steps
+
+
+@pytest.mark.parametrize("cell", ["lw-fsck32.search", "sw-rgb32.search"])
+def test_search_copies_nest_under_their_steps(traced, cell):
+    """The block loop of the search's od copies, on the CPU: its wait,
+    copy and read-back spans on the main thread, under reorder's
+    ``sorting_variable`` (a block a gas at this size) and find_g_points'
+    ``prepare`` (the od of each gas and the background of the second),
+    and under no other step."""
+    steps = _loop_spans_by_step(traced[cell].spans)
+    assert set(steps) == {"ecckd.reorder.sorting_variable",
+                          "ecckd.find_g_points.prepare"}
+    for step, found in steps.items():
+        assert all(s.thread == MAIN for s in found)
+        names = [s.name for s in found]
+        blocks = 2 if step == "ecckd.reorder.sorting_variable" else 3
+        assert names.count("ecckd.create_lut.copy") == blocks, (step, names)
+        assert names.count("ecckd.create_lut.partials") >= blocks
+        assert names.count("ecckd.create_lut.wait_block") >= blocks
+
+
+@pytest.mark.gpu
+def test_search_staging_nests_under_its_steps():
+    """On the card (``python -m pytest --noconftest -m gpu
+    tests/test_torch_spans.py``): the prefetch thread's ``.stage`` spans
+    and the main thread's ``.copy`` and ``.partials`` spans of a small LW
+    search under a profile nest under reorder's ``sorting_variable`` and
+    find_g_points' ``prepare``, one ``.stage`` and one ``.copy`` a
+    block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: staging has no CPU mode")
+    from ckd_bench.jobs.search import Job
+    cfg = bench_conftest.tiny("lw-fsck32", **bench_conftest.LW_SEARCH)
+    job = Job(cfg, {"job": "search"}, SEED, "cuda")
+    logs.set_log_level("warning")
+    try:
+        job.run()
+        logs.clear_spans()
+        with torch.profiler.profile():
+            job.run()
+        steps = _loop_spans_by_step(logs.spans())
+    finally:
+        logs.clear_spans()
+        logs.set_log_level("info")
+    # a block a gas: reorder's od; find_g_points' od and one background
+    blocks = {"ecckd.reorder.sorting_variable": 2,
+              "ecckd.find_g_points.prepare": 3}
+    assert set(steps) == set(blocks)
+    for step, found in steps.items():
+        stages = [s for s in found if s.name == "ecckd.create_lut.stage"]
+        copies = [s for s in found if s.name == "ecckd.create_lut.copy"]
+        assert len(stages) == len(copies) == blocks[step], step
+        assert all(s.thread != MAIN for s in stages)
+        assert all(s.thread == MAIN for s in copies)
+        assert any(s.name == "ecckd.create_lut.partials" for s in found)
 
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
