@@ -5,6 +5,8 @@ TPU-native equivalents of src/ecckd/single_gas_data.{h,cpp}: the
 gas record), the hypercube-partition gas overlap of Hogan (2010)
 (single_gas_data.cpp:23-124 — pure integer logic, ported faithfully), and
 error-density-based repartitioning (single_gas_data.cpp:129-284).
+:func:`map_counts` counts the full-length passes over the wavenumbers that
+the two per-wavenumber map builders make.
 
 The port's own copy of ``ecckd_tpu/partition/gas_data.py``: the port imports
 nothing of the JAX package.
@@ -18,6 +20,21 @@ from typing import List, Optional
 import numpy as np
 
 from .. import logs
+
+_map_passes = {"store": 0, "merged": 0}
+
+
+def map_counts():
+    """Full-length passes over the wavenumbers since the last reset:
+    ``store``, one a g-point by :meth:`SingleGasData.store_g_points`;
+    ``merged``, one a (merged g-point, gas) pair by
+    :func:`merged_g_point_map`."""
+    return dict(_map_passes)
+
+
+def reset_map_counts():
+    for key in _map_passes:
+        _map_passes[key] = 0
 
 
 @dataclasses.dataclass
@@ -52,6 +69,7 @@ class SingleGasData:
         for ig in range(self.ng()):
             self.g_point[(rank >= self.rank1[ig])
                          & (rank <= self.rank2[ig])] = ig
+        _map_passes["store"] += self.ng()
 
     def print(self):
         logs.log(f"Single-gas data for {self.Molecule}:")
@@ -151,6 +169,7 @@ def merged_g_point_map(gas_data: List[SingleGasData], ng: int,
         if not np.any(is_found):
             logs.warning(f"g point {ig} occupies none of the spectrum")
         g_point[is_found] = ig
+    _map_passes["merged"] += ng * len(gas_data)
     n_unassigned = int(np.sum(g_point == -1))
     if n_unassigned:
         logs.warning(f"{n_unassigned} wavenumbers are not assigned to a "

@@ -815,7 +815,8 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         error=np.asarray(error_l),
         sorting_variable=np.asarray(median_l))
     with logs.span("ecckd.find_g_points.store"):
-        gas_data.store_g_points(irank)
+        with logs.span("ecckd.find_g_points.store.map"):
+            gas_data.store_g_points(irank)
         gas_data.print()
     return gas_data
 
@@ -877,11 +878,14 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
             logs.log("")
         logs.log("*** COMPUTING SPECTRAL OVERLAP OF GASES")
         with logs.span("ecckd.find_g_points.overlap"):
-            band_number = overlap_g_points(single_gas_data)
+            with logs.span("ecckd.find_g_points.overlap.hypercube"):
+                band_number = overlap_g_points(single_gas_data)
             ng = len(band_number)
             wavenumber = (np.asarray(gases[-1].wavenumber, np.float64) if gases
                           else np.zeros(0))
-            g_point = merged_g_point_map(single_gas_data, ng, len(wavenumber))
+            with logs.span("ecckd.find_g_points.overlap.map"):
+                g_point = merged_g_point_map(single_gas_data, ng,
+                                             len(wavenumber))
             solar_irradiance = None
             if sw is not None:
                 solar_irradiance = np.zeros(ng)

@@ -94,19 +94,43 @@ def _sw_args(args, with_up=True):
             (1.0 - emis) if with_up else 0.0, with_up)
 
 
-def test_cpu_tensors_take_plain_path():
+def test_cpu_tensors_take_plain_path(monkeypatch):
+    """For CPU tensors each wrapper hands its arguments to its plain
+    version and returns that version's result itself, launching nothing.
+    The result is taken from the call, not computed a second time: a
+    second computation's bits would hold the plain version to itself,
+    which is no question of the route."""
+    from ecckd_tpu_torch.ops.kernels import interval_sum, sweep_lw, sweep_sw
+    calls = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def plain(*a, **k):
+            out = real(*a, **k)
+            calls.append((name, a, out))
+            return out
+        monkeypatch.setattr(module, name, plain)
+
+    spy(sweep_lw, "sweep_lw_plain")
+    spy(sweep_sw, "sweep_sw_plain")
+    spy(interval_sum, "interval_sum_fused")
     reset_launch_counts()
     args = _to(_inputs(6, 700, [0, 300], [299, 699], seed=9), "cpu",
                torch.float64)
-    for g, w in zip(sweep_lw_intervals(*args), sweep_lw_plain(*args)):
-        assert torch.equal(g, w)
-    for with_up in (True, False):
-        sw = _sw_args(args, with_up)
-        for g, w in zip(sweep_sw_intervals(*sw), sweep_sw_plain(*sw)):
-            assert torch.equal(g, w)
+    cases = [(sweep_lw_intervals, "sweep_lw_plain", args)]
+    cases += [(sweep_sw_intervals, "sweep_sw_plain", _sw_args(args, up))
+              for up in (True, False)]
     parts = _fit_parts(args[0], args[1], args[4])
-    assert torch.equal(fused_interval_sum(parts, 700, args[6], args[7]),
-                       interval_sum_fused(parts, 700, args[6], args[7]))
+    cases.append((lambda *a: fused_interval_sum(parts, *a),
+                  "interval_sum_fused", (700, args[6], args[7])))
+    for wrapper, name, a in cases:
+        calls.clear()
+        got = wrapper(*a)
+        assert len(calls) == 1, calls
+        called, passed, out = calls[0]
+        assert called == name and got is out
+        assert all(x is y for x, y in zip(passed[-len(a):], a))
     assert sweep_lw_intervals.launches == 0
     assert sweep_sw_intervals.launches == 0
     assert fused_interval_sum.launches == 0
