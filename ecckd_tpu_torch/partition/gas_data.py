@@ -5,8 +5,10 @@ TPU-native equivalents of src/ecckd/single_gas_data.{h,cpp}: the
 gas record), the hypercube-partition gas overlap of Hogan (2010)
 (single_gas_data.cpp:23-124 — pure integer logic, ported faithfully), and
 error-density-based repartitioning (single_gas_data.cpp:129-284).
-:func:`map_counts` counts the full-length passes over the wavenumbers that
-the two per-wavenumber map builders make.
+The two per-wavenumber maps are gathers from lookup tables on the search's
+device: each gas's from a table over ranks, the merged one from a table
+over the tuples of per-gas g-points that occur.  :func:`map_counts` counts
+the full-length passes over the wavenumbers that the two builders make.
 
 The port's own copy of ``ecckd_tpu/partition/gas_data.py``: the port imports
 nothing of the JAX package.
@@ -18,6 +20,7 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .. import logs
 
@@ -26,9 +29,9 @@ _map_passes = {"store": 0, "merged": 0}
 
 def map_counts():
     """Full-length passes over the wavenumbers since the last reset:
-    ``store``, one a g-point by :meth:`SingleGasData.store_g_points`;
-    ``merged``, one a (merged g-point, gas) pair by
-    :func:`merged_g_point_map`."""
+    ``store``, one a call of :meth:`SingleGasData.store_g_points` (its
+    gather); ``merged``, one a gas a call of :func:`merged_g_point_map`
+    (each gas's map read once into the tuple ids)."""
     return dict(_map_passes)
 
 
@@ -62,14 +65,22 @@ class SingleGasData:
     def ng(self) -> int:
         return len(self.rank1)
 
-    def store_g_points(self, rank: np.ndarray):
+    def store_g_points(self, rank: np.ndarray, device="cpu"):
         """Per-wavenumber g-point map from rank ranges
-        (ref single_gas_data.h:59-66)."""
-        self.g_point = np.full(rank.max() + 1, -1, np.int32)
+        (ref single_gas_data.h:59-66): a wavenumber takes the last g-point
+        whose [rank1, rank2] holds its rank, else -1.  A table over the
+        ranks is filled interval by interval on ``device`` and gathered by
+        ``rank``; ``g_point`` is the host int32 result."""
+        rank = torch.as_tensor(np.asarray(rank)).to(device, torch.int64)
+        table = torch.full((int(rank.max()) + 1,), -1, dtype=torch.int32,
+                           device=device)
         for ig in range(self.ng()):
-            self.g_point[(rank >= self.rank1[ig])
-                         & (rank <= self.rank2[ig])] = ig
-        _map_passes["store"] += self.ng()
+            # Clipped to the table, so that no bound wraps round
+            r1 = min(max(int(self.rank1[ig]), 0), len(table))
+            r2 = min(max(int(self.rank2[ig]) + 1, 0), len(table))
+            table[r1:max(r1, r2)] = ig
+        self.g_point = table[rank].cpu().numpy()
+        _map_passes["store"] += 1
 
     def print(self):
         logs.log(f"Single-gas data for {self.Molecule}:")
@@ -155,22 +166,40 @@ def overlap_g_points(gas_data: List[SingleGasData]) -> np.ndarray:
 
 
 def merged_g_point_map(gas_data: List[SingleGasData], ng: int,
-                       nwav: int) -> np.ndarray:
+                       nwav: int, device="cpu") -> np.ndarray:
     """Per-wavenumber merged g-point map (ref find_g_points.cpp:1459-1481).
 
     A wavenumber belongs to merged g-point ig if every gas's per-wavenumber
-    g-point lies within [g_min(ig), g_max(ig)]; later merged points win."""
-    g_point = np.full(nwav, -1, np.int32)
+    g-point lies within [g_min(ig), g_max(ig)]; later merged points win.
+    On ``device`` each wavenumber's tuple of per-gas g-points is folded,
+    gas by gas, into a compact id of the tuples that occur; the rule is
+    decided for those tuples on the host and the map gathered by id."""
+    ident = torch.zeros(nwav, dtype=torch.int64, device=device)
+    tuples = np.zeros((1, 0), np.int64)   # the empty tuple, before any gas
+    counts = np.array([nwav])
+    for g in gas_data:
+        gmap = torch.as_tensor(g.g_point).to(device).long()
+        radix = g.ng() + 1   # the gas's g-points, and -1
+        # ident < len(tuples) <= nwav, so the key cannot overflow
+        present, ident, counts = torch.unique(
+            ident * radix + (gmap + 1), return_inverse=True,
+            return_counts=True)
+        present = present.cpu().numpy()
+        tuples = np.column_stack([tuples[present // radix],
+                                  present % radix - 1])
+        counts = counts.cpu().numpy()
+        _map_passes["merged"] += 1
+    table = np.full(len(tuples), -1, np.int32)
     for ig in range(ng):
-        is_found = np.ones(nwav, bool)
-        for g in gas_data:
-            is_found &= ((g.g_point >= g.g_min[ig])
-                         & (g.g_point <= g.g_max[ig]))
+        is_found = np.ones(len(tuples), bool)
+        for k, g in enumerate(gas_data):
+            is_found &= ((tuples[:, k] >= g.g_min[ig])
+                         & (tuples[:, k] <= g.g_max[ig]))
         if not np.any(is_found):
             logs.warning(f"g point {ig} occupies none of the spectrum")
-        g_point[is_found] = ig
-    _map_passes["merged"] += ng * len(gas_data)
-    n_unassigned = int(np.sum(g_point == -1))
+        table[is_found] = ig
+    g_point = torch.from_numpy(table).to(device)[ident].cpu().numpy()
+    n_unassigned = int(counts[table == -1].sum())
     if n_unassigned:
         logs.warning(f"{n_unassigned} wavenumbers are not assigned to a "
                      "g point")

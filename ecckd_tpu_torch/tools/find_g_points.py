@@ -816,7 +816,7 @@ def _search_gas(gas: GasInput, hr_tol, tolerance_tolerance, max_iterations,
         sorting_variable=np.asarray(median_l))
     with logs.span("ecckd.find_g_points.store"):
         with logs.span("ecckd.find_g_points.store.map"):
-            gas_data.store_g_points(irank)
+            gas_data.store_g_points(irank, device)
         gas_data.print()
     return gas_data
 
@@ -885,7 +885,7 @@ def find_g_points_core(gases: Sequence[GasInput], heating_rate_tolerance,
                           else np.zeros(0))
             with logs.span("ecckd.find_g_points.overlap.map"):
                 g_point = merged_g_point_map(single_gas_data, ng,
-                                             len(wavenumber))
+                                             len(wavenumber), device)
             solar_irradiance = None
             if sw is not None:
                 solar_irradiance = np.zeros(ng)

@@ -11,8 +11,8 @@ path, an overlap that advances the wrong gas and per-gas maps of
 half-open intervals fail one; the reference
 gives the port's per-gas maps, merged g-points, ranges and merged map on
 seeded random g-points of 2, 3 and 7 gases over 2 and 5 bands;
-``map_counts()`` counts one pass a g-point of each gas and one a merged
-g-point and gas; the spans of the hypercube and the maps nest in the
+``map_counts()`` counts one pass a gas's store and one a gas of the
+merged map; the spans of the hypercube and the maps nest in the
 overlap and store spans under a profile, and only then; the benchmark's
 two readers of them give numbers, and None where the counter or span is
 absent.
@@ -133,12 +133,10 @@ def test_search_passes_every_limit(quiet, seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_map_counts_of_a_search(quiet, seed):
-    """One pass a g-point of each gas, one a merged g-point and gas."""
+    """One pass a gas's store (its gather), one a gas of the merged map
+    (its map read into the tuple ids)."""
     run = search(torch.float64, seed)
-    gp = run.answer[1]
-    ng = len(gp.band_number)
-    assert run.counts == {"store": sum(len(g.rank1) for g in gp.gases),
-                          "merged": ng * len(GASES)}
+    assert run.counts == {"store": len(GASES), "merged": len(GASES)}
     gas_data.reset_map_counts()
     assert gas_data.map_counts() == {"store": 0, "merged": 0}
 
@@ -345,11 +343,11 @@ def test_map_readers_give_numbers(traced):
     metrics = traced.result["metrics"]
     idle = metrics["map_idle_ms"]["value"]
     assert math.isfinite(idle) and idle > 0.0
-    # Set-up's search and the window's one, each of 9 g-points in all
+    # Set-up's search and the window's one: a store and a merged pass a
+    # gas, whatever the g-points
     assert traced.result["checks"]["g_point_count_gap"]["value"] == 0
-    ng = TINY["g_points"]
     passes = metrics["map_passes_per_search"]["value"]
-    assert passes == ng * len(GASES) + ng - 1 + len(GASES)
+    assert passes == 2 * len(GASES)
 
 
 def test_map_readers_give_none_without_counter_or_span(monkeypatch):
